@@ -18,6 +18,11 @@ _HYPOTHESIS_MODULES = ["test_accumulators.py", "test_sparse.py", "test_spgemm.py
 collect_ignore = [] if _HAVE_HYPOTHESIS else list(_HYPOTHESIS_MODULES)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (repro_torch kernels); skips without one")
+
+
 def pytest_report_header(config):
     if not _HAVE_HYPOTHESIS:
         return ("hypothesis not installed — skipping "

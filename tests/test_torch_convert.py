@@ -1,0 +1,134 @@
+"""Carrying state between the JAX package and repro_torch, and the boundary
+between them.
+
+A plan built by the reference replays in the port and a plan built by the
+port replays in the reference, both within rtol/atol 1e-5 of the other
+package's own replay. The port must import neither ``jax`` nor ``repro``.
+"""
+import ast
+import importlib
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.sparse import generators as jgen
+from repro_torch import convert
+from repro_torch.core import executor as texec
+
+jsp = importlib.import_module("repro.core.spgemm")
+tsp = importlib.import_module("repro_torch.core.spgemm")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_DIR = ROOT / "src" / "repro_torch"
+PLAN_FIELDS = ("indptr", "indices", "seg_ids", "a_slot_s", "b_slot_s")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _jax_csr_to_port(j):
+    return convert.csr_from_numpy(np.asarray(j.indptr), np.asarray(j.indices),
+                                  np.asarray(j.values), j.shape, device="cpu")
+
+
+def _operands():
+    r, a, p = jgen.galerkin_triple(10, 10, 4)
+    return a, p
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_lp"])
+def test_reference_plan_replays_in_the_port(backend):
+    ja, jp = _operands()
+    jres = jsp.spgemm(ja, jp, method="sparse", plan_cache=False)
+    plan = convert.plan_from_numpy(*(np.asarray(getattr(jres.plan, f)) for f in PLAN_FIELDS),
+                                   shape=jres.plan.shape, device="cpu")
+    ex = texec.ReuseExecutor(plan, backend=backend)
+    rng = np.random.default_rng(0)
+    av = rng.standard_normal(ja.nnz_cap).astype(np.float32)
+    want = np.asarray(jsp.numeric_reuse(jres.plan, jnp.asarray(av), jp.values))
+    got = ex.apply(torch.from_numpy(av), _jax_csr_to_port(jp).values)
+    np.testing.assert_allclose(want, got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_port_plan_replays_in_the_reference():
+    ja, jp = _operands()
+    ta, tp = _jax_csr_to_port(ja), _jax_csr_to_port(jp)
+    tres = tsp.spgemm(ta, tp, method="sparse", plan_cache=False)
+    arrays = convert.plan_to_numpy(tres.plan)
+    jplan = jsp.SpgemmPlan(*(jnp.asarray(arrays[f]) for f in PLAN_FIELDS),
+                           shape=arrays["shape"])
+    rng = np.random.default_rng(1)
+    av = rng.standard_normal(ja.nnz_cap).astype(np.float32)
+    want = tsp.numeric_reuse(tres.plan, torch.from_numpy(av), tp.values)
+    got = np.asarray(jsp.numeric_reuse(jplan, jnp.asarray(av), jp.values))
+    np.testing.assert_allclose(want.numpy(), got, rtol=1e-5, atol=1e-5)
+    # and the reference built the very same plan itself
+    jres = jsp.spgemm(ja, jp, method="sparse", plan_cache=False)
+    for f in PLAN_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(jres.plan, f)), arrays[f])
+
+
+def test_csr_round_trip_and_bf16_bits():
+    j = jgen.random_csr(20, 30, 3.0, 2)
+    vals_bf16 = np.asarray(j.values.astype(jnp.bfloat16))
+    t = convert.csr_from_numpy(np.asarray(j.indptr), np.asarray(j.indices), vals_bf16,
+                               j.shape, device="cpu")
+    assert t.values.dtype == torch.bfloat16
+    assert t.values.view(torch.int16).numpy().tobytes() == vals_bf16.tobytes()
+    back = convert.csr_to_numpy(t)
+    np.testing.assert_array_equal(back["indptr"], np.asarray(j.indptr))
+    np.testing.assert_array_equal(back["indices"], np.asarray(j.indices))
+    np.testing.assert_array_equal(back["values"], vals_bf16.astype(np.float32))
+    assert back["shape"] == tuple(j.shape)
+    f32 = convert.tensor_from_numpy(np.asarray(j.values), device="cpu")
+    assert convert.tensor_to_numpy(f32).tobytes() == np.asarray(j.values).tobytes()
+
+
+def _port_files():
+    return sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+
+
+def test_importing_every_port_module_never_loads_jax():
+    modules = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+    assert "repro_torch.core.executor" in modules and "repro_torch.convert" in modules
+    code = ("import importlib, sys\n"
+            f"for name in {modules!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr

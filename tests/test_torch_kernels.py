@@ -1,0 +1,226 @@
+"""The replay kernels' wrappers (K1 segsum_reuse, K2 lp_reuse) and their build.
+
+On the CPU each wrapper runs its plain version, which is held against the
+JAX package's host-loop oracle ``kernels.ref.segsum_reuse_ref`` (the
+reference's Pallas kernels cannot run interpreted on this jax). f32 within
+rtol/atol 1e-5; f16/bf16 operands against a float64 numpy oracle within
+8e-3 * S, S being the sum of |products| of a segment: the plain version adds
+in f32 and rounds once to the 8-bit-mantissa type. The tests marked ``cuda``
+hold each CUDA kernel against its plain version on the card and skip where
+there is none. This file imports JAX only inside the test that needs the
+reference, so that on a machine with a card and no JAX the ``cuda`` tests
+run with ``pytest --noconftest -m cuda tests/test_torch_kernels.py``.
+"""
+import ctypes
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import segsum_reuse as k1
+from repro_torch.kernels import spgemm_lp as k2
+from repro_torch.runtime.validate import KernelFallbackError, SpgemmInputError
+
+WRAPPERS = {
+    "segsum_reuse": (k1, k1.segsum_reuse_arrays, k1.segsum_reuse_plain),
+    "lp_reuse": (k2, k2.lp_reuse_arrays, k2.lp_reuse_plain),
+}
+# (fm, nnz_cap, na, nb, tail, long_run): fm not a multiple of either tile,
+# a sentinel tail, one segment spanning several tiles, a single product
+PLANS = [(1003, 301, 200, 150, 37, 400), (37, 11, 9, 13, 5, 0), (1, 1, 1, 1, 0, 0),
+         (640, 5, 7, 7, 0, 600)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def cuda():
+    """The card, for tests marked ``cuda``; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpret mode")
+    return torch.device("cuda")
+
+
+def _plan(fm, nnz_cap, na, nb, tail, long_run, seed):
+    """numpy int32 plan arrays: sorted segments with random runs, one run of
+    ``long_run`` products, ``tail`` sentinel products; random slots."""
+    rng = np.random.default_rng(seed)
+    live = fm - tail
+    seg = np.sort(rng.integers(0, nnz_cap, live))
+    if long_run and live > long_run + 2:
+        seg[1:1 + long_run] = seg[1]
+        seg = np.sort(seg)
+    seg = np.concatenate([seg, np.full(tail, nnz_cap)]).astype(np.int32)
+    a_slot = rng.integers(0, na, fm).astype(np.int32)
+    b_slot = rng.integers(0, nb, fm).astype(np.int32)
+    return a_slot, b_slot, seg
+
+
+def _oracle64(a_slot, b_slot, seg, a, b, nnz_cap):
+    """float64 sums and sums of |products| per segment (numpy)."""
+    live = seg < nnz_cap
+    prod = a.astype(np.float64)[a_slot[live]] * b.astype(np.float64)[b_slot[live]]
+    out = np.zeros(nnz_cap)
+    scale = np.zeros(nnz_cap)
+    np.add.at(out, seg[live], prod)
+    np.add.at(scale, seg[live], np.abs(prod))
+    return out, scale
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+@pytest.mark.parametrize("plan", PLANS, ids=lambda p: f"fm{p[0]}")
+def test_f32_replay_matches_reference_oracle(name, plan):
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+
+    mod, arrays, _ = WRAPPERS[name]
+    fm, nnz_cap, na, nb, tail, long_run = plan
+    a_slot, b_slot, seg = _plan(*plan, seed=fm)
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal(na).astype(np.float32)
+    b = rng.standard_normal(nb).astype(np.float32)
+    want = np.asarray(jref.segsum_reuse_ref(a_slot, b_slot, seg, jnp.asarray(a),
+                                            jnp.asarray(b), nnz_cap))
+    launches = mod.LAUNCHES
+    got = arrays(*(torch.from_numpy(x) for x in (a_slot, b_slot, seg, a, b)),
+                 nnz_cap=nnz_cap)
+    assert mod.LAUNCHES == launches  # CPU tensors never reach the kernel
+    assert got.dtype == torch.float32 and got.shape == (nnz_cap,)
+    np.testing.assert_allclose(want, got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.bfloat16),
+                                    (torch.float16, torch.float16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float16, torch.bfloat16)],
+                         ids=["bf16", "f16", "bf16xf32", "f16xbf16"])
+def test_half_precision_replay_against_float64(name, dtypes):
+    _, arrays, plain = WRAPPERS[name]
+    plan = PLANS[0]
+    a_slot, b_slot, seg = (torch.from_numpy(x) for x in _plan(*plan, seed=3))
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(plan[2], generator=g).to(dtypes[0])
+    b = torch.randn(plan[3], generator=g).to(dtypes[1])
+    got = arrays(a_slot, b_slot, seg, a, b, nnz_cap=plan[1])
+    assert got.dtype == torch.promote_types(*dtypes)
+    torch.testing.assert_close(got, plain(a_slot, b_slot, seg, a, b, plan[1]),
+                               rtol=0, atol=0)
+    want, scale = _oracle64(a_slot.numpy(), b_slot.numpy(), seg.numpy(),
+                            a.double().numpy(), b.double().numpy(), plan[1])
+    tol = 8e-3 if got.dtype != torch.float32 else 1e-5
+    assert np.all(np.abs(got.double().numpy() - want) <= tol * scale + 1e-6)
+
+
+def test_both_plain_versions_are_one_function():
+    a_slot, b_slot, seg = (torch.from_numpy(x) for x in _plan(*PLANS[0], seed=4))
+    a = torch.randn(PLANS[0][2])
+    b = torch.randn(PLANS[0][3])
+    torch.testing.assert_close(k1.segsum_reuse_plain(a_slot, b_slot, seg, a, b, 301),
+                               k2.lp_reuse_plain(a_slot, b_slot, seg, a, b, 301),
+                               rtol=0, atol=0)
+
+
+def _good_args():
+    a_slot, b_slot, seg = (torch.from_numpy(x) for x in _plan(*PLANS[1], seed=5))
+    return [a_slot, b_slot, seg, torch.randn(9), torch.randn(13)]
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+@pytest.mark.parametrize("bad", [
+    ("a_slot_s", lambda t: t.long()),
+    ("seg_ids", lambda t: t.float()),
+    ("a_values", lambda t: t.double()),
+    ("b_values", lambda t: t.to(torch.int32)),
+    ("b_slot_s", lambda t: t[:-1]),
+    ("a_values", lambda t: t.reshape(1, -1)),
+    ("b_values", lambda t: t.repeat(2)[::2]),
+    ("a_values", lambda t: t[:0]),
+    ("seg_ids", lambda t: t.numpy()),
+], ids=lambda b: b[0] if isinstance(b, tuple) else None)
+def test_wrappers_refuse_what_the_kernels_do_not_take(name, bad):
+    _, arrays, _ = WRAPPERS[name]
+    args = _good_args()
+    idx = ["a_slot_s", "b_slot_s", "seg_ids", "a_values", "b_values"].index(bad[0])
+    args[idx] = bad[1](args[idx])
+    with pytest.raises(SpgemmInputError):
+        arrays(*args, nnz_cap=11)
+    with pytest.raises(SpgemmInputError):
+        arrays(*_good_args(), nnz_cap=-1)
+
+
+def test_build_names_libraries_by_content_and_raises_without_nvcc(monkeypatch, tmp_path):
+    paths = {name: _build.library_path(name) for name in _build.SOURCES}
+    for name, path in paths.items():
+        assert re.fullmatch(rf"lib{name}-[0-9a-f]{{16}}\.so", path.name)
+        assert path.parent == _build.BUILD_DIR
+        assert _build.library_path(name) == path  # deterministic
+    assert paths["segsum_reuse"].name.split("-")[1] != paths["lp_reuse"].name.split("-")[1]
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared"):
+        assert flag in _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build, "Path", lambda *_: tmp_path / "no-nvcc")
+    with pytest.raises(KernelFallbackError, match="nvcc"):
+        _build.build()
+
+
+def test_c_interfaces_match_the_ctypes_signature():
+    """Every library exports <name>_launch with the argument list the
+    wrapper declares, and <name>_error_string."""
+    common = (_build.CSRC_DIR / "replay_common.cuh").read_text()
+    api = common[common.index("#define REPLAY_C_API"):]
+    params = re.search(r"NAME##_launch\((.*?)\)\s*\{", api.replace("\\\n", ""),
+                       re.S).group(1)
+    c_types = {"ptr": ctypes.c_void_p, "int64_t": ctypes.c_int64, "int": ctypes.c_int}
+    declared = ["ptr" if "*" in p else p.split()[0] for p in params.split(",")]
+    assert [c_types[t] for t in declared] == k1._ARGTYPES
+    for name in _build.SOURCES:
+        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        assert re.search(rf"REPLAY_C_API\({name},", src)
+        assert "sm_90a" in src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "bf16xf32"])
+def test_kernel_matches_plain_on_the_card(cuda, name, dtypes):
+    mod, arrays, plain = WRAPPERS[name]
+    for plan in PLANS + [(200_003, 30_011, 5000, 7000, 77, 5000)]:
+        a_slot, b_slot, seg = (torch.from_numpy(x).to(cuda) for x in _plan(*plan, seed=6))
+        g = torch.Generator(device=cuda).manual_seed(0)
+        a = torch.randn(plan[2], generator=g, device=cuda).to(dtypes[0])
+        b = torch.randn(plan[3], generator=g, device=cuda).to(dtypes[1])
+        launches = mod.LAUNCHES
+        got = arrays(a_slot, b_slot, seg, a, b, nnz_cap=plan[1])
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == launches + 1
+        want = plain(a_slot, b_slot, seg, a, b, plan[1])
+        scale = plain(a_slot, b_slot, seg, a.float().abs(), b.float().abs(), plan[1])
+        tol = 1e-4 if want.dtype == torch.float32 else 8e-3
+        assert got.dtype == want.dtype
+        assert bool(((got.double() - want.double()).abs()
+                     <= tol * scale.double() + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_kernel_refuses_f64_and_mixed_devices_on_the_card(cuda, name):
+    _, arrays, _ = WRAPPERS[name]
+    args = [t.to(cuda) for t in _good_args()]
+    with pytest.raises(SpgemmInputError):
+        arrays(*args[:3], args[3].double(), args[4], nnz_cap=11)
+    with pytest.raises(SpgemmInputError):
+        arrays(*args[:3], args[3].cpu(), args[4], nnz_cap=11)
