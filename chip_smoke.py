@@ -2,7 +2,7 @@
 """Run the PyTorch port's main path on one CUDA card and check it end to end.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --kernels-only   # phases 1-2: build + kernel vs plain
+    python3 chip_smoke.py --kernels-only   # phases 1-2: build + kernels vs plain
     python3 chip_smoke.py --profile        # adds a device-time breakdown per path
 
 Phases, in order:
@@ -10,7 +10,11 @@ Phases, in order:
      (one nvcc per CUDA source, all started together);
   2. each replay kernel against its plain torch version on synthetic plans
      (fm not a multiple of the tile, a sentinel tail, one segment spanning
-     many blocks; f32, bf16, f16 and mixed values);
+     many blocks; f32, bf16, f16 and mixed values), and K5, K4 and K3
+     against theirs on synthetic ELL operands (widths of no tile, garbage
+     past a_nnz/b_nnz, k = 70,001 over several shared-memory passes, rows
+     whose LP tables live in device memory, a forced 16-slot L1 that spills,
+     k < 32; the same dtypes);
   3. multigrid Reuse, the paper's R*A*P: galerkin_triple(2048, 2048, 4).
      Fresh AP = A*P and RAP = R*AP through spgemm(method="sparse"), held
      against scipy (structure exactly, values in float64), then five time
@@ -23,10 +27,23 @@ Phases, in order:
      phases 3 and 4, each kernel's bound at 3.35 TB/s, a fresh spgemm and a
      replay end to end, and torch.sparse.mm on the same operands as a
      yardstick for the fresh multiply (the port never calls it);
-  6. one JSON line of the kernels; the last line is the result.
+  6. the kernel-backed two-phase path (kernels/ops) on the same RMAT-16
+     A*A: pallas_spgemm(kernel="auto") runs K5 + K3, numeric_values(kernel=
+     "dense_acc") K4 on the same structure; K5's row sizes against the sort
+     path and scipy exactly, both value sets against scipy, each kernel
+     against its plain version on a row sample with the widest rows;
+  7. the same on multigrid A*P, galerkin_triple(512, 512, 4) (B's bitmask is
+     n * ceil(k/32) words: 2 GiB here, 512 GiB at phase 3's grid): "auto"
+     runs K5 + K4, "flat_lp" K3; plain versions on every row;
+  8. spgemm(method="auto") on rmat_csr(13, 8) A*A picks the dense method
+     (plain torch; the reference has no kernel there), against scipy;
+  9. K3, K4 and K5 timed at the shapes of phases 6 and 7 beside their plain
+     versions, bounds, torch.sparse.mm (K3, K4) and choose_kernel's pick,
+     and K3 and K4 on the rows whose K3 tables live in device memory alone;
+ 10. one JSON line of the kernels; the last line is the result.
 
-The launch counters are set to 0 just before phases 3 and 4 drive the main
-path and read just after. Any failed check raises, so the script exits
+The launch counters are set to 0 just before phases 3, 4, 6 and 7 drive the
+main path and read just after. Any failed check raises, so the script exits
 non-zero and prints no result. It needs torch, numpy and scipy; it exits
 non-zero when no CUDA card is visible or when the repo's src/ is missing.
 """
@@ -384,10 +401,11 @@ def phase_powerlaw(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
     log(f"   K2 vs plain: max |kernel - plain| {worst:.3e}")
     t0 = time.perf_counter()
     a_s = to_scipy(a)
-    check_against_scipy("A*A (normal)", res.c, a_s @ a_s, abs(a_s) @ abs(a_s))
+    ref, scale = a_s @ a_s, abs(a_s) @ abs(a_s)
+    check_against_scipy("A*A (normal)", res.c, ref, scale)
     log(f"   scipy check: {time.perf_counter() - t0:.2f} s")
     out.update(powerlaw_launches=launches, powerlaw_worst=worst, rmat=a, rmat_res=res,
-               rmat_ex=ex, rmat_nnz=nnz)
+               rmat_ex=ex, rmat_nnz=nnz, rmat_scipy=(ref, scale))
 
 
 def phase_times(rt, seg_mod, lp_mod, seed: int, mg: dict, pw: dict) -> dict:
@@ -432,14 +450,6 @@ def phase_times(rt, seg_mod, lp_mod, seed: int, mg: dict, pw: dict) -> dict:
         "replay A*A (pallas_lp)": wall_ms(
             lambda: pw["rmat_ex"].apply(rm.values, rm.values), reps=7),
     }
-
-    def sparse_mm(x, y):
-        def csr_t(c):
-            nnz = int(c.indptr[-1])
-            return torch.sparse_csr_tensor(c.indptr.long(), c.indices[:nnz].long(),
-                                           c.values[:nnz], size=c.shape)
-        xt, yt = csr_t(x), csr_t(y)
-        return lambda: torch.sparse.mm(xt, yt)
 
     from repro_torch.core.plan_cache import structure_key
     from repro_torch.core.spgemm import prepare_sparse_inputs
@@ -493,6 +503,386 @@ def phase_profile(rt, mg: dict, pw: dict) -> None:
             log(f"      {us / 1e3:9.3f} ms  x{count:<3d} host: {key[:84]}")
 
 
+# ---------------------------------------------------------------------------
+# The kernel-backed two-phase path (kernels/ops): K5, K4 and K3
+# ---------------------------------------------------------------------------
+
+ELL_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float16, torch.float16), (torch.bfloat16, torch.float32)]
+OPS_KERNELS = ("spgemm_symbolic", "spgemm_numeric", "spgemm_lp")
+
+
+def ell_tol(dtype):
+    return F32_TOL if dtype == torch.float32 else BF16_TOL
+
+
+def reset_launches(km) -> None:
+    km.seg.LAUNCHES = km.lp.LAUNCHES = km.lp.NUMERIC_LAUNCHES = 0
+    km.sym.LAUNCHES = km.num.LAUNCHES = 0
+    km.ops.reset_kernel_counts()
+
+
+def read_launches(km) -> dict:
+    return {"segsum_reuse": km.seg.LAUNCHES, "lp_reuse": km.lp.LAUNCHES,
+            "spgemm_symbolic": km.sym.LAUNCHES, "spgemm_numeric": km.num.LAUNCHES,
+            "spgemm_lp": km.lp.NUMERIC_LAUNCHES}
+
+
+def synthetic_ell(m, n, k, r_a, r_b, g, dev):
+    """ELL operands with garbage past a_nnz and b_nnz: A's padded slots hold
+    column ids up to 3n, B's up to 2k (the kernels mask them; K4's contract
+    gives B's padded slots the value 0, set by the caller). A row's live B
+    columns are distinct (base + step * t mod k). Row m // 2 of A is full, so
+    its C row is among the widest."""
+    a_nnz = torch.randint(0, r_a + 1, (m,), generator=g, device=dev, dtype=torch.int32)
+    a_nnz[m // 2] = r_a
+    a_live = torch.arange(r_a, device=dev)[None, :] < a_nnz[:, None]
+    a_idx = torch.randint(0, 3 * n, (m, r_a), generator=g, device=dev)
+    a_idx = torch.where(a_live, a_idx % n, a_idx).to(torch.int32)
+    b_nnz = torch.randint(0, r_b + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+    b_live = torch.arange(r_b, device=dev)[None, :] < b_nnz[:, None]
+    base = torch.randint(0, k, (n, 1), generator=g, device=dev)
+    step = torch.randint(1, max(k // r_b, 1) + 1, (n, 1), generator=g, device=dev)
+    cols = (base + step * torch.arange(r_b, device=dev)[None, :]) % k
+    junk = torch.randint(0, 2 * k, (n, r_b), generator=g, device=dev)
+    b_idx = torch.where(b_live, cols, junk).to(torch.int32)
+    return a_idx, a_nnz, b_idx, b_nnz, b_live
+
+
+def ell_structure(a_idx, a_nnz, b_idx, b_nnz, k):
+    """C's symbolic structure from ELL operands: (c_idx, c_nnz), each row's
+    distinct columns in ascending order."""
+    m, r_a = a_idx.shape
+    dev = a_idx.device
+    rows, rs = torch.nonzero(torch.arange(r_a, device=dev)[None, :] < a_nnz[:, None],
+                             as_tuple=True)
+    j = a_idx[rows, rs].long()
+    ok = torch.arange(b_idx.shape[1], device=dev)[None, :] < b_nnz[j][:, None]
+    keys = torch.unique((rows[:, None] * k + b_idx[j].long())[ok])
+    c_rows = keys // k
+    c_nnz = torch.bincount(c_rows, minlength=m).to(torch.int32)
+    start = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(c_nnz, 0)
+    c_idx = torch.zeros(m, max(int(c_nnz.max()), 1), dtype=torch.int32, device=dev)
+    c_idx[c_rows, torch.arange(keys.shape[0], device=dev) - start[c_rows]] = (
+        keys % k).to(torch.int32)
+    return c_idx, c_nnz
+
+
+def ell_csr(rt, nnz, idx, vals, shape):
+    """The live slots of an ELL array as a CSR (rows in order)."""
+    mask = torch.arange(idx.shape[1], device=idx.device)[None, :] < nnz[:, None]
+    indptr = torch.zeros(shape[0] + 1, dtype=torch.int32, device=idx.device)
+    indptr[1:] = torch.cumsum(nnz, 0)
+    return rt.CSR(indptr, idx[mask], vals[mask], shape)
+
+
+def check_ell_kernels(km, name, args, k, l1_size, worst, want_sizes=None) -> None:
+    """K5, K4 (with and without b_nnz) and K3 against their plain versions on
+    one set of ELL inputs, in every dtype pair."""
+    a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx, c_nnz, bm = args
+    got = km.sym.spgemm_symbolic(a_idx, a_nnz, bm)
+    want = km.sym.spgemm_symbolic_plain(a_idx, a_nnz, bm)
+    require(torch.equal(got, want), f"{name}: spgemm_symbolic differs from its plain version")
+    if want_sizes is not None:
+        require(torch.equal(got, want_sizes), f"{name}: K5 row sizes differ from C's structure")
+    g = torch.Generator(device=a_idx.device).manual_seed(int(k))
+    for adt, bdt in ELL_DTYPES:
+        a_val = torch.randn(a_idx.shape, generator=g, device=a_idx.device).to(adt)
+        b_val = torch.randn(b_idx.shape, generator=g, device=a_idx.device).to(bdt)
+        b_val0 = torch.where(b_live, b_val, torch.zeros((), dtype=bdt, device=b_val.device))
+        tag = f"{str(adt)[6:]}x{str(bdt)[6:]}"
+        # K4: out in A's dtype; B's padded slots carry 0
+        scale = km.num.spgemm_numeric_plain(a_idx, a_val.float().abs(), a_nnz, b_idx,
+                                            b_val0.float().abs(), c_idx, c_nnz, k=k)
+        want = km.num.spgemm_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val0, c_idx,
+                                           c_nnz, k=k)
+        for bn in ((None, b_nnz) if adt == bdt == torch.float32 else (b_nnz,)):
+            got = km.num.spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val0, c_idx, c_nnz,
+                                        k=k, b_nnz=bn)
+            require(got.dtype == want.dtype == adt, f"K4 output dtype {got.dtype}")
+            err = tolerance_check(f"{name} spgemm_numeric {tag}", got, want, scale,
+                                  ell_tol(adt))
+            worst["spgemm_numeric"] = max(worst["spgemm_numeric"], err)
+        # K3: out in promote_types(a, b); B's padded slots masked by b_nnz
+        out_dt = torch.promote_types(adt, bdt)
+        scale = km.lp.spgemm_lp_plain(a_idx, a_val.float().abs(), a_nnz, b_idx,
+                                      b_val.float().abs(), b_nnz, c_idx, c_nnz, k=k)
+        want = km.lp.spgemm_lp_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
+                                     c_nnz, l1_size=l1_size, k=k)
+        got = km.lp.spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                              l1_size=l1_size, k=k)
+        require(got.dtype == want.dtype == out_dt, f"K3 output dtype {got.dtype}")
+        err = tolerance_check(f"{name} spgemm_lp {tag}", got, want, scale, ell_tol(out_dt))
+        worst["spgemm_lp"] = max(worst["spgemm_lp"], err)
+        log(f"   {name} {tag}: K4 and K3 == plain within tolerance")
+
+
+def phase_ell_kernels_vs_plain(rt, km, seed: int) -> dict:
+    worst = {name: 0.0 for name in OPS_KERNELS}
+    g = torch.Generator(device="cuda").manual_seed(seed + 10)
+    cases = [  # (m, n, k, r_a, r_b, l1_size)
+        (300, 400, 70_001, 131, 201, None),  # K4: 5 passes; K3: rows in device memory
+        (300, 400, 70_001, 131, 201, 16),  # K3 with a forced 16-slot L1: rows spill
+        (9, 5, 13, 3, 5, None),  # k < 32
+    ]
+    for m, n, k, r_a, r_b, l1_size in cases:
+        a_idx, a_nnz, b_idx, b_nnz, b_live = synthetic_ell(m, n, k, r_a, r_b, g, "cuda")
+        c_idx, c_nnz = ell_structure(a_idx, a_nnz, b_idx, b_nnz, k)
+        b_csr = ell_csr(rt, b_nnz, b_idx, torch.ones(b_idx.shape, device="cuda"), (n, k))
+        bm = rt.bitmask_rows(b_csr)
+        slots = km.lp.lp_table_slots(c_nnz, c_idx.shape[1], l1_size)
+        classes = [int(((slots > km.lp.SMALL_SLOTS).int() + (slots > km.lp.MID_SLOTS).int()
+                        == c).sum()) for c in range(3)]
+        name = f"ell m={m} k={k} l1={l1_size}"
+        log(f"   {name}: rA {r_a}, rB {r_b}, widest C row {int(c_nnz.max())}; K3 rows per "
+            f"table class (16 KiB, 128 KiB, device memory): {classes}")
+        if k > 16384:
+            require(classes[2] > 0, f"{name}: no row needs a device-memory table")
+        check_ell_kernels(km, name, (a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx, c_nnz, bm),
+                          k, l1_size, worst, want_sizes=c_nnz)
+    torch.cuda.synchronize()
+    return worst
+
+
+def sample_rows(c_nnz, count: int, g) -> torch.Tensor:
+    """The ``count // 8`` widest rows and random others, sorted."""
+    top = torch.topk(c_nnz, count // 8).indices
+    rest = torch.randint(0, c_nnz.shape[0], (count - top.shape[0],), generator=g,
+                         device=c_nnz.device)
+    return torch.unique(torch.cat([top, rest]))
+
+
+def check_ops_result(rt, km, name, a, b, sizes, c_nnz, c_idx, values, ref, scale,
+                     g, sample: int | None) -> dict:
+    """Hold one run of kernels/ops against scipy (K5's sizes exactly, C's
+    structure exactly, values within 1e-4 * S + 1e-6) and each kernel against
+    its plain version on all rows (``sample`` None) or on a row sample that
+    includes the widest rows."""
+    require(torch.equal(sizes, c_nnz), f"{name}: K5's row sizes differ from the sort path's")
+    scipy_sizes = np.diff(scale.indptr)
+    require(np.array_equal(sizes.cpu().numpy(), scipy_sizes),
+            f"{name}: K5's row sizes differ from scipy's")
+    log(f"   {name}: K5 row sizes == sort path == scipy (nnz {int(sizes.sum())}, widest "
+        f"row {int(sizes.max())})")
+    shape = (a.shape[0], b.shape[1])
+    for label, vals in values.items():
+        c = ell_csr(rt, c_nnz, c_idx, vals, shape)
+        if label == next(iter(values)):
+            check_against_scipy(f"{name} structure", rt.CSR(c.indptr, c.indices,
+                                                             c.values.abs() + 1, shape), scale)
+        check_against_scipy(f"{name} {label}", c, ref, scale)
+        del c
+    ea, eb = rt.csr_to_ell(a), rt.csr_to_ell(b)
+    rows = (torch.arange(a.shape[0], device="cuda") if sample is None
+            else sample_rows(c_nnz, sample, g))
+    bm = rt.bitmask_rows(b)
+    a_idx, a_val, a_nnz = ea.indices[rows], ea.values[rows], ea.row_nnz[rows]
+    ci, cn = c_idx[rows].contiguous(), c_nnz[rows]
+    worst = {}
+    got = km.sym.spgemm_symbolic_plain(a_idx, a_nnz, bm)
+    require(torch.equal(got, sizes[rows]), f"{name}: K5 differs from its plain version")
+
+    def plain(kname, av, bv):
+        if kname == "spgemm_lp":
+            return km.lp.spgemm_lp_plain(a_idx, av, a_nnz, eb.indices, bv, eb.row_nnz, ci,
+                                         cn, k=b.shape[1])
+        return km.num.spgemm_numeric_plain(a_idx, av, a_nnz, eb.indices, bv, ci, cn,
+                                           k=b.shape[1], b_nnz=eb.row_nnz)
+
+    for label, vals in values.items():
+        kname = "spgemm_lp" if "K3" in label else "spgemm_numeric"
+        worst[kname] = tolerance_check(
+            f"{name} {label} vs plain", vals[rows], plain(kname, a_val, eb.values),
+            plain(kname, a_val.abs(), eb.values.abs()), F32_TOL)
+    log(f"   {name}: K5, K3 and K4 == their plain versions on "
+        f"{'all' if sample is None else rows.shape[0]} rows (widest included); "
+        f"max |kernel - plain| {worst}")
+    return worst
+
+
+def phase_ops_powerlaw(rt, km, seed: int, pw: dict, out: dict) -> None:
+    a = pw["rmat"]
+    ref, scale = pw["rmat_scipy"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    reset_launches(km)
+    t0 = time.perf_counter()
+    # the main path: the kernel-backed two-phase product, auto then dense_acc
+    sizes = km.ops.symbolic_rowsizes(a, a)
+    c_nnz, c_idx, v_auto = km.ops.pallas_spgemm(a, a, kernel="auto")
+    v_dense = km.ops.numeric_values(a, a, c_idx, c_nnz, kernel="dense_acc")
+    torch.cuda.synchronize()
+    launches = read_launches(km)
+    picks = dict(km.ops.KERNEL_COUNTS)
+    log(f"   main path {time.perf_counter() - t0:.2f} s; launches {launches}; numeric "
+        f"kernels {picks}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    require(launches == {"segsum_reuse": 0, "lp_reuse": 0, "spgemm_symbolic": 2,
+                         "spgemm_numeric": 1, "spgemm_lp": 1}, f"launches {launches}")
+    require(picks == {"flat_lp": 1, "dense_acc": 1}, f"numeric kernels {picks}")
+    worst = check_ops_result(rt, km, "A*A kernels/ops", a, a, sizes, c_nnz, c_idx,
+                             {"K3 (auto)": v_auto, "K4 (dense_acc)": v_dense}, ref, scale,
+                             g, sample=64)
+    out.update(launches=launches, worst=worst, c_idx=c_idx, c_nnz=c_nnz)
+
+
+def phase_ops_multigrid(rt, km, seed: int, out: dict) -> None:
+    t0 = time.perf_counter()
+    r, a, p = rt.galerkin_triple(512, 512, agg_size=4, device="cuda")
+    del r
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    vals = torch.randn(a.nnz_cap, generator=g, device="cuda")
+    a = with_values(a, torch.where(vals == 0, 1.0, vals))  # no exact 0: |A|*|P| keeps C's structure
+    log(f"   galerkin_triple(512, 512, 4): A {a.shape} nnz {int(a.indptr[-1])}, P {p.shape}; "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    reset_launches(km)
+    sizes = km.ops.symbolic_rowsizes(a, p)
+    c_nnz, c_idx, v_auto = km.ops.pallas_spgemm(a, p, kernel="auto")
+    v_lp = km.ops.numeric_values(a, p, c_idx, c_nnz, kernel="flat_lp")
+    torch.cuda.synchronize()
+    launches = read_launches(km)
+    picks = dict(km.ops.KERNEL_COUNTS)
+    log(f"   launches {launches}; numeric kernels {picks}")
+    require(launches == {"segsum_reuse": 0, "lp_reuse": 0, "spgemm_symbolic": 2,
+                         "spgemm_numeric": 1, "spgemm_lp": 1}, f"launches {launches}")
+    require(picks == {"dense_acc": 1, "flat_lp": 1}, f"numeric kernels {picks}")
+    a_s, p_s = to_scipy(a), to_scipy(p)
+    worst = check_ops_result(rt, km, "A*P kernels/ops", a, p, sizes, c_nnz, c_idx,
+                             {"K4 (auto)": v_auto, "K3 (flat_lp)": v_lp}, a_s @ p_s,
+                             abs(a_s) @ abs(p_s), g, sample=None)
+    out.update(launches=launches, worst=worst, a=a, p=p, c_idx=c_idx, c_nnz=c_nnz)
+
+
+def phase_dense_method(rt, seed: int) -> dict:
+    a = rt.rmat_csr(13, 8, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    res = rt.spgemm(a, a)
+    torch.cuda.synchronize()
+    st = res.stats
+    log(f"   rmat_csr(13, 8) A*A, method='auto': {time.perf_counter() - t0:.2f} s; method "
+        f"{st['method']}, dense_bytes {st['dense_bytes']}, cf {st['cf']:.3f} (compressed "
+        f"{st['compressed']}), fm {st['fm']}, nnz {st['nnz_c']}")
+    require(st["method"] == "dense" and res.plan is None, f"method {st['method']}")
+    a_pos = with_values(a, a.values.abs() + 0.5)
+    pos = rt.spgemm(a_pos, a_pos, method="dense")
+    a_s, a_p = to_scipy(a), to_scipy(a_pos)
+    check_against_scipy("dense A*A (positive)", pos.c, a_p @ a_p)
+    check_against_scipy("dense A*A (normal)", res.c, a_s @ a_s, abs(a_s) @ abs(a_s))
+    return {"stats": {k: st[k] for k in ("method", "dense_bytes", "cf", "compressed", "fm",
+                                         "nnz_c")}}
+
+
+def ell_bounds(fm, nnz_a, m, nnz_b, n, nnz_c):
+    """(bound ms, what bounds it) of K3/K4: A's and B's live ELL entries
+    (index + f32 value), their widths, C's live structure and values and its
+    widths, each once, at 3.35 TB/s; 2 flops per product at 67 TFLOP/s."""
+    t_bytes = (8 * (nnz_a + nnz_b) + 4 * (m + n) + 8 * nnz_c + 4 * m) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * fm / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def symbolic_bound(nnz_a, m, n, k32):
+    """(bound ms, what bounds it) of K5: A's live column ids and widths, B's
+    bitmask and the row sizes once at 3.35 TB/s; one OR per (live A entry,
+    word) and one popcount per (row, word) as 32-bit operations at the
+    67 T/s of the table's non-tensor f32 rate."""
+    t_bytes = (4 * nnz_a + 8 * m + 4 * n * k32) / HBM_BYTES_PER_S * 1e3
+    t_ops = (nnz_a + m) * k32 / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_ops_times(rt, km, shapes: dict) -> dict:
+    """Each kernel at each shape on the main path's bucketed operands (median
+    of 7, CUDA events), its plain version (median of ``plain_reps``), its
+    bound, and torch.sparse.mm on the same CSR operands as the yardstick of
+    K3 and K4 (the whole product, structure included)."""
+    from repro_torch.core.meta import choose_kernel, round_capacity
+    from repro_torch.kernels.spgemm_numeric import _pad_width
+
+    times = {}
+    for label, (a, b, c_idx, c_nnz, plain_reps) in shapes.items():
+        ea, eb = rt.csr_to_ell(a), rt.csr_to_ell(b)
+        bm = rt.bitmask_rows(b)
+        k = b.shape[1]
+        # the operands as numeric_values' bucketed wrappers pad them
+        a_idx = _pad_width(ea.indices, round_capacity(ea.r_pad))
+        a_val = _pad_width(ea.values, a_idx.shape[1])
+        b_idx = _pad_width(eb.indices, round_capacity(eb.r_pad))
+        b_val = _pad_width(eb.values, b_idx.shape[1])
+        c_idx_p = _pad_width(c_idx, round_capacity(c_idx.shape[1]))
+        kern = {
+            "spgemm_symbolic": lambda: km.sym.spgemm_symbolic(a_idx, ea.row_nnz, bm),
+            "spgemm_lp": lambda: km.lp.spgemm_lp(a_idx, a_val, ea.row_nnz, b_idx, b_val,
+                                                 eb.row_nnz, c_idx_p, c_nnz, k=k),
+            "spgemm_numeric": lambda: km.num.spgemm_numeric(a_idx, a_val, ea.row_nnz, b_idx,
+                                                            b_val, c_idx_p, c_nnz, k=k,
+                                                            b_nnz=eb.row_nnz),
+        }
+        plain = {
+            "spgemm_symbolic": lambda: km.sym.spgemm_symbolic_plain(ea.indices, ea.row_nnz, bm),
+            "spgemm_lp": lambda: km.lp.spgemm_lp_plain(ea.indices, ea.values, ea.row_nnz,
+                                                       eb.indices, eb.values, eb.row_nnz,
+                                                       c_idx, c_nnz, k=k),
+            "spgemm_numeric": lambda: km.num.spgemm_numeric_plain(
+                ea.indices, ea.values, ea.row_nnz, eb.indices, eb.values, c_idx, c_nnz,
+                k=k, b_nnz=eb.row_nnz),
+        }
+        row = {name: {"ms": time_ms(fn)} for name, fn in kern.items()}
+        for name, fn in plain.items():
+            row[name]["plain_ms"] = time_ms(fn, reps=plain_reps)
+        nnz_a, nnz_b = int(a.indptr[-1]), int(b.indptr[-1])
+        fm = int(rt.flops_stats(a, b.row_nnz())[0])
+        nnz_c = int(c_nnz.sum())
+        m, n = a.shape[0], b.shape[0]
+        lib = time_ms(sparse_mm(a, b))
+        for name in ("spgemm_lp", "spgemm_numeric"):
+            row[name]["bound_ms"], row[name]["bound_by"] = ell_bounds(fm, nnz_a, m, nnz_b,
+                                                                      n, nnz_c)
+            row[name]["library_ms"] = lib
+        sb = symbolic_bound(nnz_a, m, n, bm.shape[1])
+        row["spgemm_symbolic"].update(bound_ms=sb[0], bound_by=sb[1], library_ms=None)
+        pick = choose_kernel(a, b, {"fm": fm})
+        times[label] = row
+        log(f"   {label}: fm {fm}, nnz(C) {nnz_c}, rA {ea.r_pad}, rB {eb.r_pad}, rC "
+            f"{c_idx.shape[1]}, k32 {bm.shape[1]}; choose_kernel -> {pick}")
+        for name, r in row.items():
+            lib_s = ("null: no PyTorch call computes row sizes alone" if r["library_ms"] is None
+                     else f"{r['library_ms']:.3f} ms (torch.sparse.mm, the whole product)")
+            log(f"      {name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms (median of "
+                f"{plain_reps}), bound {r['bound_ms']:.3f} ms "
+                f"({r['bound_by']}), library {lib_s}")
+        log(f"      K3 / K4 = {row['spgemm_lp']['ms'] / row['spgemm_numeric']['ms']:.2f} "
+            f"(choose_kernel picks {pick})")
+        # where K3's time goes: the rows whose tables live in device memory
+        wide = torch.nonzero(km.lp.lp_table_slots(c_nnz, c_idx_p.shape[1], None)
+                             > km.lp.MID_SLOTS).flatten()
+        if wide.numel():
+            wa = (a_idx[wide], a_val[wide], ea.row_nnz[wide])
+            wc = (c_idx_p[wide], c_nnz[wide])
+            k3w = time_ms(lambda: km.lp.spgemm_lp(*wa, b_idx, b_val, eb.row_nnz, *wc, k=k))
+            k4w = time_ms(lambda: km.num.spgemm_numeric(*wa, b_idx, b_val, *wc, k=k,
+                                                        b_nnz=eb.row_nnz))
+            fm_w = int(rt.flops_stats(a, b.row_nnz())[1][wide].sum())
+            log(f"      the {wide.numel()} rows with K3 tables in device memory "
+                f"(c_nnz > {km.lp.MID_SLOTS // 2}; {fm_w} of the {fm} products, "
+                f"{int(c_nnz[wide].sum())} of the {nnz_c} C entries) alone: K3 {k3w:.3f} ms, "
+                f"K4 {k4w:.3f} ms")
+            del wa, wc
+        del ea, eb, bm, a_idx, a_val, b_idx, b_val, c_idx_p
+        torch.cuda.empty_cache()
+    return times
+
+
+def sparse_mm(x, y):
+    """torch.sparse.mm of two port CSRs (a yardstick; the port never calls it)."""
+    def csr_t(c):
+        nnz = int(c.indptr[-1])
+        return torch.sparse_csr_tensor(c.indptr.long(), c.indices[:nnz].long(),
+                                       c.values[:nnz], size=c.shape)
+    xt, yt = csr_t(x), csr_t(y)
+    return lambda: torch.sparse.mm(xt, yt)
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -508,18 +898,30 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.core as rt_core
     import repro_torch.sparse as rt_sparse
-    from repro_torch.kernels import _build, segsum_reuse as seg_mod, spgemm_lp as lp_mod
+    from repro_torch.kernels import _build, ops, segsum_reuse, spgemm_lp
+    from repro_torch.kernels import spgemm_numeric, spgemm_symbolic
 
     class rt:  # the port's public entry points used below
         spgemm = staticmethod(rt_core.spgemm)
         ReuseExecutor = rt_core.ReuseExecutor
         galerkin_triple = staticmethod(rt_sparse.galerkin_triple)
         rmat_csr = staticmethod(rt_sparse.rmat_csr)
+        CSR = rt_sparse.CSR
+        csr_to_ell = staticmethod(rt_sparse.csr_to_ell)
+        bitmask_rows = staticmethod(rt_core.bitmask_rows)
+        flops_stats = staticmethod(rt_core.flops_stats)
+
+    class km:  # the kernels' modules: wrappers, plain versions, launch counts
+        seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
+
+    km.ops = ops
+    seg_mod, lp_mod = km.seg, km.lp
 
     with Phase("phase 1: device and build"):
         phase_device(_build)
-    with Phase("phase 2: kernels vs plain on synthetic plans"):
+    with Phase("phase 2: kernels vs plain on synthetic plans and ELL operands"):
         synth_worst = phase_kernels_vs_plain(seg_mod, lp_mod, args.seed)
+        synth_worst.update(phase_ell_kernels_vs_plain(rt, km, args.seed))
     if args.kernels_only:
         log("kernels-only run: phases 1-2 passed; no result line")
         return 0
@@ -533,14 +935,31 @@ def main(argv=None) -> int:
     if args.profile:
         with Phase("phase 5b: where the time goes (torch.profiler)"):
             phase_profile(rt, mg, pw)
+    mg_launches, mg_worst = mg["multigrid_launches"], mg["multigrid_worst"]
+    mg.clear()
+    for key in ("rmat_res", "rmat_ex"):
+        del pw[key]
+    torch.cuda.empty_cache()
+    ops_pw, ops_mg = {}, {}
+    with Phase("phase 6: power-law A*A through kernels/ops (K5, K3, K4)"):
+        phase_ops_powerlaw(rt, km, args.seed, pw, ops_pw)
+    with Phase("phase 7: multigrid A*P through kernels/ops (K5, K4, K3)"):
+        phase_ops_multigrid(rt, km, args.seed, ops_mg)
+    with Phase("phase 8: spgemm(method='auto') picks the dense method"):
+        phase_dense_method(rt, args.seed)
+    with Phase("phase 9: times of K3, K4 and K5"):
+        ops_times = phase_ops_times(rt, km, {
+            "power-law A*A": (pw["rmat"], pw["rmat"], ops_pw["c_idx"], ops_pw["c_nnz"], 1),
+            "multigrid 512^2 A*P": (ops_mg["a"], ops_mg["p"], ops_mg["c_idx"],
+                                    ops_mg["c_nnz"], 7)})
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     kernels = [
         {"name": "segsum_reuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segsum_reuse.cu",
          "replaces": "src/repro/kernels/segsum_reuse.py:107",
-         "launches": mg["multigrid_launches"]["segsum_reuse"],
-         "max_abs_err": max(mg["multigrid_worst"], synth_worst["segsum_reuse"]),
+         "launches": mg_launches["segsum_reuse"],
+         "max_abs_err": max(mg_worst, synth_worst["segsum_reuse"]),
          "ms": k1["segsum_reuse"], "plain_ms": k1["plain"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None, "shape": "multigrid AP"},
         {"name": "lp_reuse", "route": "cuda",
@@ -551,6 +970,22 @@ def main(argv=None) -> int:
          "ms": k2["lp_reuse"], "plain_ms": k2["plain"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None, "shape": "power-law A*A"},
     ]
+    replaces = {"spgemm_lp": "src/repro/kernels/spgemm_lp.py:164",
+                "spgemm_numeric": "src/repro/kernels/spgemm_numeric.py:82",
+                "spgemm_symbolic": "src/repro/kernels/spgemm_symbolic.py:45"}
+    line_shape = {"spgemm_lp": "power-law A*A", "spgemm_numeric": "multigrid 512^2 A*P",
+                  "spgemm_symbolic": "power-law A*A"}
+    for name in ("spgemm_lp", "spgemm_numeric", "spgemm_symbolic"):
+        t = ops_times[line_shape[name]][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces[name],
+            "launches": ops_pw["launches"][name] + ops_mg["launches"][name],
+            "max_abs_err": max(synth_worst[name], ops_pw["worst"].get(name, 0.0),
+                               ops_mg["worst"].get(name, 0.0)),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": line_shape[name]})
     for k in kernels:
         k["max_err"] = k["max_abs_err"]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,9 @@
 Callers hand over the JAX objects' arrays as numpy arrays (``np.asarray``
 on the JAX side), so this module needs nothing of JAX. A plan built by the
 reference replays in the port, and a port plan handed back through
-``plan_to_numpy`` replays in the reference.
+``plan_to_numpy`` replays in the reference. ELL arrays cross as they are;
+a bitmask crosses bit for bit between the reference's uint32 and the port's
+int32 (``bitmask_from_numpy``, ``bitmask_to_numpy``).
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.spgemm import SpgemmPlan
-from repro_torch.sparse.formats import CSR
+from repro_torch.sparse.formats import CSR, ELL
 
 _PLAN_FIELDS = ("indptr", "indices", "seg_ids", "a_slot_s", "b_slot_s")
 
@@ -62,3 +64,28 @@ def plan_to_numpy(plan: SpgemmPlan) -> dict:
     out = {name: tensor_to_numpy(getattr(plan, name)) for name in _PLAN_FIELDS}
     out["shape"] = tuple(plan.shape)
     return out
+
+
+def ell_from_numpy(indices, values, row_nnz, shape, device="cuda") -> ELL:
+    """A port ELL from a reference ELL's arrays (int32 indices and widths)."""
+    return ELL(indices=tensor_from_numpy(np.asarray(indices, np.int32), device),
+               values=tensor_from_numpy(values, device),
+               row_nnz=tensor_from_numpy(np.asarray(row_nnz, np.int32), device),
+               shape=(int(shape[0]), int(shape[1])))
+
+
+def ell_to_numpy(e: ELL) -> dict:
+    """A port ELL as numpy arrays: indices, values, row_nnz, shape."""
+    return {"indices": tensor_to_numpy(e.indices), "values": tensor_to_numpy(e.values),
+            "row_nnz": tensor_to_numpy(e.row_nnz), "shape": tuple(e.shape)}
+
+
+def bitmask_from_numpy(words, device="cuda") -> torch.Tensor:
+    """A reference bitmask (uint32 words) as the port's int32 tensor with
+    the same bits."""
+    return tensor_from_numpy(np.ascontiguousarray(words, np.uint32).view(np.int32), device)
+
+
+def bitmask_to_numpy(words: torch.Tensor) -> np.ndarray:
+    """A port bitmask (int32 words) as the reference's uint32 words."""
+    return np.ascontiguousarray(tensor_to_numpy(words)).view(np.uint32)

@@ -1,14 +1,24 @@
 """Two-phase SpGEMM on torch: the sparse/LP pipeline, plan cache and executor.
 
 Public API:
-    spgemm          — the meta-algorithm entry point (methods "sparse", "lp", "auto")
+    spgemm          — the meta-algorithm entry point (methods "sparse", "lp",
+                      "dense", "auto")
+    symbolic        — the host-mediated symbolic phase (CF <= 0.85 compression rule)
     numeric_reuse   — the Reuse case in plain torch
     ReuseExecutor   — pinned-plan replay engine (single and batched)
     spgemm_grouped  — mixed-structure batch: one replay per structure
     PlanCache       — structure-keyed LRU of reuse plans
     round_capacity  — capacity bucketing policy ("exact8" / "pow2")
 """
-from repro_torch.core.compression import flops_stats
+from repro_torch.core.accumulators import MAX_OCCUPANCY, accumulate_row
+from repro_torch.core.compression import (
+    COMPRESSION_CF_CUTOFF,
+    CompressedMatrix,
+    bitmask_rows,
+    compress_matrix,
+    compression_decision,
+    flops_stats,
+)
 from repro_torch.core.executor import (
     BACKENDS,
     DISPATCH_COUNTS,
@@ -42,22 +52,32 @@ from repro_torch.core.spgemm import (
     expand_products,
     host_fm_cap,
     lp_replay_values,
+    numeric_dense_acc,
+    numeric_fresh,
+    numeric_lp,
     numeric_reuse,
     plan_from_sorted,
     prepare_sparse_inputs,
     reset_stage_counts,
     resolve_plan,
     spgemm,
+    symbolic,
+    symbolic_compressed,
+    symbolic_dense_bitmask,
+    symbolic_plain,
 )
 
 __all__ = [
     "AVG_ROW_FLOPS_CUTOFF",
     "BACKENDS",
+    "COMPRESSION_CF_CUTOFF",
+    "CompressedMatrix",
     "DEFAULT_PAD_POLICY",
     "DENSE_K_CUTOFF",
     "DISPATCH_COUNTS",
     "EVICT_COUNTS",
     "HASH_COUNTS",
+    "MAX_OCCUPANCY",
     "PAD_POLICIES",
     "PlanCache",
     "ReuseExecutor",
@@ -65,8 +85,12 @@ __all__ = [
     "SortedExpansion",
     "SpgemmPlan",
     "SpgemmResult",
+    "accumulate_row",
+    "bitmask_rows",
     "choose_kernel",
     "choose_method",
+    "compress_matrix",
+    "compression_decision",
     "default_plan_cache",
     "expand_and_sort",
     "expand_products",
@@ -74,6 +98,9 @@ __all__ = [
     "flops_stats",
     "host_fm_cap",
     "lp_replay_values",
+    "numeric_dense_acc",
+    "numeric_fresh",
+    "numeric_lp",
     "numeric_reuse",
     "plan_from_sorted",
     "prepare_sparse_inputs",
@@ -84,4 +111,8 @@ __all__ = [
     "spgemm",
     "spgemm_grouped",
     "structure_key",
+    "symbolic",
+    "symbolic_compressed",
+    "symbolic_dense_bitmask",
+    "symbolic_plain",
 ]

@@ -23,11 +23,18 @@ relies on JAX semantics the port spells them out:
 * the product prefix sum runs in int64 and more than 2^31 - 1 products raise
   ``CapacityOverflowError``, where the reference's int32 sum would wrap.
 
+The dense method (KKDENSE) runs the reference's host-mediated symbolic
+phase (``symbolic``: the sort path over B, or over its bitmask-compressed
+form when the CF <= 0.85 rule fires) and ``numeric_dense_acc``, a dense
+(m, k) accumulator; it has no plan and no Reuse path. Where JAX's
+``nonzero(size=nnz_cap, fill_value=0)`` returns a fixed size, the port cuts
+or pads ``torch.nonzero``'s output to ``nnz_cap``.
+
 ``STAGE_COUNTS`` counts stage *calls*. It takes the place of the reference's
 ``TRACE_COUNTS``, which counts XLA retraces: eager PyTorch never retraces.
-The dense method and the ``mesh=``, ``tune=``, ``trace=`` and ``validate=``
-options come with later slices of the port (see ROADMAP) and raise
-``SpgemmConfigError`` until then.
+The ``mesh=``, ``tune=``, ``trace=`` and ``validate=`` options come with
+later slices of the port (see ROADMAP) and raise ``SpgemmConfigError`` until
+then.
 """
 from __future__ import annotations
 
@@ -37,14 +44,16 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.compression import flops_stats
+from repro_torch.core.compression import (CompressedMatrix, compress_matrix,
+                                          compression_decision, flops_stats)
 from repro_torch.core.meta import (DEFAULT_PAD_POLICY, choose_kernel,
                                    choose_method, f32_accumulation_ok,
                                    round_capacity)
 from repro_torch.core.plan_cache import default_plan_cache, structure_key
+from repro_torch.core.utils import popcount, segment_ends, segmented_scan
 from repro_torch.kernels.spgemm_lp import lp_reuse
 from repro_torch.runtime.validate import CapacityOverflowError, SpgemmConfigError
-from repro_torch.sparse.formats import CSR, csr_row_ids
+from repro_torch.sparse.formats import CSR, ELL, csr_row_ids
 
 INT32_MAX = 2**31 - 1
 
@@ -215,6 +224,176 @@ def host_fm_cap(a: CSR, b: CSR, pad_to: int = 8, fm: int | None = None) -> int:
     return max(-(-fm // pad_to) * pad_to, pad_to)
 
 
+# --------------------------------------------------------------------------
+# Symbolic phase
+# --------------------------------------------------------------------------
+
+
+def _symbolic_sorted(rows, keys, payload, valid, m: int, fm_cap: int,
+                     key_bound: int | None) -> torch.Tensor:
+    """Shared core: sort (row, key) pairs, OR payloads per group, count the
+    set bits of each group per row (plain symbolic: payload 1 per product).
+    ``key_bound`` None takes one past the largest key."""
+    _note_stage("_symbolic_sorted")
+    if key_bound is None:
+        key_bound = int(keys.max()) + 1 if keys.numel() else 1
+    order = _single_sort_order(rows, keys, m, max(key_bound, 1))
+    rows_s, keys_s, valid_s = rows[order], keys[order], valid[order]
+    pay_s = payload[order]
+    heads = torch.ones_like(valid_s)
+    heads[1:] = (rows_s[1:] != rows_s[:-1]) | (keys_s[1:] != keys_s[:-1])
+    or_scan = segmented_scan(pay_s, heads, torch.bitwise_or)
+    ends = segment_ends(heads) & valid_s
+    contrib = torch.where(ends, popcount(or_scan), 0)
+    sizes = torch.zeros(m, dtype=torch.int32, device=rows.device)
+    sizes.index_add_(0, rows_s.clamp(max=m - 1).long(), contrib)
+    return sizes
+
+
+def _per_slot(a: CSR, row_nnz: torch.Tensor, nb: int) -> torch.Tensor:
+    return torch.where(a.valid_mask(), row_nnz[a.indices.clamp(0, nb - 1).long()], 0)
+
+
+def symbolic_compressed(a: CSR, bc: CompressedMatrix, m: int, fm_cap: int,
+                        key_bound: int | None = None) -> torch.Tensor:
+    """Symbolic phase on the compressed B (paper §3.2): expand (row, CSI, CS)
+    products, OR the CS masks per (row, CSI), sum popcounts per row.
+    key_bound: bound on CSI values (ceil(k/32)); None takes the largest."""
+    _note_stage("symbolic_compressed")
+    _check_fm(fm_cap)
+    dev = a.device
+    nb = bc.indptr.shape[0] - 1
+    offsets = torch.zeros(a.nnz_cap + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(_per_slot(a, bc.row_nnz(), nb), 0)
+    t = torch.arange(fm_cap, dtype=torch.int64, device=dev)
+    a_slot = (torch.searchsorted(offsets, t, right=True) - 1).clamp_(0, a.nnz_cap - 1)
+    within = t - offsets[a_slot]
+    valid = t < offsets[-1]
+    del t
+    j = a.indices[a_slot].clamp(0, nb - 1).long()
+    cap = bc.csi.shape[0]
+    b_slot = (bc.indptr[j].long() + within).clamp_(0, cap - 1)
+    rows = torch.where(valid, csr_row_ids(a.indptr, a.nnz_cap)[a_slot], m)
+    keys = torch.where(valid, bc.csi[b_slot], 0)
+    cs = torch.where(valid, bc.cs[b_slot], 0)
+    return _symbolic_sorted(rows, keys, cs, valid, m, fm_cap, key_bound)
+
+
+def symbolic_plain(a: CSR, b: CSR, fm_cap: int) -> torch.Tensor:
+    """Uncompressed symbolic: distinct-column count per row via sort."""
+    _note_stage("symbolic_plain")
+    ex = expand_products(a, b, fm_cap)
+    ones = ex.valid.to(torch.int32)
+    return _symbolic_sorted(ex.row, ex.col, ones, ex.valid, a.m, fm_cap,
+                            key_bound=max(b.k, 1))
+
+
+def symbolic_dense_bitmask(a_ell: ELL, b_bitmask: torch.Tensor,
+                           block_rows: int = 64) -> torch.Tensor:
+    """KKDENSE symbolic: per row block, OR B's bitmask rows that A's ELL row
+    selects into a dense (rows, ceil(k/32)) accumulator and count its bits —
+    the dense-accumulator symbolic with 32x compression, in plain torch (the
+    function of kernel K5, ``kernels.spgemm_symbolic``). ``block_rows`` is
+    the reference's memory knob; the port chunks by its own word budget and
+    gives the same sizes for every value."""
+    from repro_torch.kernels.spgemm_symbolic import spgemm_symbolic_plain
+
+    del block_rows
+    return spgemm_symbolic_plain(a_ell.indices, a_ell.row_nnz, b_bitmask)
+
+
+def symbolic(a: CSR, b: CSR, compress: str = "auto",
+             pad_policy: str = DEFAULT_PAD_POLICY):
+    """Paper Alg. 2 lines 1-3. Returns (row_sizes, stats). Host-mediated:
+    decides compression by the CF <= 0.85 rule and sizes the expansion.
+    compress: "auto" (the rule), "always", or anything else for never."""
+    stats: dict = {}
+    fm, maxrf = _fm_scalars(a, b)
+    stats["fm"] = fm
+    stats["maxrf"] = maxrf
+    use_c = False
+    cf = cmrf = 1.0
+    bc = None
+    if compress in ("auto", "always"):
+        bc = compress_matrix(b)
+        cf, cmrf, use_c = compression_decision(a, b, bc)
+        if compress == "always":
+            use_c = True
+    stats["cf"], stats["cmrf"], stats["compressed"] = cf, cmrf, use_c
+    if use_c and bc is not None:
+        fm_c = max(int(_per_slot(a, bc.row_nnz(), bc.indptr.shape[0] - 1).sum()), 1)
+        cap = round_capacity(fm_c, pad_policy)
+        sizes = symbolic_compressed(a, bc, a.m, cap, key_bound=-(-b.k // 32))
+    else:
+        cap = round_capacity(fm, pad_policy)
+        sizes = symbolic_plain(a, b, cap)
+    return sizes, stats
+
+
+# --------------------------------------------------------------------------
+# Numeric phase
+# --------------------------------------------------------------------------
+
+
+def numeric_fresh(a: CSR, b: CSR, fm_cap: int, nnz_cap: int):
+    """First numeric run: discovers C's structure and the product->slot map,
+    computes values (plain torch). Returns (CSR C, SpgemmPlan)."""
+    _note_stage("numeric_fresh")
+    sx = expand_and_sort(a, b, fm_cap)
+    plan = plan_from_sorted(sx, b.k, nnz_cap)
+    del sx
+    values = numeric_reuse(plan, a.values, b.values)
+    c = CSR(indptr=plan.indptr, indices=plan.indices, values=values, shape=(a.m, b.k))
+    return c, plan
+
+
+def numeric_lp(a: CSR, b: CSR, fm_cap: int, nnz_cap: int):
+    """KKLP-position numeric phase: structure via the single-expansion
+    pipeline, values through the LP-hash replay kernel K2 (``lp_reuse``;
+    f64/int operands take the plain replay). Returns (CSR C, SpgemmPlan),
+    the contract of ``numeric_fresh``."""
+    _note_stage("numeric_lp")
+    sx = expand_and_sort(a, b, fm_cap)
+    plan = plan_from_sorted(sx, b.k, nnz_cap)
+    del sx
+    values, _ = lp_replay_values(plan, a.values, b.values)
+    c = CSR(indptr=plan.indptr, indices=plan.indices, values=values, shape=(a.m, b.k))
+    return c, plan
+
+
+def numeric_dense_acc(a: CSR, b: CSR, fm_cap: int, nnz_cap: int) -> CSR:
+    """KKDENSE numeric: scatter all products into a dense (m, k) accumulator
+    in A's dtype, then extract the CSR structure in row-major order, cut or
+    padded to ``nnz_cap`` slots. The structure comes from the products that
+    exist, not from values != 0 (a cancelled sum keeps its explicit zero).
+    O(m*k) memory: the paper's dense-accumulator trade-off. The occupancy
+    mask is bool here, where the reference keeps int32."""
+    _note_stage("numeric_dense_acc")
+    m, k = a.m, b.k
+    dev = a.device
+    ex = expand_products(a, b, fm_cap)
+    acc = torch.promote_types(a.values.dtype, b.values.dtype)
+    vals = torch.where(ex.valid, a.values[ex.a_slot.long()].to(acc)
+                       * b.values[ex.b_slot.long()].to(acc), 0)
+    flat = ex.row.clamp(max=m - 1).long() * k + ex.col.long()
+    dense = torch.zeros(m * k, dtype=a.values.dtype, device=dev)
+    dense.index_add_(0, flat, vals.to(a.values.dtype))
+    occupied = torch.zeros(m * k, dtype=torch.bool, device=dev)
+    occupied[flat[ex.valid]] = True
+    del ex, vals, flat
+    pos = torch.nonzero(occupied).flatten()  # row-major, as jnp.nonzero
+    nnz = pos.shape[0]
+    keep = min(nnz, nnz_cap)
+    indices = torch.zeros(nnz_cap, dtype=torch.int32, device=dev)
+    values = torch.zeros(nnz_cap, dtype=a.values.dtype, device=dev)
+    indices[:keep] = (pos[:keep] % k).to(torch.int32)
+    values[:keep] = dense[pos[:keep]]
+    row_sizes = occupied.view(m, k).sum(1)
+    indptr = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(row_sizes, 0)
+    return CSR(indptr=indptr, indices=indices, values=values, shape=(m, k))
+
+
 def gather_clamped(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """``values[..., slots]`` with the slots clamped into the buffer, as JAX
     gathers clamp: padding products may point past a caller's buffer when
@@ -332,8 +511,9 @@ def _reject_later_slice_options(mesh, tune, validate, trace) -> None:
             "trace= comes with the port's obs/ slice (ROADMAP Queue 1)")
 
 
-def spgemm(a: CSR, b: CSR, method: str = "auto", pad_policy: str | None = None,
-           plan_cache=None, tune: str | None = None, mesh=None,
+def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
+           pad_policy: str | None = None, plan_cache=None,
+           tune: str | None = None, mesh=None,
            validate: str | None = None,
            trace: str | bool | None = None) -> SpgemmResult:
     """Full two-phase SpGEMM with the KKSPGEMM meta-algorithm's method choice.
@@ -341,8 +521,14 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", pad_policy: str | None = None,
     Runs where the operands' tensors live. ``method``: "sparse" (plain torch
     values), "lp" (values from the CUDA LP-hash replay kernel; f64/int
     operands take the plain path and bump ``FALLBACK_COUNTS
-    ["dtype:lp->xla"]``), or "auto" (``choose_method``). "dense" raises
-    ``SpgemmConfigError`` until the port's dense-method slice lands.
+    ["dtype:lp->xla"]``), "dense" (KKDENSE: ``symbolic`` and the dense
+    (m, k) accumulator of ``numeric_dense_acc``, plain torch, ``plan=None``)
+    or "auto" (``choose_method``: dense when k < 250,000 and the accumulator
+    fits 1 GiB).
+
+    compress: only the dense method's symbolic phase reads it ("auto" = the
+        paper's CF <= 0.85 rule, "always", or "never"); its stats (cf, cmrf,
+        compressed) are only present on the dense path.
 
     pad_policy: capacity bucketing for every static cap ("pow2" default).
     plan_cache: None uses the module-level LRU; a PlanCache isolates; False
@@ -362,10 +548,18 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", pad_policy: str | None = None,
         method = choose_method(a, b, stats)
     stats["method"] = method
     if method == "dense":
-        raise SpgemmConfigError(
-            "the dense method (KKDENSE) comes with the port's dense-method "
-            "slice (ROADMAP Queue 1, 'The dense method of core/spgemm.py'); "
-            "use method='sparse' or 'lp'")
+        sizes, sym_stats = symbolic(a, b, compress=compress, pad_policy=policy)
+        stats.update(sym_stats)
+        stats["kernel"] = choose_kernel(a, b, stats)  # advisory telemetry
+        fm_cap = round_capacity(sym_stats["fm"], policy)
+        stats["fm_cap"] = fm_cap
+        nnz = int(sizes.sum())
+        nnz_cap = round_capacity(nnz, policy)
+        stats["nnz_c"] = nnz
+        stats["nnz_cap"] = nnz_cap
+        stats["cache"] = "bypass"
+        c = numeric_dense_acc(a, b, fm_cap, nnz_cap)
+        return SpgemmResult(c=c, plan=None, stats=stats)
 
     if plan_cache is None:
         cache = default_plan_cache()

@@ -1,10 +1,10 @@
 """Registry of the port's telemetry counters (port of ``repro/core/telemetry.py``).
 
-Only the counters this slice bumps are here, each under the reference's
-name: ``HASH_COUNTS`` and ``EVICT_COUNTS`` (``core.plan_cache``),
-``DISPATCH_COUNTS`` (``core.executor``), ``FALLBACK_COUNTS`` (below), and
-``STAGE_COUNTS`` (``core.spgemm``), which counts stage calls where the
-reference's ``TRACE_COUNTS`` counts retraces.
+Only the counters the port bumps so far are here, each under the
+reference's name: ``HASH_COUNTS`` and ``EVICT_COUNTS`` (``core.plan_cache``),
+``DISPATCH_COUNTS`` (``core.executor``), ``KERNEL_COUNTS`` (``kernels.ops``),
+``FALLBACK_COUNTS`` (below), and ``STAGE_COUNTS`` (``core.spgemm``), which
+counts stage calls where the reference's ``TRACE_COUNTS`` counts retraces.
 """
 from __future__ import annotations
 
@@ -14,10 +14,12 @@ from repro_torch.core.executor import DISPATCH_COUNTS, reset_dispatch_counts
 from repro_torch.core.plan_cache import (EVICT_COUNTS, HASH_COUNTS,
                                          reset_evict_counts, reset_hash_counts)
 from repro_torch.core.spgemm import STAGE_COUNTS, reset_stage_counts
+from repro_torch.kernels.ops import KERNEL_COUNTS, reset_kernel_counts
 
 # Dtype-guard events. Key convention, as in the reference:
 #   "dtype:<site>->xla"   the f32-accumulation guard routed a kernel request
-#                         to the plain path (sites: "lp", "executor")
+#                         to the plain path (sites: "lp", "executor",
+#                         "numeric_auto")
 FALLBACK_COUNTS: Counter = Counter()
 
 
@@ -30,6 +32,7 @@ ALL_COUNTERS: dict[str, Counter] = {
     "stage": STAGE_COUNTS,
     "hash": HASH_COUNTS,
     "dispatch": DISPATCH_COUNTS,
+    "kernel": KERNEL_COUNTS,
     "fallback": FALLBACK_COUNTS,
     "evict": EVICT_COUNTS,
 }
@@ -38,6 +41,7 @@ _RESETS = (
     reset_stage_counts,
     reset_hash_counts,
     reset_dispatch_counts,
+    reset_kernel_counts,
     reset_fallback_counts,
     reset_evict_counts,
 )

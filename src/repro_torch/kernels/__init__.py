@@ -1,12 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch version.
 
-The port keeps the reference's backend strings so that callers of both
-packages pass the same names. ``BACKEND_NAMES`` is the one table of what
-each name runs here.
+The port keeps the reference's backend and kernel strings so that callers of
+both packages pass the same names. ``BACKEND_NAMES`` (replay backends) and
+``NUMERIC_KERNEL_NAMES`` (the numeric kernels of ``ops.numeric_values``) are
+the tables of what each name runs here.
 
 Kernels (``csrc/``, built by ``_build``):
-  segsum_reuse — K1, replay of a pinned plan: segmented warp scan + atomics
-  lp_reuse     — K2, the same replay through a shared-memory LP hash table
+  segsum_reuse    — K1, replay of a pinned plan: segmented warp scan + atomics
+  lp_reuse        — K2, the same replay through a shared-memory LP hash table
+  spgemm_symbolic — K5, C's row sizes: OR of B's bitmask rows + popcount
+  spgemm_numeric  — K4, numeric phase through a dense row in shared memory
+  spgemm_lp       — K3, numeric phase through the two-level LP hash tables
+
+``ops.py`` holds the kernel-backed two-phase path (``pallas_spgemm``,
+``symbolic_rowsizes``, ``numeric_values``).
 """
 
 # backend string (the reference's) -> what it runs in the port
@@ -14,4 +21,11 @@ BACKEND_NAMES = {
     "xla": "plain torch core.spgemm.numeric_reuse",
     "pallas": "CUDA kernel segsum_reuse (kernels/csrc/segsum_reuse.cu)",
     "pallas_lp": "CUDA kernel lp_reuse (kernels/csrc/lp_reuse.cu)",
+}
+
+# numeric_values kernel name (the reference's) -> what it runs in the port
+NUMERIC_KERNEL_NAMES = {
+    "dense_acc": "CUDA kernel spgemm_numeric (kernels/csrc/spgemm_numeric.cu)",
+    "flat_lp": "CUDA kernel spgemm_lp (kernels/csrc/spgemm_lp.cu)",
+    "xla": "plain torch kernels.spgemm_numeric.spgemm_numeric_ref",
 }

@@ -1,4 +1,6 @@
-// Shared pieces of the two plan-replay kernels (segsum_reuse.cu, lp_reuse.cu).
+// Shared pieces of the two plan-replay kernels (segsum_reuse.cu, lp_reuse.cu);
+// the value loads and the dtype dispatch also serve the ELL kernels
+// (spgemm_numeric.cu, spgemm_lp.cu).
 //
 // Both replay a precomposed SpGEMM plan: for every product t,
 //   C[seg_ids[t]] += A[a_slot[t]] * B[b_slot[t]]
@@ -65,9 +67,11 @@ __device__ __forceinline__ float load_product(const ReplayArgs& r, int64_t t,
 }
 
 // Runs K<TA, TB>::launch(r) for the (a_code, b_code) pair and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an unknown code.
-template <template <typename, typename> class K, typename TA>
-bool dispatch_b(int b_code, const ReplayArgs& r) {
+// cudaGetLastError(), or cudaErrorInvalidValue for an unknown code. Args is
+// the kernel's argument struct (ReplayArgs here; the ELL kernels have their
+// own).
+template <template <typename, typename> class K, typename TA, typename Args>
+bool dispatch_b(int b_code, const Args& r) {
   switch (b_code) {
     case kF32: K<TA, float>::launch(r); return true;
     case kF16: K<TA, __half>::launch(r); return true;
@@ -76,8 +80,8 @@ bool dispatch_b(int b_code, const ReplayArgs& r) {
   return false;
 }
 
-template <template <typename, typename> class K>
-int dispatch(int a_code, int b_code, const ReplayArgs& r) {
+template <template <typename, typename> class K, typename Args>
+int dispatch(int a_code, int b_code, const Args& r) {
   bool ok = false;
   switch (a_code) {
     case kF32: ok = dispatch_b<K, float>(b_code, r); break;

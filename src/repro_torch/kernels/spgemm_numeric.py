@@ -1,0 +1,228 @@
+"""K4: the KKDENSE numeric phase over ELL operands, in CUDA (``csrc/spgemm_numeric.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/spgemm_numeric.py``
+(``spgemm_numeric``). For each row of C: a dense f32 accumulator takes every
+product ``a_val[i, r] * b_val[a_idx[i, r], t]`` (``r < a_nnz[i]``; all rB
+slots of B's row, whose padded slots carry 0 by the contract) at column
+``b_idx[...]``, and C's values are read from it at ``c_idx[i, :c_nnz[i]]``,
+0 past ``c_nnz``. The output is in **``a_val.dtype``**, as the TPU kernel's
+(K3, ``spgemm_lp``, returns ``promote_types(a, b)``).
+
+What bounds it on the H100: bytes — A's live entries, the B slots visited,
+C's structure once and its values once; 2 flops per product. The design
+(see the source's header): one block per C row, the dense row in shared
+memory, walked in passes of at most ``K4_MAX_TILE`` columns over the window
+that C's row spans; each pass zeroes only its part. ``b_nnz`` (optional,
+not in the reference) lets the kernel skip B's padded slots, which add 0.
+
+Beside the kernel: ``spgemm_numeric_plain``, the same function in plain
+torch, run by the wrapper for CPU tensors only; ``ell_numeric_plain``, the
+shared plain body of K3, K4 and the reference's ``ref.spgemm_numeric_ref``
+(the "xla" path of ``kernels.ops``); ``LAUNCHES``; and the ctypes launch
+that ``kernels/spgemm_lp.py`` shares.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.segsum_reuse import DTYPE_CODES
+from repro_torch.kernels.spgemm_symbolic import check_tensor, row_chunks
+from repro_torch.runtime.validate import KernelFallbackError, SpgemmInputError
+
+# kernel launches by ``spgemm_numeric`` (reset by callers that count)
+LAUNCHES = 0
+
+K4_MAX_TILE = 16384  # f32 columns of the shared-memory row per pass (64 KiB)
+
+# expanded products per chunk of the plain versions
+_PLAIN_CHUNK_PRODUCTS = 1 << 24
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+_ARGTYPES = [_P, _P, _INT, _P, _I64, _P, _P, _INT, _P, _I64, _I64, _P, _P, _I64,
+             _P, _I64, _I64, _INT, _INT, _P, _I64, _P, _I64, _P, _I64, _P, _P,
+             _P, _P]
+
+
+def _pad_width(x: torch.Tensor, width: int) -> torch.Tensor:
+    cur = x.shape[1]
+    if cur == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - cur))
+
+
+def check_ell_args(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                   k: int) -> None:
+    """Raise ``SpgemmInputError`` on anything the ELL kernels do not take.
+    The same checks run for CPU tensors, so the CPU path refuses what the
+    card would."""
+    device = a_idx.device if isinstance(a_idx, torch.Tensor) else None
+    check_tensor("a_idx", a_idx, device, 2, (torch.int32,))
+    check_tensor("a_nnz", a_nnz, device, 1, (torch.int32,))
+    check_tensor("b_idx", b_idx, device, 2, (torch.int32,))
+    check_tensor("c_idx", c_idx, device, 2, (torch.int32,))
+    check_tensor("c_nnz", c_nnz, device, 1, (torch.int32,))
+    for name, t in (("a_val", a_val), ("b_val", b_val)):
+        check_tensor(name, t, device, 2, tuple(DTYPE_CODES))
+    if b_nnz is not None:
+        check_tensor("b_nnz", b_nnz, device, 1, (torch.int32,))
+        if b_nnz.shape[0] != b_idx.shape[0]:
+            raise SpgemmInputError(f"b_nnz has {b_nnz.shape[0]} rows, b_idx {b_idx.shape[0]}")
+    m = a_idx.shape[0]
+    if a_val.shape != a_idx.shape or b_val.shape != b_idx.shape:
+        raise SpgemmInputError("ELL values and indices differ in shape")
+    if not a_nnz.shape[0] == c_idx.shape[0] == c_nnz.shape[0] == m:
+        raise SpgemmInputError("A's and C's rows differ in number")
+    if b_idx.shape[0] == 0:
+        raise SpgemmInputError("B has no rows")
+    if not 1 <= k < 2**31:
+        raise SpgemmInputError(f"k={k} outside [1, 2^31)")
+
+
+def ell_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                      k: int, acc_dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
+    """C's values at ``c_idx``/``c_nnz`` from ELL operands, in plain torch.
+
+    Products ``a * b`` in ``acc_dtype`` for ``r < a_nnz[i]`` and B slots
+    ``t < b_nnz[j]`` (every slot when ``b_nnz`` is None) whose column lies in
+    [0, k); a live A column id clamps into [0, n) and a C column id into
+    [0, k). Per chunk of rows, one ``index_add_`` sums each (row, column)'s
+    products in the order of the insert stream (A slots row-major, then the
+    B row's slots): sequential on the CPU, so the sums are exactly those of
+    the reference's LP accumulator oracle. Out in ``out_dtype``.
+    """
+    m, r_a = a_idx.shape
+    n, r_b = b_idx.shape
+    r_c = c_idx.shape[1]
+    dev = a_idx.device
+    out = torch.zeros(m, r_c, dtype=out_dtype, device=dev)
+    live_a = a_nnz.clamp(0, r_a)
+    slots = torch.arange(r_b, device=dev)
+    for start, stop in row_chunks(live_a * r_b, _PLAIN_CHUNK_PRODUCTS):
+        rows, rs = torch.nonzero(torch.arange(r_a, device=dev)[None, :]
+                                 < live_a[start:stop, None], as_tuple=True)
+        j = a_idx[start:stop][rows, rs].clamp(0, n - 1).long()
+        av = a_val[start:stop][rows, rs].to(acc_dtype)
+        cols = b_idx[j].long()  # (E, rB), in stream order
+        ok = (cols >= 0) & (cols < k)
+        if b_nnz is not None:
+            ok &= slots[None, :] < b_nnz[j].clamp(0, r_b)[:, None]
+        prod = av[:, None] * b_val[j].to(acc_dtype)
+        keys = (rows[:, None] * k + cols)[ok]
+        uniq, inv = torch.unique(keys, return_inverse=True)
+        sums = torch.zeros(uniq.shape[0], dtype=acc_dtype, device=dev)
+        sums.index_add_(0, inv, prod[ok])
+        query = (torch.arange(stop - start, device=dev)[:, None] * k
+                 + c_idx[start:stop].clamp(0, k - 1).long())
+        pos = torch.searchsorted(uniq, query).clamp(max=max(uniq.shape[0] - 1, 0))
+        found = uniq[pos] == query if uniq.shape[0] else torch.zeros_like(query, dtype=torch.bool)
+        live_c = torch.arange(r_c, device=dev)[None, :] < c_nnz[start:stop, None]
+        vals = sums[pos] if uniq.shape[0] else torch.zeros_like(query, dtype=acc_dtype)
+        out[start:stop] = torch.where(found & live_c, vals, 0).to(out_dtype)
+    return out
+
+
+def spgemm_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *,
+                         k: int, b_nnz=None) -> torch.Tensor:
+    """``spgemm_numeric`` in plain torch: f32 products and sums, out in
+    ``a_val.dtype``."""
+    return ell_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                             k, torch.float32, a_val.dtype)
+
+
+def spgemm_numeric_ref(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *,
+                       k: int) -> torch.Tensor:
+    """``kernels.ref.spgemm_numeric_ref`` in plain torch, the "xla" path of
+    ``kernels.ops.numeric_values``: accumulates and returns in
+    ``promote_types(a, b)``, so f64 and integer operands stay exact. Padded
+    A slots are masked by ``a_nnz`` where the reference multiplies their 0."""
+    acc = torch.promote_types(a_val.dtype, b_val.dtype)
+    return ell_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val, None, c_idx, c_nnz,
+                             k, acc, acc)
+
+
+def launch_ell(lib_name: str, a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
+               c_nnz, out, k: int, *, tile: int = 0, l1_size: int = 0,
+               rows=(None, None, None), g_off=None, g_ids=None, g_vals=None) -> None:
+    """Launch ``<lib_name>_launch`` of ``csrc/<lib_name>.cu`` (the ELL C
+    interface of ``csrc/ell_common.cuh``) on the current stream, writing
+    the f32 ``out``. A CUDA error after the launch raises
+    ``KernelFallbackError``: there is no rung to fall back to."""
+    lib = _build.load(lib_name)
+    fn = getattr(lib, f"{lib_name}_launch")
+    err_str = getattr(lib, f"{lib_name}_error_string")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    row_args = []
+    for r in rows:
+        row_args += [ptr(r), 0 if r is None else r.shape[0]]
+    m, r_a = a_idx.shape
+    n, r_b = b_idx.shape
+    with torch.cuda.device(a_idx.device):
+        stream = torch.cuda.current_stream(a_idx.device).cuda_stream
+        err = fn(a_idx.data_ptr(), a_val.data_ptr(), DTYPE_CODES[a_val.dtype],
+                 a_nnz.data_ptr(), r_a, b_idx.data_ptr(), b_val.data_ptr(),
+                 DTYPE_CODES[b_val.dtype], ptr(b_nnz), n, r_b, c_idx.data_ptr(),
+                 c_nnz.data_ptr(), c_idx.shape[1], out.data_ptr(), m, k, tile, l1_size,
+                 *row_args, ptr(g_off), ptr(g_ids), ptr(g_vals), stream)
+    if err != 0:
+        raise KernelFallbackError(
+            f"{lib_name} kernel launch failed: CUDA error {err} ({err_str(err).decode()})")
+
+
+def spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *, k: int,
+                   b_nnz=None) -> torch.Tensor:
+    """Numeric phase: C values (ELL layout, (m, rC), in ``a_val.dtype``) at
+    the given structure.
+
+    a_idx/a_val: (m, rA) ELL of A; a_nnz: (m,); b_idx/b_val: (n, rB) ELL of B
+    (padded B slots must carry value 0); c_idx: (m, rC) symbolic structure of
+    C; c_nnz: (m,); k: number of columns of B; b_nnz: optional (n,) live B
+    widths, which only saves the kernel the padded slots. Values are f32,
+    f16 or bf16 (f32 accumulation). CUDA tensors launch the kernel (or
+    raise); CPU tensors run ``spgemm_numeric_plain``.
+    """
+    global LAUNCHES
+    check_ell_args(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, k)
+    if a_idx.device.type == "cpu":
+        return spgemm_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz,
+                                    k=k, b_nnz=b_nnz)
+    out = torch.empty(c_idx.shape, dtype=torch.float32, device=a_idx.device)
+    if out.numel():
+        launch_ell("spgemm_numeric", a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
+                   c_nnz, out, k, tile=min(K4_MAX_TILE, k))
+        LAUNCHES += 1
+    return out.to(a_val.dtype)
+
+
+def spgemm_numeric_bucketed(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *,
+                            k: int, pad_policy: str | None = None,
+                            b_nnz=None) -> torch.Tensor:
+    """``spgemm_numeric`` with ELL widths rA/rB/rC padded to capacity buckets
+    (``core.meta.round_capacity``), as in the reference: zero padding keeps
+    the values (padded A slots are masked by ``a_nnz``, padded B slots carry
+    0, padded C slots are masked by ``c_nnz``), and the output is sliced back
+    to the caller's rC."""
+    from repro_torch.core.meta import DEFAULT_PAD_POLICY, round_capacity
+
+    policy = DEFAULT_PAD_POLICY if pad_policy is None else pad_policy
+    r_c = c_idx.shape[1]
+    a_idx = _pad_width(a_idx, round_capacity(a_idx.shape[1], policy))
+    a_val = _pad_width(a_val, a_idx.shape[1])
+    b_idx = _pad_width(b_idx, round_capacity(b_idx.shape[1], policy))
+    b_val = _pad_width(b_val, b_idx.shape[1])
+    c_idx_p = _pad_width(c_idx, round_capacity(r_c, policy))
+    out = spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val, c_idx_p, c_nnz, k=k,
+                         b_nnz=b_nnz)
+    return out[:, :r_c]

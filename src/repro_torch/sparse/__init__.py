@@ -1,5 +1,5 @@
-"""Static-capacity CSR over torch tensors and the numpy-seeded generators."""
-from repro_torch.sparse.formats import CSR, csr_row_ids
+"""Static-capacity CSR and ELL over torch tensors and the numpy-seeded generators."""
+from repro_torch.sparse.formats import CSR, ELL, csr_row_ids, csr_to_ell, ell_to_csr
 from repro_torch.sparse.generators import (
     aggregation_prolongator,
     banded_csr,
@@ -11,7 +11,10 @@ from repro_torch.sparse.generators import (
 
 __all__ = [
     "CSR",
+    "ELL",
     "csr_row_ids",
+    "csr_to_ell",
+    "ell_to_csr",
     "random_csr",
     "rmat_csr",
     "banded_csr",

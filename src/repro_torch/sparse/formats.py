@@ -4,7 +4,8 @@ A frozen dataclass in place of the reference's pytree. Like the reference it
 carries a static capacity: ``indices``/``values`` hold ``nnz_cap >= nnz``
 slots and validity comes from ``indptr``, never from sentinel values. Index
 arrays are int32, so structure hashes and plan arrays match the reference
-byte for byte. ELL and BSR arrive with the kernels that read them.
+byte for byte. ``ELL`` (with ``csr_to_ell``/``ell_to_csr``) feeds the
+numeric and symbolic kernels; BSR arrives with the kernel that reads it.
 """
 from __future__ import annotations
 
@@ -142,3 +143,88 @@ def csr_row_ids(indptr: torch.Tensor, nnz_cap: int) -> torch.Tensor:
                      torch.ones(m, dtype=torch.int32, device=indptr.device))
     row = torch.cumsum(marks[:nnz_cap], 0, dtype=torch.int32)
     return torch.clamp(row, max=m - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ELL:
+    """ELLPACK: every row padded to a fixed width r_pad.
+
+    indices: (m, r_pad) int32 — padded slots hold 0.
+    values:  (m, r_pad) dtype — padded slots hold 0 (so numerics ignore them).
+    row_nnz: (m,) int32 — live width per row.
+    shape:   (m, k).
+    """
+
+    indices: torch.Tensor
+    values: torch.Tensor
+    row_nnz: torch.Tensor
+    shape: tuple
+
+    @property
+    def m(self) -> int:
+        return self.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.shape[1]
+
+    @property
+    def r_pad(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    def valid_mask(self) -> torch.Tensor:
+        return (torch.arange(self.r_pad, dtype=torch.int32, device=self.device)[None, :]
+                < self.row_nnz[:, None])
+
+    def to_dense(self) -> torch.Tensor:
+        """Densify (for oracles and tests; O(m*k) memory)."""
+        mask = self.valid_mask()
+        rows = torch.arange(self.m, device=self.device)[:, None].expand(self.indices.shape)
+        out = torch.zeros(self.shape, dtype=self.values.dtype, device=self.device)
+        return out.index_put_((rows[mask], self.indices[mask].long()),
+                              self.values[mask], accumulate=True)
+
+
+def csr_to_ell(a: CSR, r_pad: int | None = None) -> ELL:
+    """CSR -> ELL; the host decides ``r_pad`` (the widest row) when it is not
+    given. Rows wider than ``r_pad`` keep their first ``r_pad`` entries and
+    ``row_nnz`` still says their full width, as in the reference.
+
+    Where the reference gathers through three (m, r_pad) index arrays, the
+    port scatters each live CSR slot to its ELL position, so the transients
+    are O(nnz) and only the two outputs are (m, r_pad).
+    """
+    row_nnz = a.row_nnz()
+    if r_pad is None:
+        r_pad = max(int(row_nnz.max()) if a.m else 0, 1)
+    dev = a.device
+    idx = torch.zeros(a.m, r_pad, dtype=torch.int32, device=dev)
+    val = torch.zeros(a.m, r_pad, dtype=a.values.dtype, device=dev)
+    nnz = int(a.indptr[-1]) if a.m else 0
+    if nnz:
+        rows = csr_row_ids(a.indptr, nnz).long()
+        pos = torch.arange(nnz, dtype=torch.int64, device=dev) - a.indptr[rows].long()
+        keep = pos < r_pad
+        flat = (rows * r_pad + pos)[keep]
+        idx.view(-1)[flat] = a.indices[:nnz][keep]
+        val.view(-1)[flat] = a.values[:nnz][keep]
+    return ELL(indices=idx, values=val, row_nnz=row_nnz.to(torch.int32), shape=a.shape)
+
+
+def ell_to_csr(e: ELL, nnz_cap: int | None = None) -> CSR:
+    """ELL -> CSR (test helper): the live slots of each row, in order."""
+    rn = e.row_nnz.long()
+    indptr = torch.zeros(e.m + 1, dtype=torch.int32, device=e.device)
+    indptr[1:] = torch.cumsum(rn, 0)
+    nnz = int(indptr[-1])
+    cap = int(nnz_cap if nnz_cap is not None else max(nnz, 1))
+    mask = e.valid_mask()
+    indices = torch.zeros(cap, dtype=torch.int32, device=e.device)
+    values = torch.zeros(cap, dtype=e.values.dtype, device=e.device)
+    indices[:nnz] = e.indices[mask]
+    values[:nnz] = e.values[mask]
+    return CSR(indptr=indptr, indices=indices, values=values, shape=e.shape)

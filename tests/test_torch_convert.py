@@ -96,6 +96,48 @@ def test_csr_round_trip_and_bf16_bits():
     assert convert.tensor_to_numpy(f32).tobytes() == np.asarray(j.values).tobytes()
 
 
+def test_ell_round_trip_carries_the_reference_arrays():
+    from repro.sparse.formats import csr_to_ell as j_csr_to_ell
+    from repro_torch.sparse.formats import csr_to_ell as t_csr_to_ell
+
+    j = jgen.random_csr(15, 40, 4.0, 3)
+    je = j_csr_to_ell(j)
+    te = convert.ell_from_numpy(je.indices, je.values, je.row_nnz, je.shape, device="cpu")
+    mine = t_csr_to_ell(_jax_csr_to_port(j))
+    for field in ("indices", "values", "row_nnz"):
+        assert torch.equal(getattr(te, field), getattr(mine, field)), field
+    back = convert.ell_to_numpy(te)
+    for field in ("indices", "values", "row_nnz"):
+        np.testing.assert_array_equal(back[field], np.asarray(getattr(je, field)))
+    assert back["shape"] == tuple(je.shape) == te.shape
+    bf16 = convert.ell_from_numpy(je.indices, np.asarray(je.values.astype(jnp.bfloat16)),
+                                  je.row_nnz, je.shape, device="cpu")
+    assert bf16.values.dtype == torch.bfloat16
+
+
+def test_bitmask_round_trip_keeps_every_bit():
+    """uint32 words of the reference <-> int32 words of the port, bit 31
+    included; the port's symbolic kernel reads the reference's words."""
+    from repro.core.compression import bitmask_rows as j_bitmask_rows
+    from repro.kernels.ref import spgemm_symbolic_ref
+    from repro.sparse.formats import csr_to_ell as j_csr_to_ell
+    from repro_torch.core.compression import bitmask_rows as t_bitmask_rows
+    from repro_torch.kernels.spgemm_symbolic import spgemm_symbolic
+
+    ja, jb = jgen.random_csr(20, 30, 3.0, 4), jgen.random_csr(30, 100, 8.0, 5)
+    words = np.asarray(j_bitmask_rows(jb))
+    assert (words >= 2**31).any()  # the sign bit of an int32 word is in use
+    t = convert.bitmask_from_numpy(words, device="cpu")
+    assert t.dtype == torch.int32 and torch.equal(t, t_bitmask_rows(_jax_csr_to_port(jb)))
+    back = convert.bitmask_to_numpy(t)
+    assert back.dtype == np.uint32 and back.tobytes() == words.tobytes()
+    je = j_csr_to_ell(ja)
+    sizes = spgemm_symbolic(torch.from_numpy(np.array(je.indices)),
+                            torch.from_numpy(np.array(je.row_nnz)), t)
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(
+        spgemm_symbolic_ref(je.indices, je.row_nnz, jnp.asarray(words))))
+
+
 def _port_files():
     return sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 

@@ -1,4 +1,6 @@
-"""The replay kernels' wrappers (K1 segsum_reuse, K2 lp_reuse) and their build.
+"""The replay kernels' wrappers (K1 segsum_reuse, K2 lp_reuse), the build, and
+the card tests of every kernel (K3 spgemm_lp, K4 spgemm_numeric and K5
+spgemm_symbolic too; their CPU parity tests are in tests/test_torch_ops.py).
 
 On the CPU each wrapper runs its plain version, which is held against the
 JAX package's host-loop oracle ``kernels.ref.segsum_reuse_ref`` (the
@@ -6,8 +8,9 @@ reference's Pallas kernels cannot run interpreted on this jax). f32 within
 rtol/atol 1e-5; f16/bf16 operands against a float64 numpy oracle within
 8e-3 * S, S being the sum of |products| of a segment: the plain version adds
 in f32 and rounds once to the 8-bit-mantissa type. The tests marked ``cuda``
-hold each CUDA kernel against its plain version on the card and skip where
-there is none. This file imports JAX only inside the test that needs the
+hold each CUDA kernel against its plain version on the card (K3 with and
+without a forced, spilling L1; K4 over several shared-memory passes) and
+skip where there is none. This file imports JAX only inside the test that needs the
 reference, so that on a machine with a card and no JAX the ``cuda`` tests
 run with ``pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
@@ -18,10 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.kernels import _build
 from repro_torch.kernels import segsum_reuse as k1
 from repro_torch.kernels import spgemm_lp as k2
+from repro_torch.kernels import spgemm_lp as k3
+from repro_torch.kernels import spgemm_numeric as k4
+from repro_torch.kernels import spgemm_symbolic as k5
 from repro_torch.runtime.validate import KernelFallbackError, SpgemmInputError
+from repro_torch.sparse import CSR
 
 WRAPPERS = {
     "segsum_reuse": (k1, k1.segsum_reuse_arrays, k1.segsum_reuse_plain),
@@ -62,6 +70,45 @@ def _plan(fm, nnz_cap, na, nb, tail, long_run, seed):
     a_slot = rng.integers(0, na, fm).astype(np.int32)
     b_slot = rng.integers(0, nb, fm).astype(np.int32)
     return a_slot, b_slot, seg
+
+
+def ell_operands(m, n, k, r_a, r_b, seed):
+    """numpy ELL operands with garbage past a_nnz and b_nnz (column ids up to
+    3n and 2k, random values), distinct live columns per B row, and C's
+    structure (c_idx sorted per row, c_nnz) from the live products. Shared
+    with tests/test_torch_ops.py."""
+    rng = np.random.default_rng(seed)
+    a_nnz = rng.integers(0, r_a + 1, m).astype(np.int32)
+    a_nnz[m // 2] = r_a
+    a_idx = rng.integers(0, 3 * n, (m, r_a)).astype(np.int32)
+    live_a = np.arange(r_a)[None, :] < a_nnz[:, None]
+    a_idx[live_a] %= n
+    b_nnz = rng.integers(0, r_b + 1, n).astype(np.int32)
+    b_idx = rng.integers(0, 2 * k, (n, r_b)).astype(np.int32)
+    for j in range(n):
+        b_idx[j, :b_nnz[j]] = rng.choice(k, b_nnz[j], replace=False)
+    a_val = rng.standard_normal((m, r_a)).astype(np.float32)
+    b_val = rng.standard_normal((n, r_b)).astype(np.float32)
+    cols = [sorted({int(b_idx[j, t]) for r in range(a_nnz[i]) for j in [a_idx[i, r]]
+                    for t in range(b_nnz[j])}) for i in range(m)]
+    c_nnz = np.array([len(c) for c in cols], np.int32)
+    c_idx = np.zeros((m, max(c_nnz.max(), 1)), np.int32)
+    for i, c in enumerate(cols):
+        c_idx[i, :len(c)] = c
+    return a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz
+
+
+def bitmask_words(b_idx, b_nnz, k):
+    """B's live structure as (n, ceil(k/32)) uint32 words."""
+    words = np.zeros((b_idx.shape[0], -(-k // 32)), np.uint32)
+    for j in range(b_idx.shape[0]):
+        for c in b_idx[j, :b_nnz[j]]:
+            words[j, c >> 5] |= np.uint32(1 << (int(c) & 31))
+    return words
+
+
+# ELL cases of the K3/K4/K5 tests: (m, n, k, rA, rB, seed)
+ELL_CASES = [(12, 16, 20, 4, 5, 1), (9, 7, 300, 6, 9, 2), (5, 3, 13, 2, 3, 3)]
 
 
 def _oracle64(a_slot, b_slot, seg, a, b, nnz_cap):
@@ -175,8 +222,9 @@ def test_build_names_libraries_by_content_and_raises_without_nvcc(monkeypatch, t
 
 
 def test_c_interfaces_match_the_ctypes_signature():
-    """Every library exports <name>_launch with the argument list the
-    wrapper declares, and <name>_error_string."""
+    """Every replay library exports <name>_launch with the argument list the
+    wrapper declares, and <name>_error_string; every source targets sm_90a
+    (the ELL kernels' interface: tests/test_torch_ops.py)."""
     common = (_build.CSRC_DIR / "replay_common.cuh").read_text()
     api = common[common.index("#define REPLAY_C_API"):]
     params = re.search(r"NAME##_launch\((.*?)\)\s*\{", api.replace("\\\n", ""),
@@ -184,10 +232,10 @@ def test_c_interfaces_match_the_ctypes_signature():
     c_types = {"ptr": ctypes.c_void_p, "int64_t": ctypes.c_int64, "int": ctypes.c_int}
     declared = ["ptr" if "*" in p else p.split()[0] for p in params.split(",")]
     assert [c_types[t] for t in declared] == k1._ARGTYPES
+    for name in WRAPPERS:
+        assert re.search(rf"REPLAY_C_API\({name},", (_build.CSRC_DIR / f"{name}.cu").read_text())
     for name in _build.SOURCES:
-        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
-        assert re.search(rf"REPLAY_C_API\({name},", src)
-        assert "sm_90a" in src
+        assert "sm_90a" in (_build.CSRC_DIR / f"{name}.cu").read_text()
 
 
 @pytest.mark.cuda
@@ -224,3 +272,62 @@ def test_kernel_refuses_f64_and_mixed_devices_on_the_card(cuda, name):
         arrays(*args[:3], args[3].double(), args[4], nnz_cap=11)
     with pytest.raises(SpgemmInputError):
         arrays(*args[:3], args[3].cpu(), args[4], nnz_cap=11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "bf16xf32"])
+@pytest.mark.parametrize("l1_size", [None, 4])
+def test_kernels_match_plain_on_the_card(cuda, dtypes, l1_size):
+    for case in ELL_CASES + [(60, 80, 70_001, 90, 200, 4)]:
+        a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz = (
+            torch.from_numpy(x).to(cuda) for x in ell_operands(*case))
+        k = case[2]
+        a_val, b_val = a_val.to(dtypes[0]), b_val.to(dtypes[1])
+        b_val0 = torch.where(torch.arange(b_idx.shape[1], device=cuda)[None, :]
+                             < b_nnz[:, None], b_val, 0).to(dtypes[1])
+        words = convert.bitmask_from_numpy(bitmask_words(*(x.cpu().numpy() for x in
+                                                      (b_idx, b_nnz)), k), cuda)
+        launches = (k5.LAUNCHES, k4.LAUNCHES, k3.NUMERIC_LAUNCHES)
+        sizes = k5.spgemm_symbolic(a_idx, a_nnz, words)
+        got4 = k4.spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val0, c_idx, c_nnz, k=k)
+        got3 = k3.spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                            l1_size=l1_size, k=k)
+        torch.cuda.synchronize()
+        assert (k5.LAUNCHES, k4.LAUNCHES, k3.NUMERIC_LAUNCHES) == tuple(
+            n + 1 for n in launches)
+        assert torch.equal(sizes, c_nnz)
+        assert torch.equal(sizes, k5.spgemm_symbolic_plain(a_idx, a_nnz, words))
+        for got, plain, bv in (
+                (got4, lambda av, bv: k4.spgemm_numeric_plain(
+                    a_idx, av, a_nnz, b_idx, bv, c_idx, c_nnz, k=k), b_val0),
+                (got3, lambda av, bv: k3.spgemm_lp_plain(
+                    a_idx, av, a_nnz, b_idx, bv, b_nnz, c_idx, c_nnz, k=k), b_val)):
+            want = plain(a_val, bv)
+            scale = plain(a_val.float().abs(), bv.float().abs())
+            tol = 1e-4 if want.dtype == torch.float32 else 8e-3
+            assert got.dtype == want.dtype
+            assert bool(((got.double() - want.double()).abs()
+                         <= tol * scale.double() + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_ops_path_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels import ops
+    from repro_torch.sparse.generators import random_csr
+
+    ta = random_csr(4, 32, 16.0, 11, device="cpu")
+    tb = random_csr(32, 64, 32.0, 111, device="cpu")
+    want = ops.pallas_spgemm(ta, tb)
+    tac = CSR(*(x.to(cuda) for x in (ta.indptr, ta.indices, ta.values)), ta.shape)
+    tbc = CSR(*(x.to(cuda) for x in (tb.indptr, tb.indices, tb.values)), tb.shape)
+    got = ops.pallas_spgemm(tac, tbc)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-5, atol=1e-5)
+    with pytest.raises(SpgemmInputError):
+        k5.spgemm_symbolic(torch.zeros(2, 2, dtype=torch.int32, device=cuda),
+                           torch.zeros(2, dtype=torch.int32),
+                           torch.zeros(2, 2, dtype=torch.int32, device=cuda))

@@ -262,20 +262,78 @@ def test_f64_sparse_values_against_numpy():
 
 
 def test_auto_method_and_later_slice_options_raise_config_errors():
-    a = tgen.random_csr(10, 10, 2.0, 0, device="cpu")
-    # small k: the paper's rule picks the dense method, which comes later
+    """The dense method (chosen by "auto" at small k) against the reference's
+    spgemm(method="dense"): structure bitwise, f32 values within 1e-5, f64
+    against numpy float64 (x64 is off in the reference). The options of later
+    slices still raise."""
+    ja = jgen.random_csr(10, 10, 2.0, 0)
+    jb = jgen.random_csr(10, 12, 3.0, 1)
+    ja, a = _pair(ja)
+    jb, b = _pair(jb)
     stats = {}
     assert tmeta.choose_method(a, a, stats) == "dense"
-    with pytest.raises(SpgemmConfigError, match="dense"):
-        tsp.spgemm(a, a)
-    with pytest.raises(SpgemmConfigError, match="dense"):
-        tsp.spgemm(a, a, method="dense")
+    for method in ("auto", "dense"):
+        want = jsp.spgemm(ja, jb, method=method)
+        got = tsp.spgemm(a, b, method=method)
+        assert got.stats["method"] == want.stats["method"] == "dense"
+        assert got.plan is None and want.plan is None
+        assert got.stats == want.stats
+        np.testing.assert_array_equal(got.c.indptr.numpy(), np.asarray(want.c.indptr))
+        np.testing.assert_array_equal(got.c.indices.numpy(), np.asarray(want.c.indices))
+        np.testing.assert_allclose(got.c.values.numpy(), np.asarray(want.c.values),
+                                   rtol=1e-5, atol=1e-5)
+    a64 = tgen.random_csr(10, 10, 2.0, 0, dtype=np.float64, device="cpu")
+    b64 = tgen.random_csr(10, 12, 3.0, 1, dtype=np.float64, device="cpu")
+    got = tsp.spgemm(a64, b64, method="dense")
+    assert got.c.values.dtype == torch.float64
+    np.testing.assert_allclose(got.c.to_dense().numpy(),
+                               a64.to_dense().numpy() @ b64.to_dense().numpy(),
+                               rtol=1e-12, atol=1e-12)
     with pytest.raises(SpgemmConfigError):
         tsp.spgemm(a, a, method="bogus")
     for kw in ({"mesh": object()}, {"tune": "measure"}, {"validate": "host"},
                {"trace": "on"}):
         with pytest.raises(SpgemmConfigError):
             tsp.spgemm(a, a, method="sparse", **kw)
+
+
+@pytest.mark.parametrize("case", ["random", "galerkin_ap", "rmat8", "empty_rows", "zero_operand"])
+def test_numeric_fresh_and_lp_match_the_reference(case):
+    """numeric_fresh: C, plan and values against the reference's. numeric_lp
+    (values through the LP replay) against the reference's numeric_fresh: the
+    reference's numeric_lp reaches a Pallas kernel that does not run
+    interpreted on this jax."""
+    (ja, ta), (jb, tb) = (_pair(x) for x in CASES[case]())
+    fm = int(j_flops_stats(ja, jb.row_nnz())[0])
+    fm_cap = tmeta.round_capacity(fm)
+    nnz = int(jsp.symbolic(ja, jb)[0].sum())
+    for nnz_cap in (tmeta.round_capacity(nnz), max(-(-nnz // 8) * 8, 8)):
+        jc, jplan = jsp.numeric_fresh(ja, jb, fm_cap, nnz_cap)
+        for fn in (tsp.numeric_fresh, tsp.numeric_lp):
+            tc, tplan = fn(ta, tb, fm_cap, nnz_cap)
+            _assert_plan_equal(jplan, tplan)
+            np.testing.assert_array_equal(tc.indptr.numpy(), np.asarray(jc.indptr))
+            np.testing.assert_array_equal(tc.indices.numpy(), np.asarray(jc.indices))
+            np.testing.assert_allclose(tc.values.numpy(), np.asarray(jc.values),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["random", "banded", "rmat8", "empty_rows", "zero_operand"])
+def test_numeric_dense_acc_matches_the_reference(case):
+    """The dense accumulator's C, with nnz_cap above, at and below nnz(C):
+    structure bitwise (cut or padded as the reference's fixed-size
+    nonzero), values within 1e-5."""
+    (ja, ta), (jb, tb) = (_pair(x) for x in CASES[case]())
+    fm_cap = tmeta.round_capacity(int(j_flops_stats(ja, jb.row_nnz())[0]))
+    nnz = int(jsp.symbolic(ja, jb)[0].sum())
+    for nnz_cap in sorted({max(nnz - 3, 1), max(nnz, 1), nnz + 9}):
+        jc = jsp.numeric_dense_acc(ja, jb, fm_cap, nnz_cap)
+        tc = tsp.numeric_dense_acc(ta, tb, fm_cap, nnz_cap)
+        np.testing.assert_array_equal(tc.indptr.numpy(), np.asarray(jc.indptr))
+        np.testing.assert_array_equal(tc.indices.numpy(), np.asarray(jc.indices))
+        np.testing.assert_allclose(tc.values.numpy(), np.asarray(jc.values),
+                                   rtol=1e-5, atol=1e-5)
+        assert tc.values.dtype == ta.values.dtype
 
 
 def test_more_than_int32_products_raise_capacity_overflow():
