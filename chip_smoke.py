@@ -40,17 +40,40 @@ Phases, in order:
   9. K3, K4 and K5 timed at the shapes of phases 6 and 7 beside their plain
      versions, bounds, torch.sparse.mm (K3, K4) and choose_kernel's pick,
      and K3 and K4 on the rows whose K3 tables live in device memory alone;
- 10. one JSON line of the kernels; the last line is the result.
+ 10. K6 on the block multigrid: the 5-point operator of galerkin_triple(512,
+     512, 4) as 262,144 block rows of 8 x 8 f32 blocks, squared at block
+     granularity through plan_bsr_numeric (once) and bsr_spgemm_numeric (two
+     sets of block values), each against the plain version, C against
+     scipy's bsr_matrix product in float64; then bs = 16 on the 128^2 grid;
+ 11. K7 through ops.expert_matmul at qwen3-moe-30b-a3b widths (d_model
+     2,048, expert width 768, 128 experts, top-8): 4,096 tokens routed by
+     seeded router logits, sorted by expert and padded per expert to 128
+     rows; one layer's x @ w1 in bf16 and in f32, against the plain version;
+ 12. K8 through ops.attention at T = 8,192: gemma2-9b widths (softcap 50; a
+     local layer with its 4,096 window and a global layer; bf16 and f32),
+     llama3.2-1b and qwen3-moe-30b-a3b widths (causal, bf16), against the
+     plain version;
+ 13. K6, K7 and K8 timed at those shapes beside their plain versions, bounds
+     and one PyTorch call where one computes the same function
+     (torch.sparse.mm on the scalar CSR for K6, torch.bmm over w[block_expert]
+     for K7, scaled_dot_product_attention for K8 where there is no softcap);
+ 14. one JSON line of the kernels; the last line is the result.
 
-The launch counters are set to 0 just before phases 3, 4, 6 and 7 drive the
-main path and read just after. Any failed check raises, so the script exits
+Phase 2 also holds K6, K7 and K8 against their plain versions on synthetic
+inputs. f32 products on the card keep allow_tf32 off (checked), so the
+plain versions' matmuls are full f32.
+
+The launch counters are set to 0 just before phases 3, 4, 6, 7 and 10-12
+drive the main path and read just after. Any failed check raises, so the script exits
 non-zero and prints no result. It needs torch, numpy and scipy; it exits
 non-zero when no CUDA card is visible or when the repo's src/ is missing.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -883,6 +906,420 @@ def sparse_mm(x, y):
 
 
 
+# ---------------------------------------------------------------------------
+# The last three kernels through their entry points: K6 bsr_spgemm
+# (plan_bsr_numeric -> bsr_spgemm_numeric), K7 grouped_matmul
+# (ops.expert_matmul), K8 flash_attention (ops.attention)
+# ---------------------------------------------------------------------------
+
+NEW_KERNELS = ("bsr_spgemm", "grouped_matmul", "flash_attention")
+K7_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}  # the reference's tests
+K8_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def close_check(name, got, want, tol) -> float:
+    """Hold ``got`` to ``want`` within rtol = atol = ``tol`` (the reference
+    tests' rule); return the largest |got - want|."""
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"{name}: {got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}")
+    require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+    err = (got.float() - want.float()).abs()
+    excess = float((err - tol * want.float().abs()).max()) if err.numel() else 0.0
+    require(excess <= tol, f"{name}: |kernel - plain| exceeds {tol} + {tol} * |plain|")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def reset_new_launches(km) -> None:
+    km.bsr.LAUNCHES = km.gm.LAUNCHES = km.fa.LAUNCHES = 0
+
+
+def read_new_launches(km) -> dict:
+    return {"bsr_spgemm": km.bsr.LAUNCHES, "grouped_matmul": km.gm.LAUNCHES,
+            "flash_attention": km.fa.LAUNCHES}
+
+
+def synthetic_bsr_plan(nnzb_a, nnzb_b, nnzb_c, t_max, g, dev):
+    """Plan arrays whose live slots never name block 0 and whose padded
+    slots all do, as plan_bsr_numeric pads them."""
+    n = torch.randint(0, t_max + 1, (nnzb_c,), generator=g, device=dev, dtype=torch.int32)
+    live = torch.arange(t_max, device=dev)[None, :] < n[:, None]
+    ca = torch.randint(1, nnzb_a, (nnzb_c, t_max), generator=g, device=dev)
+    cb = torch.randint(1, nnzb_b, (nnzb_c, t_max), generator=g, device=dev)
+    return (torch.where(live, ca, 0).to(torch.int32), torch.where(live, cb, 0).to(torch.int32), n)
+
+
+def phase_new_kernels_vs_plain(km, seed: int, dev="cuda") -> dict:
+    """K6, K7 and K8 against their plain versions on synthetic inputs: K6 with
+    NaN in block 0 (only padded slots name it), bs 8 and 16, mixed dtypes; K7
+    with unsorted expert ids; K8 with ragged tiles, head dims 16-256, softcap,
+    windows that mask whole tiles, and window 0 (every key masked: the mean
+    of V)."""
+    worst = {name: 0.0 for name in NEW_KERNELS}
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    for nnzb_a, nnzb_b, nnzb_c, t_max, bs in ((500, 700, 200_003, 9, 8), (300, 200, 50_001, 5, 16),
+                                             (3, 2, 1, 1, 8)):
+        ca, cb, cn = synthetic_bsr_plan(nnzb_a, nnzb_b, nnzb_c, t_max, g, dev)
+        for adt, bdt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                         (torch.bfloat16, torch.float32)):
+            a = torch.randn(nnzb_a, bs, bs, generator=g, device=dev).to(adt)
+            b = torch.randn(nnzb_b, bs, bs, generator=g, device=dev).to(bdt)
+            a[0] = float("nan")
+            b[0] = float("nan")
+            got = km.bsr.bsr_spgemm_numeric(a, b, ca, cb, cn)
+            want = km.bsr.bsr_spgemm_plain(a, b, ca, cb, cn)
+            a[0] = b[0] = 0
+            scale = km.bsr.bsr_spgemm_plain(a.float().abs(), b.float().abs(), ca, cb, cn)
+            require(got.dtype == want.dtype == adt, f"K6 output dtype {got.dtype}")
+            err = tolerance_check(f"bsr_spgemm nnzb_c={nnzb_c} bs={bs} {adt}x{bdt}", got, want,
+                                  scale, F32_TOL if adt == torch.float32 else BF16_TOL)
+            worst["bsr_spgemm"] = max(worst["bsr_spgemm"], err)
+    log(f"   bsr_spgemm == plain (NaN in block 0 not leaked): max |kernel - plain| "
+        f"{worst['bsr_spgemm']:.3e}")
+    for e, d, f, blocks in ((8, 512, 384, 13), (3, 128, 128, 1)):
+        be = torch.randint(0, e, (blocks,), generator=g, device=dev, dtype=torch.int32)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(blocks * 128, d, generator=g, device=dev).to(dt)
+            w = (torch.randn(e, d, f, generator=g, device=dev) * 0.05).to(dt)
+            err = close_check(f"grouped_matmul {e}x{d}x{f} {dt}", km.gm.grouped_matmul(x, w, be),
+                              km.gm.grouped_matmul_plain(x, w, be), K7_TOL[dt])
+            worst["grouped_matmul"] = max(worst["grouped_matmul"], err)
+    log(f"   grouped_matmul == plain: max |kernel - plain| {worst['grouped_matmul']:.3e}")
+    cases = [  # (hq, hkv, tq, tk, d, kwargs)
+        (4, 2, 320, 320, 256, dict(causal=True, window=100, softcap=50.0)),
+        (4, 1, 192, 384, 128, dict(causal=True)),
+        (2, 2, 96, 96, 64, dict(causal=False, window=3)),
+        (4, 2, 256, 256, 32, dict(causal=True, window=0)),
+        (2, 1, 64, 320, 16, dict(causal=False)),
+    ]
+    for hq, hkv, tq, tk, d, kw in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(hq, tq, d, generator=g, device=dev).to(dt)
+            k = torch.randn(hkv, tk, d, generator=g, device=dev).to(dt)
+            v = torch.randn(hkv, tk, d, generator=g, device=dev).to(dt)
+            got = km.fa.flash_attention(q, k, v, block_q=math.gcd(tq, 128),
+                                        block_k=math.gcd(tk, 128), **kw)
+            err = close_check(f"flash_attention {hq}x{hkv}x{tq}x{tk}x{d} {kw} {dt}", got,
+                              km.fa.flash_attention_plain(q, k, v, **kw), K8_TOL[dt])
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            if kw.get("window") == 0:
+                mean_v = v.float().mean(1).repeat_interleave(hq // hkv, 0)[:, None, :]
+                close_check("window=0 gives the mean of V", got.float(),
+                            mean_v.expand(got.shape).contiguous(), K8_TOL[dt])
+    log(f"   flash_attention == plain: max |kernel - plain| {worst['flash_attention']:.3e}")
+    return worst
+
+
+def bsr_to_csr(indptr, indices, blocks, n_cols):
+    """A BSR operand as a scalar CSR (torch.sparse_csr_tensor) with
+    ``n_cols`` columns, for the yardstick torch.sparse.mm; the port never
+    calls it."""
+    dev = blocks.device
+    nnzb, bs, _ = blocks.shape
+    mb = indptr.shape[0] - 1
+    width = indptr.diff().long()
+    rows = torch.repeat_interleave(torch.arange(mb, device=dev), width)
+    local = torch.arange(nnzb, device=dev) - indptr[:-1].long()[rows]
+    r = torch.arange(bs, device=dev)
+    # position of scalar (block e, row r, col c) in the CSR arrays
+    pos = (indptr[:-1].long()[rows] * bs * bs)[:, None, None] \
+        + (r[None, :, None] * width[rows][:, None, None] * bs) \
+        + (local * bs)[:, None, None] + r[None, None, :]
+    vals = torch.empty(nnzb * bs * bs, dtype=blocks.dtype, device=dev)
+    cols = torch.empty(nnzb * bs * bs, dtype=torch.int64, device=dev)
+    vals[pos.flatten()] = blocks.flatten()
+    cols[pos.flatten()] = (indices[:nnzb].long()[:, None, None] * bs
+                           + r[None, None, :]).expand(nnzb, bs, bs).flatten()
+    crow = torch.zeros(mb * bs + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(width.repeat_interleave(bs) * bs, 0)
+    return torch.sparse_csr_tensor(crow, cols, vals, size=(mb * bs, n_cols))
+
+
+def check_bsr_against_scipy(name, a_ip, a_ix, a_bl, c_plan, c_bl, scale) -> None:
+    """Hold C = A*A (BSR) to scipy's bsr_matrix product in float64: C's block
+    structure exactly, its values within 1e-4 * S + 1e-6 (S the product of
+    |A|, from the plain version)."""
+    import scipy.sparse as sp
+
+    t0 = time.perf_counter()
+    bs = a_bl.shape[1]
+    n = (a_ip.shape[0] - 1) * bs
+    nnzb = int(a_ip[-1])
+    sa = sp.bsr_matrix((a_bl[:nnzb].double().cpu().numpy(), a_ix[:nnzb].cpu().numpy(),
+                        a_ip.cpu().numpy()), shape=(n, n))
+    sc = sa @ sa
+    sc.sort_indices()
+    c_ip, c_ix = c_plan[0].cpu().numpy(), c_plan[1].cpu().numpy()
+    require(np.array_equal(sc.indptr, c_ip) and np.array_equal(sc.indices, c_ix),
+            f"{name}: C's block structure differs from scipy's")
+    err = np.abs(c_bl.double().cpu().numpy() - sc.data)
+    bound = F32_TOL[0] * scale.double().cpu().numpy() + F32_TOL[1]
+    worst = float((err / bound).max()) if err.size else 0.0
+    require(worst <= 1.0, f"{name}: values differ from scipy float64 (worst ratio {worst:.3g})")
+    log(f"   {name}: {len(c_ix)} C blocks == scipy bsr_matrix structure; max |port - scipy f64| "
+        f"{float(err.max()):.3e} (worst ratio to tolerance {worst:.3f}); {time.perf_counter() - t0:.2f} s")
+
+
+def phase_bsr(rt, km, seed: int, out: dict, grid=512, small_grid=128, dev="cuda") -> None:
+    """The block multigrid: the 5-point operator of galerkin_triple(grid,
+    grid, 4) as a block structure with 8 x 8 f32 blocks (8 unknowns a node),
+    squared at block granularity: the plan once, then two numeric phases with
+    new block values (Reuse at block granularity), each against the plain
+    version and the second against scipy; then bs = 16 at a smaller grid."""
+    _, a, _ = rt.galerkin_triple(grid, grid, agg_size=4, device=dev)
+    nnzb = int(a.indptr[-1])
+    a_ip, a_ix = a.indptr, a.indices[:nnzb].contiguous()
+    g = torch.Generator(device=dev).manual_seed(seed + 30)
+    values = [torch.randn(nnzb, 8, 8, generator=g, device=dev) for _ in range(2)]
+    reset_new_launches(km)
+    t0 = time.perf_counter()
+    plan = km.bsr_api.plan_bsr_numeric(a_ip, a_ix, a_ip, a_ix)  # the main path
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    results = [km.bsr_api.bsr_spgemm_numeric(v, v, *plan[2:]) for v in values]
+    torch.cuda.synchronize()
+    launches = read_new_launches(km)
+    c_ip, c_ix, ca, cb, cn = plan
+    contribs = int(cn.sum())
+    log(f"   block A: {a_ip.shape[0] - 1} block rows, {nnzb} blocks of 8 x 8 f32 "
+        f"({nnzb * 256 / 1e6:.1f} MB); C: {c_ix.shape[0]} blocks ({c_ix.shape[0] * 256 / 1e6:.1f} MB), "
+        f"T_max {ca.shape[1]}, {contribs} block products; plan {t_plan * 1e3:.1f} ms; launches "
+        f"{launches}")
+    require(launches == {"bsr_spgemm": 2, "grouped_matmul": 0, "flash_attention": 0},
+            f"launches {launches}")
+    worst = 0.0
+    for step, (v, c) in enumerate(zip(values, results)):
+        want = km.bsr.bsr_spgemm_plain(v, v, ca, cb, cn)
+        scale = km.bsr.bsr_spgemm_plain(v.abs(), v.abs(), ca, cb, cn)
+        worst = max(worst, tolerance_check(f"K6 numeric phase {step}", c, want, scale, F32_TOL))
+        del want
+    log(f"   K6 vs plain: max |kernel - plain| {worst:.3e}")
+    check_bsr_against_scipy("C = A*A (bs 8)", a_ip, a_ix, values[1], plan, results[1], scale)
+    del scale, results
+    # bs = 16 at a smaller grid
+    _, a16, _ = rt.galerkin_triple(small_grid, small_grid, agg_size=4, device=dev)
+    n16 = int(a16.indptr[-1])
+    ip16, ix16 = a16.indptr, a16.indices[:n16].contiguous()
+    v16 = torch.randn(n16, 16, 16, generator=g, device=dev)
+    plan16 = km.bsr_api.plan_bsr_numeric(ip16, ix16, ip16, ix16)
+    c16 = km.bsr_api.bsr_spgemm_numeric(v16, v16, *plan16[2:])
+    want16 = km.bsr.bsr_spgemm_plain(v16, v16, *plan16[2:])
+    scale16 = km.bsr.bsr_spgemm_plain(v16.abs(), v16.abs(), *plan16[2:])
+    worst = max(worst, tolerance_check("K6 bs=16", c16, want16, scale16, F32_TOL))
+    check_bsr_against_scipy(f"C = A*A (bs 16, {small_grid}^2 grid)", ip16, ix16, v16, plan16,
+                            c16, scale16)
+    out.update(launches=launches, worst=worst, a_ip=a_ip, a_ix=a_ix, blocks=values[0],
+               plan=plan, contribs=contribs)
+
+
+def moe_layout(n_tokens, n_experts, top_k, g, dev):
+    """Route ``n_tokens`` top-k by seeded router logits; sort the assignments
+    by expert and pad each expert's rows to a multiple of 128. Returns (row of
+    each assignment, its token, block_expert, rows in all)."""
+    logits = torch.randn(n_tokens, n_experts, generator=g, device=dev)
+    experts = torch.topk(logits, top_k, dim=1).indices.flatten()
+    tokens = torch.arange(n_tokens, device=dev).repeat_interleave(top_k)
+    experts, order = torch.sort(experts, stable=True)
+    tokens = tokens[order]
+    counts = torch.bincount(experts, minlength=n_experts)
+    padded = (counts + 127) // 128 * 128
+    start = torch.cumsum(padded, 0) - padded
+    first = torch.cumsum(counts, 0) - counts
+    rows = start[experts] + torch.arange(experts.shape[0], device=dev) - first[experts]
+    block_expert = torch.repeat_interleave(torch.arange(n_experts, device=dev),
+                                           padded // 128).to(torch.int32)
+    return rows, tokens, block_expert, int(padded.sum())
+
+
+def phase_moe(rt, km, seed: int, out: dict, n_tokens=4096, dev="cuda") -> None:
+    """K7 at qwen3-moe-30b-a3b widths through ops.expert_matmul: tokens routed
+    top-8 over 128 experts, sorted by expert and padded per expert to 128
+    rows; one layer's x @ w1 in bf16 and in f32."""
+    cfg = rt.get_config("qwen3-moe-30b-a3b")
+    d, f, n_exp, top_k = cfg.d_model, cfg.moe_d_ff, cfg.num_experts, cfg.experts_per_token
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    rows, tokens, be, n_rows = moe_layout(n_tokens, n_exp, top_k, g, dev)
+    x_tok = torch.randn(n_tokens, d, generator=g, device=dev)
+    x = torch.zeros(n_rows, d, device=dev)
+    x[rows] = x_tok[tokens]
+    w = torch.randn(n_exp, d, f, generator=g, device=dev) * 0.02
+    used = int((torch.bincount(be.long(), minlength=n_exp) > 0).sum())
+    log(f"   {cfg.name}: d_model {d}, expert width {f}, {n_exp} experts, top-{top_k}; "
+        f"{n_tokens} tokens -> {rows.shape[0]} assignments in {n_rows} rows "
+        f"({n_rows // 128} blocks, {used} experts with tokens); x @ w1 "
+        f"{2 * n_rows * d * f / 1e12:.3f} TFLOP")
+    ins = {dt: (x.to(dt), w.to(dt)) for dt in (torch.bfloat16, torch.float32)}
+    reset_new_launches(km)
+    ys = {dt: km.ops.expert_matmul(xd, wd, be) for dt, (xd, wd) in ins.items()}  # main path
+    torch.cuda.synchronize()
+    launches = read_new_launches(km)
+    require(launches == {"bsr_spgemm": 0, "grouped_matmul": 2, "flash_attention": 0},
+            f"launches {launches}")
+    pad = torch.ones(n_rows, dtype=torch.bool, device=dev)
+    pad[rows] = False
+    worst = {}
+    for dt, y in ys.items():
+        require(y.shape == (n_rows, f) and y.dtype == dt, f"K7 output {y.dtype} {tuple(y.shape)}")
+        require(bool((y[pad] == 0).all()), "K7: padding rows are not 0")
+        worst[dt] = close_check(f"K7 {dt}", y, km.gm.grouped_matmul_plain(*ins[dt], be),
+                                K7_TOL[dt])
+        log(f"   K7 {DT_NAME[dt]} vs plain: max |kernel - plain| {worst[dt]:.3e}; "
+            f"padding rows 0")
+    out.update(launches=launches, worst=max(worst.values()), ins=ins, be=be, n_rows=n_rows,
+               assignments=rows.shape[0], cfg=cfg)
+
+
+ATTN_T = 8192
+
+
+def attention_shapes(rt) -> list:
+    """(label, config, Hq, Hkv, D, kwargs, dtype, SDPA applies) of phase 12."""
+    gem = rt.get_config("gemma2-9b")
+    lla = rt.get_config("llama3.2-1b")
+    qwe = rt.get_config("qwen3-moe-30b-a3b")
+    shapes = []
+    for dt in (torch.bfloat16, torch.float32):
+        for layer, window in (("local", gem.window), ("global", None)):
+            shapes.append((f"gemma2-9b {layer} {DT_NAME[dt]}", gem, dict(
+                causal=True, window=window, softcap=gem.attn_softcap), dt, False))
+    shapes.append(("llama3.2-1b bf16", lla, dict(causal=True), torch.bfloat16, True))
+    shapes.append(("qwen3-moe-30b-a3b bf16", qwe, dict(causal=True), torch.bfloat16, True))
+    return shapes
+
+
+def live_pairs(t, causal, window) -> int:
+    """(query, key) pairs that a causal / windowed mask leaves live, T x T."""
+    q = np.arange(t, dtype=np.int64)
+    hi = q if causal else np.full(t, t - 1)
+    lo = np.zeros(t, np.int64) if window is None else np.maximum(0, q - window + 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_attention(rt, km, seed: int, out: dict, t=ATTN_T, dev="cuda") -> None:
+    """K8 through ops.attention at full head widths, T = 8192: gemma2-9b
+    (softcap 50; a local layer with its 4,096 window and a global layer; bf16
+    and f32), llama3.2-1b and qwen3-moe-30b-a3b (causal, bf16)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 50)
+    worst = 0.0
+    ins = {}
+    reset_new_launches(km)
+    results = {}
+    for label, cfg, kw, dt, _ in attention_shapes(rt):
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        qkv = tuple(torch.randn(h, t, d, generator=g, device=dev).to(dt) for h in (hq, hkv, hkv))
+        ins[label] = qkv
+        results[label] = km.ops.attention(*qkv, **kw)  # the main path
+    torch.cuda.synchronize()
+    launches = read_new_launches(km)
+    n = len(results)
+    require(launches == {"bsr_spgemm": 0, "grouped_matmul": 0, "flash_attention": n},
+            f"launches {launches}")
+    for label, cfg, kw, dt, _ in attention_shapes(rt):
+        got = results.pop(label)
+        err = close_check(f"K8 {label}", got, km.fa.flash_attention_plain(*ins[label], **kw),
+                          K8_TOL[dt])
+        worst = max(worst, err)
+        log(f"   K8 {label}: Hq {cfg.num_heads}, Hkv {cfg.num_kv_heads}, D "
+            f"{cfg.resolved_head_dim}, T {t}, {kw}: max |kernel - plain| {err:.3e}")
+        del got
+    out.update(launches=launches, worst=worst, ins=ins, t=t)
+
+
+def sparse_mm_yardstick(a_ip, a_ix, blocks):
+    """(ms, text) of torch.sparse.mm squaring the BSR operand as a scalar
+    CSR, the whole product; (None, why) where cuSPARSE cannot run it."""
+    n = (a_ip.shape[0] - 1) * blocks.shape[1]
+    try:
+        scalar = bsr_to_csr(a_ip, a_ix, blocks, n)
+        ms = time_ms(lambda: torch.sparse.mm(scalar, scalar))
+    except (torch.cuda.OutOfMemoryError, RuntimeError) as e:  # cuSPARSE's limits
+        torch.cuda.empty_cache()
+        return None, f"null: torch.sparse.mm on the scalar CSR fails ({str(e).splitlines()[0][:160]})"
+    del scalar
+    torch.cuda.empty_cache()
+    return ms, f"{ms:.3f} ms (torch.sparse.mm, scalar CSR, the whole product)"
+
+
+def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
+    """K6, K7 and K8 at the shapes of phases 10-12 (median of 7, CUDA
+    events) beside their plain versions, bounds and one PyTorch call where
+    one computes the same function."""
+    import torch.nn.functional as F
+
+    times = {}
+    # K6
+    v, (c_ip, c_ix, ca, cb, cn) = bsr["blocks"], bsr["plan"]
+    nnzb_c, t_max = ca.shape
+    row = {"ms": time_ms(lambda: km.bsr_api.bsr_spgemm_numeric(v, v, ca, cb, cn)),
+           "plain_ms": time_ms(lambda: km.bsr.bsr_spgemm_plain(v, v, ca, cb, cn))}
+    t_bytes = (v.numel() * 4 + (2 * t_max + 1) * nnzb_c * 4 + nnzb_c * 256) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * 512 * bsr["contribs"] / F32_FLOPS_PER_S * 1e3
+    row["bound_ms"], row["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    row["library_ms"], lib_s = sparse_mm_yardstick(bsr["a_ip"], bsr["a_ix"], v)
+    times["bsr_spgemm"] = {"block multigrid 512^2 bs 8 f32": row}
+    log(f"   K6 block multigrid 512^2, bs 8, f32 ({bsr['contribs']} block products, {nnzb_c} C "
+        f"blocks): {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+        f"ms ({row['bound_by']}: A's blocks, the plan and C once at 3.35 TB/s), library {lib_s}")
+    if row["library_ms"] is None:  # the same comparison where cuSPARSE can run it
+        _, a, _ = rt.galerkin_triple(256, 256, agg_size=4, device="cuda")
+        nnzb = int(a.indptr[-1])
+        ip, ix = a.indptr, a.indices[:nnzb].contiguous()
+        v2 = torch.randn(nnzb, 8, 8, device="cuda")
+        plan = km.bsr_api.plan_bsr_numeric(ip, ix, ip, ix)
+        k_ms = time_ms(lambda: km.bsr_api.bsr_spgemm_numeric(v2, v2, *plan[2:]))
+        lib_ms, lib_s = sparse_mm_yardstick(ip, ix, v2)
+        log(f"   K6 block multigrid 256^2, bs 8, f32 ({int(plan[4].sum())} block products): "
+            f"{k_ms:.3f} ms, library {lib_s}")
+        row["at_256"] = {"ms": k_ms, "library_ms": lib_ms}
+        del v2, plan
+        torch.cuda.empty_cache()
+    # K7
+    be, n_rows, cfg = moe["be"], moe["n_rows"], moe["cfg"]
+    times["grouped_matmul"] = {}
+    for dt, (x, w) in moe["ins"].items():
+        label = f"{cfg.name} {n_rows} rows {DT_NAME[dt]}"
+        r = {"ms": time_ms(lambda: km.ops.expert_matmul(x, w, be)),
+             "plain_ms": time_ms(lambda: km.gm.grouped_matmul_plain(x, w, be))}
+        item = x.element_size()
+        t_bytes = (x.numel() + w.numel() + n_rows * w.shape[2]) * item / HBM_BYTES_PER_S * 1e3
+        peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
+        t_ops = 2 * n_rows * x.shape[1] * w.shape[2] / peak * 1e3
+        r["bound_ms"], r["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        wg = w[be.long()]  # the yardstick's gather, outside the timing
+        xb = x.view(-1, 128, x.shape[1])
+        r["library_ms"] = time_ms(lambda: torch.bmm(xb, wg))
+        del wg
+        torch.cuda.empty_cache()
+        times["grouped_matmul"][label] = r
+        log(f"   K7 {label}: {r['ms']:.3f} ms ({2 * n_rows * x.shape[1] * w.shape[2] / r['ms'] / 1e9:.1f}"
+            f" TFLOP/s), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), torch.bmm over w[block_expert] {r['library_ms']:.3f} ms")
+    # K8
+    times["flash_attention"] = {}
+    t = attn["t"]
+    for label, cfg, kw, dt, sdpa in attention_shapes(rt):
+        q, k, v = attn["ins"][label]
+        r = {"ms": time_ms(lambda: km.ops.attention(q, k, v, **kw)),
+             "plain_ms": time_ms(lambda: km.fa.flash_attention_plain(q, k, v, **kw))}
+        flops = 4 * q.shape[0] * q.shape[2] * live_pairs(t, kw["causal"], kw.get("window"))
+        peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
+        t_ops = flops / peak * 1e3
+        t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S * 1e3
+        r["bound_ms"], r["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        if sdpa:
+            r["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True, enable_gqa=True))
+            lib_s = f"{r['library_ms']:.3f} ms (scaled_dot_product_attention, enable_gqa)"
+        else:
+            r["library_ms"] = None
+            lib_s = "null: scaled_dot_product_attention has no softcap"
+        times["flash_attention"][label] = r
+        log(f"   K8 {label}: {r['ms']:.3f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {lib_s}")
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -898,6 +1335,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.core as rt_core
     import repro_torch.sparse as rt_sparse
+    import repro_torch.configs as rt_configs
+    import repro_torch.kernels as kernels_api
     from repro_torch.kernels import _build, ops, segsum_reuse, spgemm_lp
     from repro_torch.kernels import spgemm_numeric, spgemm_symbolic
 
@@ -910,18 +1349,29 @@ def main(argv=None) -> int:
         csr_to_ell = staticmethod(rt_sparse.csr_to_ell)
         bitmask_rows = staticmethod(rt_core.bitmask_rows)
         flops_stats = staticmethod(rt_core.flops_stats)
+        get_config = staticmethod(rt_configs.get_config)
 
     class km:  # the kernels' modules: wrappers, plain versions, launch counts
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
 
     km.ops = ops
+    km.bsr_api = kernels_api  # plan_bsr_numeric, bsr_spgemm_numeric
+    # the modules (the package exports functions of the same names)
+    km.bsr, km.gm, km.fa = (importlib.import_module(f"repro_torch.kernels.{name}")
+                            for name in NEW_KERNELS)
     seg_mod, lp_mod = km.seg, km.lp
+    # f32 products in full f32: the plain versions' matmuls must not round to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     with Phase("phase 1: device and build"):
         phase_device(_build)
+        log(f"   allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+            f"{torch.backends.cudnn.allow_tf32} (f32 products in full f32)")
     with Phase("phase 2: kernels vs plain on synthetic plans and ELL operands"):
         synth_worst = phase_kernels_vs_plain(seg_mod, lp_mod, args.seed)
         synth_worst.update(phase_ell_kernels_vs_plain(rt, km, args.seed))
+        synth_worst.update(phase_new_kernels_vs_plain(km, args.seed))
     if args.kernels_only:
         log("kernels-only run: phases 1-2 passed; no result line")
         return 0
@@ -952,6 +1402,18 @@ def main(argv=None) -> int:
             "power-law A*A": (pw["rmat"], pw["rmat"], ops_pw["c_idx"], ops_pw["c_nnz"], 1),
             "multigrid 512^2 A*P": (ops_mg["a"], ops_mg["p"], ops_mg["c_idx"],
                                     ops_mg["c_nnz"], 7)})
+    del pw["rmat"], pw["rmat_scipy"], ops_pw["c_idx"], ops_mg["a"], ops_mg["p"], ops_mg["c_idx"]
+    torch.cuda.empty_cache()
+    bsr, moe, attn = {}, {}, {}
+    with Phase("phase 10: block multigrid A*A through plan_bsr_numeric + K6 bsr_spgemm"):
+        phase_bsr(rt, km, args.seed, bsr)
+    with Phase("phase 11: qwen3-moe-30b-a3b expert matmul through ops.expert_matmul (K7)"):
+        phase_moe(rt, km, args.seed, moe)
+    with Phase("phase 12: attention at gemma2-9b, llama3.2-1b and qwen3-moe widths through "
+               "ops.attention (K8)"):
+        phase_attention(rt, km, args.seed, attn)
+    with Phase("phase 13: times of K6, K7 and K8"):
+        new_times = phase_new_times(rt, km, bsr, moe, attn)
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     kernels = [
@@ -986,6 +1448,23 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": line_shape[name]})
+    new_replaces = {"bsr_spgemm": "src/repro/kernels/bsr_spgemm.py:103",
+                    "grouped_matmul": "src/repro/kernels/grouped_matmul.py:47",
+                    "flash_attention": "src/repro/kernels/flash_attention.py:75"}
+    new_shape = {"bsr_spgemm": "block multigrid 512^2 bs 8 f32",
+                 "grouped_matmul": f"{moe['cfg'].name} {moe['n_rows']} rows bf16",
+                 "flash_attention": "llama3.2-1b bf16"}
+    path_runs = {"bsr_spgemm": bsr, "grouped_matmul": moe, "flash_attention": attn}
+    for name in NEW_KERNELS:
+        t = new_times[name][new_shape[name]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": new_replaces[name],
+            "launches": path_runs[name]["launches"][name],
+            "max_abs_err": max(synth_worst[name], path_runs[name]["worst"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": new_shape[name]})
     for k in kernels:
         k["max_err"] = k["max_abs_err"]
     print(json.dumps({"kernels": kernels}), flush=True)

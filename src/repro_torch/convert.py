@@ -5,7 +5,9 @@ on the JAX side), so this module needs nothing of JAX. A plan built by the
 reference replays in the port, and a port plan handed back through
 ``plan_to_numpy`` replays in the reference. ELL arrays cross as they are;
 a bitmask crosses bit for bit between the reference's uint32 and the port's
-int32 (``bitmask_from_numpy``, ``bitmask_to_numpy``).
+int32 (``bitmask_from_numpy``, ``bitmask_to_numpy``). BSR operands and the
+block plan of ``kernels.bsr_spgemm`` cross as int32 structure arrays and
+(nnzb, bs, bs) blocks (``bsr_from_numpy``, ``bsr_plan_from_numpy``).
 """
 from __future__ import annotations
 
@@ -89,3 +91,19 @@ def bitmask_from_numpy(words, device="cuda") -> torch.Tensor:
 def bitmask_to_numpy(words: torch.Tensor) -> np.ndarray:
     """A port bitmask (int32 words) as the reference's uint32 words."""
     return np.ascontiguousarray(tensor_to_numpy(words)).view(np.uint32)
+
+
+def bsr_from_numpy(indptr, indices, blocks, device="cuda") -> tuple:
+    """A reference BSR operand as ``(indptr, indices, blocks)`` tensors on
+    ``device``: int32 structure and (nnzb, bs, bs) blocks."""
+    return (tensor_from_numpy(np.asarray(indptr, np.int32), device),
+            tensor_from_numpy(np.asarray(indices, np.int32), device),
+            tensor_from_numpy(blocks, device))
+
+
+def bsr_plan_from_numpy(c_indptr, c_indices, contrib_a, contrib_b, contrib_n,
+                        device="cuda") -> tuple:
+    """The five int32 arrays of the reference's ``plan_bsr_numeric`` as
+    tensors on ``device``, in the same order."""
+    return tuple(tensor_from_numpy(np.asarray(x, np.int32), device)
+                 for x in (c_indptr, c_indices, contrib_a, contrib_b, contrib_n))

@@ -11,10 +11,24 @@ Kernels (``csrc/``, built by ``_build``):
   spgemm_symbolic — K5, C's row sizes: OR of B's bitmask rows + popcount
   spgemm_numeric  — K4, numeric phase through a dense row in shared memory
   spgemm_lp       — K3, numeric phase through the two-level LP hash tables
+  bsr_spgemm      — K6, block-sparse (BSR) numeric phase: one warp per C
+                    block sums its A_blk @ B_blk contributions in registers
+                    (``plan_bsr_numeric`` is its symbolic phase, on the device)
+  grouped_matmul  — K7, MoE expert-grouped matmul: a tiled f32 GEMM per
+                    128-token block, the weight tile chosen by block_expert
+  flash_attention — K8, FA2-style attention forward with GQA, sliding window
+                    and logit softcap, online softmax over 64-key tiles
 
 ``ops.py`` holds the kernel-backed two-phase path (``pallas_spgemm``,
-``symbolic_rowsizes``, ``numeric_values``).
+``symbolic_rowsizes``, ``numeric_values``) and the reference's
+``attention`` (K8) and ``expert_matmul`` (K7) wrappers.
 """
+from repro_torch.kernels.bsr_spgemm import bsr_spgemm_numeric, plan_bsr_numeric
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grouped_matmul import grouped_matmul
+
+__all__ = ["BACKEND_NAMES", "NUMERIC_KERNEL_NAMES", "bsr_spgemm_numeric",
+           "flash_attention", "grouped_matmul", "plan_bsr_numeric"]
 
 # backend string (the reference's) -> what it runs in the port
 BACKEND_NAMES = {

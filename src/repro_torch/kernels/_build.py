@@ -21,7 +21,8 @@ from repro_torch.runtime.validate import KernelFallbackError
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("segsum_reuse", "lp_reuse", "spgemm_symbolic", "spgemm_numeric", "spgemm_lp")
+SOURCES = ("segsum_reuse", "lp_reuse", "spgemm_symbolic", "spgemm_numeric", "spgemm_lp",
+           "bsr_spgemm", "grouped_matmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,3 +89,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build((name,))[name]))
         _LIBS[name] = lib
     return lib
+
+
+def launch(name: str, argtypes, *args) -> None:
+    """Call ``<name>_launch(*args)`` of ``csrc/<name>.cu``, whose C arguments
+    are ``argtypes`` and which returns ``cudaGetLastError()``; a CUDA error
+    raises ``KernelFallbackError``: there is nothing to fall back to."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    err_str = getattr(lib, f"{name}_error_string")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+    err = fn(*args)
+    if err != 0:
+        raise KernelFallbackError(
+            f"{name} kernel launch failed: CUDA error {err} ({err_str(err).decode()})")

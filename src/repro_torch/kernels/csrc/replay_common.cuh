@@ -1,6 +1,7 @@
 // Shared pieces of the two plan-replay kernels (segsum_reuse.cu, lp_reuse.cu);
-// the value loads and the dtype dispatch also serve the ELL kernels
-// (spgemm_numeric.cu, spgemm_lp.cu).
+// the value loads and stores and the dtype dispatch also serve the ELL
+// kernels (spgemm_numeric.cu, spgemm_lp.cu) and bsr_spgemm.cu,
+// grouped_matmul.cu and flash_attention.cu.
 //
 // Both replay a precomposed SpGEMM plan: for every product t,
 //   C[seg_ids[t]] += A[a_slot[t]] * B[b_slot[t]]
@@ -43,6 +44,15 @@ __device__ __forceinline__ float load_val(const __half* p, int64_t i) {
 __device__ __forceinline__ float load_val(const __nv_bfloat16* p, int64_t i) {
   return __bfloat162float(__ushort_as_bfloat16(
       __ldg(reinterpret_cast<const unsigned short*>(p) + i)));
+}
+
+// f32 v stored as *p's type (round to nearest even).
+__device__ __forceinline__ void store_val(float* p, int64_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void store_val(__half* p, int64_t i, float v) {
+  p[i] = __float2half_rn(v);
+}
+__device__ __forceinline__ void store_val(__nv_bfloat16* p, int64_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ int64_t clamp_slot(int64_t s, int64_t n) {

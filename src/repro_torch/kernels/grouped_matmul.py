@@ -1,0 +1,107 @@
+"""K7: the expert-grouped matmul (the MoE numeric phase) in CUDA
+(``csrc/grouped_matmul.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/grouped_matmul.py``
+(``grouped_matmul``). MoE dispatch is a top-k-sparse token-to-expert
+matrix: routing is the symbolic phase (counts only), this is the numeric
+phase. Tokens arrive sorted by expert and padded so that no block of
+``TM = 128`` rows spans two experts: ``y[t] = x[t] @ w[block_expert[t //
+128]]`` with f32 products and sums, out in ``x.dtype``.
+
+What bounds it on the H100: operations, 2 * T * d * f flops, each weight
+tile serving a block of 128 tokens. The design (see the source's header):
+one thread block per (token block, 128-column tile of f), the weight tile
+chosen by ``block_expert``, f32 tiles in shared memory and an 8 x 8 f32
+register tile per thread; no tensor cores yet.
+
+Beside the kernel: ``grouped_matmul_plain``, the reference's
+``ref.grouped_matmul_ref`` in plain torch, one f32 product per expert (the
+literal ``w[group_ids]`` would hold T * d * f values), which the wrapper
+runs for CPU tensors only; ``LAUNCHES``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.segsum_reuse import DTYPE_CODES
+from repro_torch.kernels.spgemm_symbolic import check_tensor
+from repro_torch.runtime.validate import SpgemmInputError
+
+# kernel launches by ``grouped_matmul`` (reset by callers that count)
+LAUNCHES = 0
+
+TM = 128  # token-block rows, the reference's
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+_ARGTYPES = [_P, _INT, _P, _INT, _P, _P, _I64, _I64, _I64, _I64, _P]
+
+
+def check_grouped_args(x, w, block_expert) -> None:
+    """Raise ``SpgemmInputError`` on anything the kernel does not take: the
+    reference's shape asserts (T % 128, d % 128, f % 128, d == w's d) as
+    typed errors, and dtypes, devices and contiguity. The same checks run for
+    CPU tensors."""
+    device = x.device if isinstance(x, torch.Tensor) else None
+    check_tensor("x", x, device, 2, tuple(DTYPE_CODES))
+    check_tensor("w", w, device, 3, tuple(DTYPE_CODES))
+    check_tensor("block_expert", block_expert, device, 1, (torch.int32,))
+    t, d = x.shape
+    e, dw, f = w.shape
+    if d != dw or t % TM or d % 128 or f % 128:
+        raise SpgemmInputError(
+            f"grouped_matmul needs x (T, d), w (E, d, f) with T % {TM} == 0 and "
+            f"d % 128 == f % 128 == 0; got x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if block_expert.shape[0] != t // TM:
+        raise SpgemmInputError(
+            f"block_expert has {block_expert.shape[0]} entries for {t // TM} token blocks")
+    if e == 0:
+        raise SpgemmInputError("w has no experts")
+
+
+def grouped_matmul_plain(x, w, block_expert) -> torch.Tensor:
+    """``grouped_matmul`` in plain torch: for each expert that owns blocks,
+    one f32 product of its rows; out in ``x.dtype``. Expert ids clamp into
+    [0, E)."""
+    t, d = x.shape
+    e, _, f = w.shape
+    out = torch.zeros(t // TM, TM, f, dtype=x.dtype, device=x.device)
+    xb = x.view(t // TM, TM, d)
+    be = block_expert.long().clamp(0, e - 1)
+    for ex in torch.unique(be).tolist():
+        blocks = torch.nonzero(be == ex).flatten()
+        y = xb[blocks].reshape(-1, d).float() @ w[ex].float()
+        out[blocks] = y.view(-1, TM, f).to(x.dtype)
+    return out.view(t, f)
+
+
+def grouped_matmul(x, w, block_expert) -> torch.Tensor:
+    """y[t] = x[t] @ w[expert(t)] for expert-sorted, block-aligned tokens.
+
+    x: (T, d) with T % 128 == 0; w: (E, d, f); block_expert: (T // 128,)
+    int32. Values f32, f16 or bf16 (f32 accumulation); out (T, f) in
+    ``x.dtype``. CUDA tensors launch the kernel (or raise); CPU tensors run
+    ``grouped_matmul_plain``.
+    """
+    global LAUNCHES
+    check_grouped_args(x, w, block_expert)
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, w, block_expert)
+    for name, ten in (("x", x), ("w", w)):
+        if ten.data_ptr() % 16:
+            raise SpgemmInputError(f"{name} must start on a 16-byte boundary (16-byte loads)")
+    t, d = x.shape
+    e, _, f = w.shape
+    out = torch.empty(t, f, dtype=x.dtype, device=x.device)
+    if t and f:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _build.launch("grouped_matmul", _ARGTYPES, x.data_ptr(), DTYPE_CODES[x.dtype],
+                          w.data_ptr(), DTYPE_CODES[w.dtype], block_expert.data_ptr(),
+                          out.data_ptr(), t, d, f, e, stream)
+        LAUNCHES += 1
+    return out

@@ -8,10 +8,14 @@ flop-heavy rows to the LP-hash kernel K3 (``"flat_lp"``); f64 and integer
 operands go to the plain ``"xla"`` path, since the kernels accumulate in
 f32. ``KERNEL_COUNTS`` records every resolved dispatch.
 
+``attention`` (K8, flash attention) and ``expert_matmul`` (K7, the MoE
+grouped matmul) keep the reference's ``impl`` names: "auto" and "pallas"
+run the CUDA kernel for CUDA tensors and its plain version for CPU tensors,
+"xla" the plain version wherever the tensors live.
+
 What the reference has and this slice does not: ``tune="measure"`` (the
-port's autotune slice), the degradation ladder of
-``on_kernel_failure="fallback"`` and its fault points (the runtime slice),
-and ``attention``/``expert_matmul``, which wait for their kernels (K8, K7).
+port's autotune slice) and the degradation ladder of
+``on_kernel_failure="fallback"`` and its fault points (the runtime slice).
 A kernel that fails raises ``KernelFallbackError``; nothing falls back.
 """
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 
 from repro_torch.core.compression import bitmask_rows, flops_stats
 from repro_torch.core.meta import choose_kernel, f32_accumulation_ok
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_plain
 from repro_torch.kernels.spgemm_lp import spgemm_lp_bucketed
 from repro_torch.kernels.spgemm_numeric import (spgemm_numeric_bucketed,
                                                 spgemm_numeric_ref)
@@ -31,6 +37,7 @@ from repro_torch.runtime.validate import (KernelFallbackError, SpgemmConfigError
 from repro_torch.sparse.formats import CSR, csr_to_ell
 
 NUMERIC_KERNELS = ("auto", "dense_acc", "flat_lp", "xla")
+IMPLS = ("auto", "pallas", "xla")  # attention / expert_matmul
 
 # Dispatch telemetry: resolved kernel name per numeric_values call.
 KERNEL_COUNTS: Counter = Counter()
@@ -159,3 +166,38 @@ def pallas_spgemm(a: CSR, b: CSR, *,
     del c, c_ell  # C's CSR and ELL values: only the structure goes on
     vals = numeric_values(a, b, c_idx, c_nnz, kernel=kernel, fm=fm)
     return c_nnz, c_idx, vals
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise SpgemmConfigError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: int | None = None, softcap: float | None = None,
+              impl: str = "auto", segment_pos=None) -> torch.Tensor:
+    """Multi-head attention over (H, T, D) tensors with GQA broadcast.
+
+    impl: "auto" or "pallas" (the CUDA kernel K8 for CUDA tensors, its plain
+    version on the CPU), "xla" (the plain version). ``segment_pos`` (decode
+    positions) always takes the plain version, as in the reference. Blocks
+    are the reference's ``min(128, T)``.
+    """
+    _check_impl(impl)
+    if impl == "xla" or segment_pos is not None:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, segment_pos=segment_pos)
+    return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                           block_q=min(128, q.shape[1]), block_k=min(128, k.shape[1]))
+
+
+def expert_matmul(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """Grouped (expert) matmul for expert-sorted token blocks of width 128.
+
+    impl: "auto" or "pallas" (the CUDA kernel K7 for CUDA tensors, its plain
+    version on the CPU), "xla" (the plain version)."""
+    _check_impl(impl)
+    if impl == "xla":
+        return grouped_matmul_plain(x, w, block_expert)
+    return grouped_matmul(x, w, block_expert)

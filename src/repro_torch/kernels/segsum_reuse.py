@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.runtime.validate import KernelFallbackError, SpgemmInputError
+from repro_torch.runtime.validate import SpgemmInputError
 
 # kernel launches by ``segsum_reuse_arrays`` (reset by callers that count)
 LAUNCHES = 0
@@ -96,25 +96,14 @@ def launch_replay(lib_name: str, a_slot_s, b_slot_s, seg_ids, a_values,
     """Launch ``<lib_name>_launch`` of ``csrc/<lib_name>.cu`` on the current
     stream, adding into the zeroed f32 ``out``. A CUDA error after the launch
     raises ``KernelFallbackError``: there is no rung to fall back to."""
-    lib = _build.load(lib_name)
-    fn = getattr(lib, f"{lib_name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        err_str = getattr(lib, f"{lib_name}_error_string")
-        err_str.argtypes = [ctypes.c_int]
-        err_str.restype = ctypes.c_char_p
     device = a_values.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(a_slot_s.data_ptr(), b_slot_s.data_ptr(), seg_ids.data_ptr(),
-                 a_values.data_ptr(), DTYPE_CODES[a_values.dtype], a_values.shape[0],
-                 b_values.data_ptr(), DTYPE_CODES[b_values.dtype], b_values.shape[0],
-                 out.data_ptr(), seg_ids.shape[0], out.shape[0], stream)
-    if err != 0:
-        msg = getattr(lib, f"{lib_name}_error_string")(err).decode()
-        raise KernelFallbackError(
-            f"{lib_name} kernel launch failed: CUDA error {err} ({msg})")
+        _build.launch(lib_name, _ARGTYPES, a_slot_s.data_ptr(), b_slot_s.data_ptr(),
+                      seg_ids.data_ptr(), a_values.data_ptr(), DTYPE_CODES[a_values.dtype],
+                      a_values.shape[0], b_values.data_ptr(), DTYPE_CODES[b_values.dtype],
+                      b_values.shape[0], out.data_ptr(), seg_ids.shape[0], out.shape[0],
+                      stream)
 
 
 def segsum_reuse_plain(a_slot_s, b_slot_s, seg_ids, a_values, b_values,

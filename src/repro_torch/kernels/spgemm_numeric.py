@@ -30,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.segsum_reuse import DTYPE_CODES
 from repro_torch.kernels.spgemm_symbolic import check_tensor, row_chunks
-from repro_torch.runtime.validate import KernelFallbackError, SpgemmInputError
+from repro_torch.runtime.validate import SpgemmInputError
 
 # kernel launches by ``spgemm_numeric`` (reset by callers that count)
 LAUNCHES = 0
@@ -152,15 +152,6 @@ def launch_ell(lib_name: str, a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
     interface of ``csrc/ell_common.cuh``) on the current stream, writing
     the f32 ``out``. A CUDA error after the launch raises
     ``KernelFallbackError``: there is no rung to fall back to."""
-    lib = _build.load(lib_name)
-    fn = getattr(lib, f"{lib_name}_launch")
-    err_str = getattr(lib, f"{lib_name}_error_string")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        err_str.argtypes = [ctypes.c_int]
-        err_str.restype = ctypes.c_char_p
-
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -171,14 +162,12 @@ def launch_ell(lib_name: str, a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
     n, r_b = b_idx.shape
     with torch.cuda.device(a_idx.device):
         stream = torch.cuda.current_stream(a_idx.device).cuda_stream
-        err = fn(a_idx.data_ptr(), a_val.data_ptr(), DTYPE_CODES[a_val.dtype],
-                 a_nnz.data_ptr(), r_a, b_idx.data_ptr(), b_val.data_ptr(),
-                 DTYPE_CODES[b_val.dtype], ptr(b_nnz), n, r_b, c_idx.data_ptr(),
-                 c_nnz.data_ptr(), c_idx.shape[1], out.data_ptr(), m, k, tile, l1_size,
-                 *row_args, ptr(g_off), ptr(g_ids), ptr(g_vals), stream)
-    if err != 0:
-        raise KernelFallbackError(
-            f"{lib_name} kernel launch failed: CUDA error {err} ({err_str(err).decode()})")
+        _build.launch(lib_name, _ARGTYPES, a_idx.data_ptr(), a_val.data_ptr(),
+                      DTYPE_CODES[a_val.dtype], a_nnz.data_ptr(), r_a, b_idx.data_ptr(),
+                      b_val.data_ptr(), DTYPE_CODES[b_val.dtype], ptr(b_nnz), n, r_b,
+                      c_idx.data_ptr(), c_nnz.data_ptr(), c_idx.shape[1], out.data_ptr(), m,
+                      k, tile, l1_size, *row_args, ptr(g_off), ptr(g_ids), ptr(g_vals),
+                      stream)
 
 
 def spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *, k: int,

@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.runtime.validate import KernelFallbackError, SpgemmInputError
+from repro_torch.runtime.validate import SpgemmInputError
 
 # kernel launches by ``spgemm_symbolic`` (reset by callers that count)
 LAUNCHES = 0
@@ -99,23 +99,12 @@ def spgemm_symbolic_plain(a_idx, a_nnz, b_bitmask) -> torch.Tensor:
 
 
 def _launch(a_idx, a_nnz, b_bitmask, out) -> None:
-    lib = _build.load("spgemm_symbolic")
-    fn = lib.spgemm_symbolic_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.spgemm_symbolic_error_string.argtypes = [ctypes.c_int]
-        lib.spgemm_symbolic_error_string.restype = ctypes.c_char_p
     m, r_a = a_idx.shape
     n, k32 = b_bitmask.shape
     with torch.cuda.device(a_idx.device):
         stream = torch.cuda.current_stream(a_idx.device).cuda_stream
-        err = fn(a_idx.data_ptr(), r_a, a_nnz.data_ptr(), b_bitmask.data_ptr(), n, k32,
-                 out.data_ptr(), m, stream)
-    if err != 0:
-        msg = lib.spgemm_symbolic_error_string(err).decode()
-        raise KernelFallbackError(
-            f"spgemm_symbolic kernel launch failed: CUDA error {err} ({msg})")
+        _build.launch("spgemm_symbolic", _ARGTYPES, a_idx.data_ptr(), r_a, a_nnz.data_ptr(),
+                      b_bitmask.data_ptr(), n, k32, out.data_ptr(), m, stream)
 
 
 def spgemm_symbolic(a_idx, a_nnz, b_bitmask) -> torch.Tensor:

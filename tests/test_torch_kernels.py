@@ -1,6 +1,8 @@
 """The replay kernels' wrappers (K1 segsum_reuse, K2 lp_reuse), the build, and
 the card tests of every kernel (K3 spgemm_lp, K4 spgemm_numeric and K5
-spgemm_symbolic too; their CPU parity tests are in tests/test_torch_ops.py).
+spgemm_symbolic too, their CPU parity tests in tests/test_torch_ops.py; K6
+bsr_spgemm, K7 grouped_matmul and K8 flash_attention, theirs in
+tests/test_torch_bsr.py and tests/test_torch_attention.py).
 
 On the CPU each wrapper runs its plain version, which is held against the
 JAX package's host-loop oracle ``kernels.ref.segsum_reuse_ref`` (the
@@ -15,6 +17,7 @@ reference, so that on a machine with a card and no JAX the ``cuda`` tests
 run with ``pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
 import ctypes
+import math
 import re
 
 import numpy as np
@@ -331,3 +334,122 @@ def test_ops_path_on_the_card_matches_the_cpu(cuda):
         k5.spgemm_symbolic(torch.zeros(2, 2, dtype=torch.int32, device=cuda),
                            torch.zeros(2, dtype=torch.int32),
                            torch.zeros(2, 2, dtype=torch.int32, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# K6 bsr_spgemm, K7 grouped_matmul, K8 flash_attention (their CPU parity
+# tests: tests/test_torch_bsr.py and tests/test_torch_attention.py)
+# ---------------------------------------------------------------------------
+
+def _c_launch_argtypes(name):
+    """The ctypes types of ``<name>_launch``'s C parameters in csrc/<name>.cu."""
+    src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+    params = re.search(rf'extern "C" int {name}_launch\((.*?)\)\s*\{{', src, re.S).group(1)
+    c_types = {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "float": ctypes.c_float}
+    return [ctypes.c_void_p if "*" in p else c_types[p.split()[0]]
+            for p in params.split(",")]
+
+
+@pytest.mark.parametrize("name", ["bsr_spgemm", "grouped_matmul", "flash_attention"])
+def test_new_c_interfaces_match_their_ctypes_signatures(name):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    assert _c_launch_argtypes(name) == mod._ARGTYPES
+    src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+    assert f'extern "C" const char* {name}_error_string(int code)' in src
+    assert name in _build.SOURCES
+
+
+def _synthetic_bsr_plan(nnzb_a, nnzb_b, nnzb_c, t_max, seed, device):
+    """Random plan arrays whose live slots never name block 0 and whose
+    padded slots all do (as plan_bsr_numeric pads them)."""
+    g = torch.Generator().manual_seed(seed)
+    n = torch.randint(0, t_max + 1, (nnzb_c,), generator=g, dtype=torch.int32)
+    live = torch.arange(t_max)[None, :] < n[:, None]
+    ca = torch.where(live, torch.randint(1, nnzb_a, (nnzb_c, t_max), generator=g), 0)
+    cb = torch.where(live, torch.randint(1, nnzb_b, (nnzb_c, t_max), generator=g), 0)
+    return (ca.to(torch.int32).to(device), cb.to(torch.int32).to(device), n.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "bf16xf32"])
+def test_bsr_kernel_matches_plain_on_the_card(cuda, bs, dtypes):
+    from repro_torch.kernels import bsr_spgemm as k6
+
+    for nnzb_a, nnzb_b, nnzb_c, t_max in ((40, 50, 300, 5), (3, 2, 1, 1), (500, 700, 20_011, 9)):
+        ca, cb, cn = _synthetic_bsr_plan(nnzb_a, nnzb_b, nnzb_c, t_max, nnzb_c, cuda)
+        g = torch.Generator(device=cuda).manual_seed(bs)
+        a = torch.randn(nnzb_a, bs, bs, generator=g, device=cuda).to(dtypes[0])
+        b = torch.randn(nnzb_b, bs, bs, generator=g, device=cuda).to(dtypes[1])
+        a[0] = float("nan")  # only padded slots name block 0: nothing may leak
+        b[0] = float("nan")
+        launches = k6.LAUNCHES
+        got = k6.bsr_spgemm_numeric(a, b, ca, cb, cn)
+        torch.cuda.synchronize()
+        assert k6.LAUNCHES == launches + 1
+        want = k6.bsr_spgemm_plain(a, b, ca, cb, cn)
+        assert got.dtype == want.dtype == dtypes[0]
+        assert bool(torch.isfinite(got.float()).all())
+        tol = 1e-4 if dtypes[0] == torch.float32 else 3e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(SpgemmInputError):
+        k6.bsr_spgemm_numeric(torch.zeros(2, 4, 4, device=cuda), torch.zeros(2, 4, 4, device=cuda),
+                              *_synthetic_bsr_plan(2, 2, 1, 1, 0, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_matmul_kernel_matches_plain_on_the_card(cuda, dtype):
+    import importlib
+
+    k7 = importlib.import_module("repro_torch.kernels.grouped_matmul")
+
+    for e, d, f, blocks in ((4, 256, 256, 6), (8, 128, 384, 4), (16, 512, 128, 9)):
+        g = torch.Generator(device=cuda).manual_seed(d)
+        be = torch.sort(torch.randint(0, e, (blocks,), generator=g, device=cuda)).values
+        x = torch.randn(blocks * 128, d, generator=g, device=cuda).to(dtype)
+        w = (torch.randn(e, d, f, generator=g, device=cuda) * 0.1).to(dtype)
+        launches = k7.LAUNCHES
+        got = k7.grouped_matmul(x, w, be.to(torch.int32))
+        torch.cuda.synchronize()
+        assert k7.LAUNCHES == launches + 1
+        want = k7.grouped_matmul_plain(x, w, be.to(torch.int32))
+        tol = 2e-4 if dtype == torch.float32 else 3e-2
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 2, 256, 256, 64), (8, 8, 128, 128, 32),
+                                   (2, 1, 96, 96, 256), (2, 2, 128, 192, 128),
+                                   (2, 1, 64, 320, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_kernel_matches_plain_on_the_card(cuda, dtype, shape):
+    import importlib
+
+    k8 = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    hq, hkv, tq, tk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(tq + d)
+    q = torch.randn(hq, tq, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(hkv, tk, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(hkv, tk, d, generator=g, device=cuda).to(dtype)
+    tol = 2e-3 if dtype == torch.float32 else 5e-2
+    for kw in (dict(causal=True), dict(causal=True, window=64), dict(causal=False),
+               dict(causal=True, softcap=30.0), dict(causal=True, window=0),
+               dict(causal=False, window=3)):
+        launches = k8.LAUNCHES
+        got = k8.flash_attention(q, k, v, block_q=math.gcd(tq, 128),
+                                 block_k=math.gcd(tk, 128), **kw)
+        torch.cuda.synchronize()
+        assert k8.LAUNCHES == launches + 1
+        want = k8.flash_attention_plain(q, k, v, **kw)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{kw}: {m}")
