@@ -16,8 +16,14 @@ Kernels (``csrc/``, built by ``_build``):
                     (``plan_bsr_numeric`` is its symbolic phase, on the device)
   grouped_matmul  — K7, MoE expert-grouped matmul: a tiled f32 GEMM per
                     128-token block, the weight tile chosen by block_expert
-  flash_attention — K8, FA2-style attention forward with GQA, sliding window
-                    and logit softcap, online softmax over 64-key tiles
+  flash_attention — K8, attention forward with GQA, sliding window and logit
+                    softcap (replaces the TPU kernel
+                    repro/kernels/flash_attention.py; bound by operations at
+                    989 TFLOP/s in bf16/f16): "wgmma" for bf16/f16 at D 64-256
+                    (TMA-fed K/V stages, wgmma, FA3-style), "mma" for bf16/f16
+                    at D 16 and 32 (mma.sync, cp.async, FA2-style), both with
+                    S and O in registers and P rounded to the input dtype
+                    before P @ V; "fma" for f32 (f32 FMAs, no tensor cores)
 
 ``ops.py`` holds the kernel-backed two-phase path (``pallas_spgemm``,
 ``symbolic_rowsizes``, ``numeric_values``) and the reference's

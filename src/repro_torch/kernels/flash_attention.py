@@ -10,10 +10,26 @@ causal and window masks with the finite ``-1e30``; online softmax; out in
 V, in the reference's kernel and oracle alike, and here too.
 
 What bounds it on the H100: operations, 4 * D flops per live (query, key)
-pair of each head. The design (see the source's header): an FA2-style
-forward, one block per (64-row query tile, head), a loop over 64-key tiles
-with the running (m, l) per row, f32 tiles in shared memory (210 KiB at
-D = 256, dynamic), no tensor cores yet. Head dims 16, 32, 64, 128, 256.
+pair of each head, at 989 TFLOP/s on the tensor cores in bf16/f16 and 67
+TFLOP/s in f32. The C launcher picks the variant by dtype and head dim
+(``variant``); a failed build or launch raises, nothing falls back:
+
+- ``"wgmma"`` (bf16, f16 at D 64, 128, 256): an FA3-style forward; one block
+  of two warpgroups per (128-row query tile, head); TMA copies Q and
+  64-key K/V stages into 128-byte-swizzled shared memory, counted on
+  mbarriers; per stage O += P V (P from registers) then S = Q K^T, both
+  ``wgmma`` with f32 accumulators, then the softmax in registers.
+- ``"mma"`` (bf16, f16 at D 16, 32): an FA2-style forward with
+  ``mma.sync.m16n8k16``; 8 warps of 16 query rows, K/V tiles double-buffered
+  with ``cp.async``.
+- ``"fma"`` (f32, every D): f32 FMAs over f32 shared-memory tiles, no
+  tensor cores (the port's f32 contract is full-f32 products).
+
+In both tensor-core variants S, the softmax and O stay in registers and P
+is rounded to the input dtype in registers before O += P V; the reference
+keeps P in f32, and its 5e-2 tolerance covers that rounding. The softcap's
+tanh is 1 - 2 / (2^y + 1) from ``ex2.approx`` and ``rcp.approx``, within
+about 1e-7 of an exact tanh.
 
 Beside the kernel: ``flash_attention_plain``, the reference's
 ``ref.flash_attention_ref`` (with ``segment_pos``) in plain torch, one KV
@@ -44,6 +60,16 @@ _INT = ctypes.c_int
 _F32 = ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _INT, _I64, _I64, _I64, _I64, _INT, _F32, _INT, _INT, _I64,
              _F32, _P]
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel variant that a CUDA launch runs for (dtype, head_dim), as
+    the C launcher chooses it: "wgmma" (bf16/f16, D >= 64), "mma" (bf16/f16,
+    D 16 and 32), "fma" (f32), or "none" where it refuses. Reads the built
+    library."""
+    fn = _build.load("flash_attention").flash_attention_variant
+    fn.argtypes, fn.restype = [_INT, _INT], ctypes.c_char_p
+    return fn(DTYPE_CODES[dtype], head_dim).decode()
 
 
 def check_attention_args(q, k, v, block_q: int, block_k: int) -> None:
@@ -109,9 +135,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     returns (Hq, Tq, D) in q's dtype.
 
     block_q, block_k: the reference's tiling, kept for its shape contract
-    (Tq and Tk must be multiples of them); the values do not depend on them,
-    and the CUDA kernel tiles by 64. CUDA tensors launch the kernel (or
-    raise); CPU tensors run ``flash_attention_plain``.
+    (Tq and Tk must be multiples of them); the values do not depend on them.
+    The CUDA kernel tiles by its own sizes: 128 query rows and 64 keys in
+    bf16/f16 (tensor cores, P rounded to q's dtype before P @ V), 64 and 64
+    in f32; ``variant`` names the kernel for a dtype and head dim. CUDA
+    tensors launch the kernel (or raise); CPU tensors run
+    ``flash_attention_plain``. An operand that is not 16-byte aligned (an
+    odd storage offset) is copied first: the bf16/f16 kernel reads 16 bytes
+    at a time.
     """
     global LAUNCHES
     check_attention_args(q, k, v, block_q, block_k)
@@ -122,6 +153,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     hq, tq, d = q.shape
     hkv, tk, _ = k.shape
     out = torch.empty_like(q)
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     if hq and tq:
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -425,10 +425,12 @@ def test_grouped_matmul_kernel_matches_plain_on_the_card(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("shape", [(4, 2, 256, 256, 64), (8, 8, 128, 128, 32),
                                    (2, 1, 96, 96, 256), (2, 2, 128, 192, 128),
-                                   (2, 1, 64, 320, 16)],
+                                   (2, 1, 64, 320, 16), (2, 1, 136, 200, 256),
+                                   (2, 1, 64, 40, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_flash_attention_kernel_matches_plain_on_the_card(cuda, dtype, shape):
     import importlib
@@ -441,9 +443,11 @@ def test_flash_attention_kernel_matches_plain_on_the_card(cuda, dtype, shape):
     k = torch.randn(hkv, tk, d, generator=g, device=cuda).to(dtype)
     v = torch.randn(hkv, tk, d, generator=g, device=cuda).to(dtype)
     tol = 2e-3 if dtype == torch.float32 else 5e-2
+    assert k8.variant(dtype, d) == ("fma" if dtype == torch.float32 else
+                                    "wgmma" if d >= 64 else "mma")
     for kw in (dict(causal=True), dict(causal=True, window=64), dict(causal=False),
                dict(causal=True, softcap=30.0), dict(causal=True, window=0),
-               dict(causal=False, window=3)):
+               dict(causal=False, window=3), dict(causal=True, softcap=50.0)):
         launches = k8.LAUNCHES
         got = k8.flash_attention(q, k, v, block_q=math.gcd(tq, 128),
                                  block_k=math.gcd(tk, 128), **kw)
@@ -453,3 +457,63 @@ def test_flash_attention_kernel_matches_plain_on_the_card(cuda, dtype, shape):
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
                                    msg=lambda m: f"{kw}: {m}")
+        assert _rel_fro(got, want) <= _K8_FRO[dtype], kw
+
+
+# ||kernel - plain||_F / ||plain||_F bounds of K8, as in chip_smoke.py
+_K8_FRO = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
+def _rel_fro(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape", [(2, 1, 136, 200, 256), (4, 2, 192, 192, 256),
+                                   (4, 1, 128, 192, 128), (2, 1, 256, 256, 32),
+                                   (4, 2, 128, 200, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_kernel_holds_a_saturated_softcap_on_the_card(cuda, dtype, shape):
+    """q and k scaled by 8: scores in the hundreds, so tanh saturates and the
+    softcap decides the output; the same output without the softcap fails
+    the check."""
+    import importlib
+
+    k8 = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    hq, hkv, tq, tk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(tq + d + 8)
+    q = (torch.randn(hq, tq, d, generator=g, device=cuda) * 8).to(dtype)
+    k = (torch.randn(hkv, tk, d, generator=g, device=cuda) * 8).to(dtype)
+    v = torch.randn(hkv, tk, d, generator=g, device=cuda).to(dtype)
+    tol = 2e-3 if dtype == torch.float32 else 5e-2
+    for kw in (dict(causal=True, softcap=50.0), dict(causal=False, softcap=30.0)):
+        got = k8.flash_attention(q, k, v, block_q=math.gcd(tq, 128),
+                                 block_k=math.gcd(tk, 128), **kw)
+        want = k8.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{kw}: {m}")
+        assert _rel_fro(got, want) <= _K8_FRO[dtype], kw
+        uncapped = k8.flash_attention_plain(q, k, v, causal=kw["causal"])
+        assert _rel_fro(uncapped, want) > _K8_FRO[dtype], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_flash_attention_kernel_takes_operands_off_16_byte_alignment(cuda, dtype):
+    import importlib
+
+    k8 = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randn(1 + 2 * 128 * 64, generator=g, device=cuda).to(dtype)
+    q = base[1:].view(2, 128, 64)  # 2 bytes past an aligned address
+    k = torch.randn(1, 128, 64, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, 128, 64, generator=g, device=cuda).to(dtype)
+    assert q.data_ptr() % 16 != 0
+    got = k8.flash_attention(q, k, v, causal=True, block_q=128, block_k=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), k8.flash_attention_plain(q, k, v).float(),
+                               rtol=5e-2, atol=5e-2)
