@@ -14,7 +14,11 @@ Phases, in order:
      against theirs on synthetic ELL operands (widths of no tile, garbage
      past a_nnz/b_nnz, k = 70,001 over several shared-memory passes, rows
      whose LP tables live in device memory, a forced 16-slot L1 that spills,
-     k < 32; the same dtypes);
+     k < 32; the same dtypes); then K3 alone on rows of every size class
+     (log-uniform widths), with and without a forced 4-slot L1 that makes
+     rows of every class spill, on rows whose keys all share one home slot
+     of K3's hash, and on keys that are multiples of 2^16, logging the rows
+     per class;
   3. multigrid Reuse, the paper's R*A*P: galerkin_triple(2048, 2048, 4).
      Fresh AP = A*P and RAP = R*AP through spgemm(method="sparse"), held
      against scipy (structure exactly, values in float64), then five time
@@ -38,8 +42,10 @@ Phases, in order:
   8. spgemm(method="auto") on rmat_csr(13, 8) A*A picks the dense method
      (plain torch; the reference has no kernel there), against scipy;
   9. K3, K4 and K5 timed at the shapes of phases 6 and 7 beside their plain
-     versions, bounds, torch.sparse.mm (K3, K4) and choose_kernel's pick,
-     and K3 and K4 on the rows whose K3 tables live in device memory alone;
+     versions, bounds (K3/K4: the (m, rC) output counted whole),
+     torch.sparse.mm (K3, K4), K3 / torch.sparse.mm and choose_kernel's pick,
+     and K3 and K4 on each K3 size class's rows alone, with the rows,
+     products and C entries of each class;
  10. K6 on the block multigrid: the 5-point operator of galerkin_triple(512,
      512, 4) as 262,144 block rows of 8 x 8 f32 blocks, squared at block
      granularity through plan_bsr_numeric (once) and bsr_spgemm_numeric (two
@@ -594,18 +600,29 @@ def read_launches(km) -> dict:
             "spgemm_lp": km.lp.NUMERIC_LAUNCHES}
 
 
-def synthetic_ell(m, n, k, r_a, r_b, g, dev):
+def _widths(count, top, g, dev, log_widths):
+    """``count`` widths in [0, top]: uniform, or log-uniform (floor of
+    exp(U * ln(top + 1)) - 1), which puts as many widths in [1, 2] as in
+    [top / 2, top]."""
+    if not log_widths:
+        return torch.randint(0, top + 1, (count,), generator=g, device=dev, dtype=torch.int32)
+    u = torch.rand(count, generator=g, device=dev)
+    return (torch.exp(u * math.log(top + 1)) - 1).floor().clamp(0, top).to(torch.int32)
+
+
+def synthetic_ell(m, n, k, r_a, r_b, g, dev, log_widths=False):
     """ELL operands with garbage past a_nnz and b_nnz: A's padded slots hold
     column ids up to 3n, B's up to 2k (the kernels mask them; K4's contract
     gives B's padded slots the value 0, set by the caller). A row's live B
     columns are distinct (base + step * t mod k). Row m // 2 of A is full, so
-    its C row is among the widest."""
-    a_nnz = torch.randint(0, r_a + 1, (m,), generator=g, device=dev, dtype=torch.int32)
+    its C row is among the widest. ``log_widths`` draws the A and B widths
+    log-uniformly, so C's row sizes span every K3 size class."""
+    a_nnz = _widths(m, r_a, g, dev, log_widths)
     a_nnz[m // 2] = r_a
     a_live = torch.arange(r_a, device=dev)[None, :] < a_nnz[:, None]
     a_idx = torch.randint(0, 3 * n, (m, r_a), generator=g, device=dev)
     a_idx = torch.where(a_live, a_idx % n, a_idx).to(torch.int32)
-    b_nnz = torch.randint(0, r_b + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+    b_nnz = _widths(n, r_b, g, dev, log_widths)
     b_live = torch.arange(r_b, device=dev)[None, :] < b_nnz[:, None]
     base = torch.randint(0, k, (n, 1), generator=g, device=dev)
     step = torch.randint(1, max(k // r_b, 1) + 1, (n, 1), generator=g, device=dev)
@@ -643,33 +660,27 @@ def ell_csr(rt, nnz, idx, vals, shape):
     return rt.CSR(indptr, idx[mask], vals[mask], shape)
 
 
-def check_ell_kernels(km, name, args, k, l1_size, worst, want_sizes=None) -> None:
-    """K5, K4 (with and without b_nnz) and K3 against their plain versions on
-    one set of ELL inputs, in every dtype pair."""
+def check_ell_kernels(km, name, args, k, l1_size, worst, want_sizes=None,
+                      k3_only=False) -> None:
+    """K5, K4 (with and without b_nnz) and K3 (or K3 alone) against their
+    plain versions on one set of ELL inputs, in every dtype pair."""
     a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx, c_nnz, bm = args
-    got = km.sym.spgemm_symbolic(a_idx, a_nnz, bm)
-    want = km.sym.spgemm_symbolic_plain(a_idx, a_nnz, bm)
-    require(torch.equal(got, want), f"{name}: spgemm_symbolic differs from its plain version")
-    if want_sizes is not None:
-        require(torch.equal(got, want_sizes), f"{name}: K5 row sizes differ from C's structure")
+    if not k3_only:
+        got = km.sym.spgemm_symbolic(a_idx, a_nnz, bm)
+        want = km.sym.spgemm_symbolic_plain(a_idx, a_nnz, bm)
+        require(torch.equal(got, want), f"{name}: spgemm_symbolic differs from its plain version")
+        if want_sizes is not None:
+            require(torch.equal(got, want_sizes),
+                    f"{name}: K5 row sizes differ from C's structure")
     g = torch.Generator(device=a_idx.device).manual_seed(int(k))
     for adt, bdt in ELL_DTYPES:
         a_val = torch.randn(a_idx.shape, generator=g, device=a_idx.device).to(adt)
         b_val = torch.randn(b_idx.shape, generator=g, device=a_idx.device).to(bdt)
         b_val0 = torch.where(b_live, b_val, torch.zeros((), dtype=bdt, device=b_val.device))
         tag = f"{str(adt)[6:]}x{str(bdt)[6:]}"
-        # K4: out in A's dtype; B's padded slots carry 0
-        scale = km.num.spgemm_numeric_plain(a_idx, a_val.float().abs(), a_nnz, b_idx,
-                                            b_val0.float().abs(), c_idx, c_nnz, k=k)
-        want = km.num.spgemm_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val0, c_idx,
-                                           c_nnz, k=k)
-        for bn in ((None, b_nnz) if adt == bdt == torch.float32 else (b_nnz,)):
-            got = km.num.spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val0, c_idx, c_nnz,
-                                        k=k, b_nnz=bn)
-            require(got.dtype == want.dtype == adt, f"K4 output dtype {got.dtype}")
-            err = tolerance_check(f"{name} spgemm_numeric {tag}", got, want, scale,
-                                  ell_tol(adt))
-            worst["spgemm_numeric"] = max(worst["spgemm_numeric"], err)
+        if not k3_only:
+            check_k4(km, name, tag, (a_idx, a_val, a_nnz, b_idx, b_val0, b_nnz, c_idx, c_nnz),
+                     k, adt, worst)
         # K3: out in promote_types(a, b); B's padded slots masked by b_nnz
         out_dt = torch.promote_types(adt, bdt)
         scale = km.lp.spgemm_lp_plain(a_idx, a_val.float().abs(), a_nnz, b_idx,
@@ -681,7 +692,58 @@ def check_ell_kernels(km, name, args, k, l1_size, worst, want_sizes=None) -> Non
         require(got.dtype == want.dtype == out_dt, f"K3 output dtype {got.dtype}")
         err = tolerance_check(f"{name} spgemm_lp {tag}", got, want, scale, ell_tol(out_dt))
         worst["spgemm_lp"] = max(worst["spgemm_lp"], err)
-        log(f"   {name} {tag}: K4 and K3 == plain within tolerance")
+        log(f"   {name} {tag}: {'K3 == plain' if k3_only else 'K4 and K3 == plain'} "
+            f"within tolerance")
+
+
+def check_k4(km, name, tag, args, k, adt, worst) -> None:
+    """K4, with and without b_nnz, against its plain version."""
+    a_idx, a_val, a_nnz, b_idx, b_val0, b_nnz, c_idx, c_nnz = args
+    # K4: out in A's dtype; B's padded slots carry 0
+    scale = km.num.spgemm_numeric_plain(a_idx, a_val.float().abs(), a_nnz, b_idx,
+                                        b_val0.float().abs(), c_idx, c_nnz, k=k)
+    want = km.num.spgemm_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val0, c_idx,
+                                       c_nnz, k=k)
+    for bn in ((None, b_nnz) if a_val.dtype == b_val0.dtype == torch.float32
+               else (b_nnz,)):
+        got = km.num.spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val0, c_idx, c_nnz,
+                                    k=k, b_nnz=bn)
+        require(got.dtype == want.dtype == adt, f"K4 output dtype {got.dtype}")
+        err = tolerance_check(f"{name} spgemm_numeric {tag}", got, want, scale,
+                              ell_tol(adt))
+        worst["spgemm_numeric"] = max(worst["spgemm_numeric"], err)
+
+
+LP_COLLISION_KEYS = (1, 3, 4, 7, 15, 31, 63, 127, 255, 511, 1023, 2047)
+
+
+def lp_collision_ell(km, k, counts, dev):
+    """ELL operands whose row i (one A entry, B row i) has counts[i] keys,
+    all on one home slot of the row's per-row table under K3's hash (found by
+    brute force over [0, k)), then a row of no product; B's padded slots hold
+    column k."""
+    r_b = max(counts)
+    cand = torch.arange(k, device=dev)
+    b_idx = torch.full((len(counts), r_b), k, dtype=torch.int32, device=dev)
+    for i, c in enumerate(counts):
+        size = 1 << max(2 * c - 1, 7).bit_length()  # next power of two >= max(2c, 8)
+        keys = cand[km.lp.lp_home_slot(cand, size) == 0][:c]
+        require(keys.shape[0] == c, f"fewer than {c} keys share a home slot below k={k}")
+        b_idx[i, :c] = keys.to(torch.int32)
+    b_nnz = torch.tensor(counts, dtype=torch.int32, device=dev)
+    m = len(counts) + 1
+    a_idx = torch.cat([torch.arange(m - 1, device=dev), torch.zeros(1, device=dev,
+                                                                   dtype=torch.long)])
+    a_nnz = torch.ones(m, dtype=torch.int32, device=dev)
+    a_nnz[-1] = 0
+    b_live = torch.arange(r_b, device=dev)[None, :] < b_nnz[:, None]
+    return a_idx[:, None].to(torch.int32), a_nnz, b_idx, b_nnz, b_live
+
+
+def lp_class_rows(km, c_nnz, l1_size) -> list:
+    """Rows per K3 size class: [empty, each of CLASS_SLOTS, device memory]."""
+    cls = km.lp.lp_row_class(c_nnz, l1_size)
+    return torch.bincount(cls + 1, minlength=len(km.lp.CLASS_SLOTS) + 2).tolist()
 
 
 def phase_ell_kernels_vs_plain(rt, km, seed: int) -> dict:
@@ -692,21 +754,51 @@ def phase_ell_kernels_vs_plain(rt, km, seed: int) -> dict:
         (300, 400, 70_001, 131, 201, 16),  # K3 with a forced 16-slot L1: rows spill
         (9, 5, 13, 3, 5, None),  # k < 32
     ]
+    n_cls = len(km.lp.CLASS_SLOTS) + 1
     for m, n, k, r_a, r_b, l1_size in cases:
         a_idx, a_nnz, b_idx, b_nnz, b_live = synthetic_ell(m, n, k, r_a, r_b, g, "cuda")
         c_idx, c_nnz = ell_structure(a_idx, a_nnz, b_idx, b_nnz, k)
         b_csr = ell_csr(rt, b_nnz, b_idx, torch.ones(b_idx.shape, device="cuda"), (n, k))
         bm = rt.bitmask_rows(b_csr)
-        slots = km.lp.lp_table_slots(c_nnz, c_idx.shape[1], l1_size)
-        classes = [int(((slots > km.lp.SMALL_SLOTS).int() + (slots > km.lp.MID_SLOTS).int()
-                        == c).sum()) for c in range(3)]
+        classes = lp_class_rows(km, c_nnz, l1_size)
         name = f"ell m={m} k={k} l1={l1_size}"
         log(f"   {name}: rA {r_a}, rB {r_b}, widest C row {int(c_nnz.max())}; K3 rows per "
-            f"table class (16 KiB, 128 KiB, device memory): {classes}")
+            f"class (empty, <= {km.lp.CLASS_SLOTS} slots, device memory): {classes}")
         if k > 16384:
-            require(classes[2] > 0, f"{name}: no row needs a device-memory table")
+            require(classes[-1] > 0, f"{name}: no row needs a device-memory table")
         check_ell_kernels(km, name, (a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx, c_nnz, bm),
                           k, l1_size, worst, want_sizes=c_nnz)
+    # K3 alone: every size class, with and without a forced 4-slot L1 (then
+    # rows spill in every class); keys on one home slot; keys that are
+    # multiples of 2^16, which the masked identity hash piled onto slot 0
+    mult = synthetic_ell(1000, 1000, 1 << 12, 24, 48, g, "cuda", log_widths=True)
+    mult = (*mult[:2], mult[2] * (1 << 16), *mult[3:])
+    k3_cases = [
+        ("every class", synthetic_ell(1000, 600, 70_001, 160, 400, g, "cuda",
+                                      log_widths=True), 70_001),
+        ("one home slot", lp_collision_ell(km, 1 << 24, LP_COLLISION_KEYS, "cuda"), 1 << 24),
+        ("multiples of 2^16", mult, 1 << 28),
+    ]
+    for label, (a_idx, a_nnz, b_idx, b_nnz, b_live), k in k3_cases:
+        c_idx, c_nnz = ell_structure(a_idx, a_nnz, b_idx, b_nnz, k)
+        for l1_size in (None, 4):
+            classes = lp_class_rows(km, c_nnz, l1_size)
+            cls = km.lp.lp_row_class(c_nnz, l1_size)
+            # a row spills where its L1's cutoff, min(s1 / 2, s1 - 1), is below c_nnz
+            spill = (c_nnz > min(l1_size // 2, l1_size - 1) if l1_size
+                     else torch.zeros_like(c_nnz, dtype=torch.bool))
+            spilling = torch.bincount(cls[spill] + 1, minlength=n_cls + 1).tolist()
+            name = f"K3 {label} l1={l1_size}"
+            log(f"   {name}: k {k}, widest C row {int(c_nnz.max())}; rows per class (empty, "
+                f"<= {km.lp.CLASS_SLOTS} slots, device memory): {classes}; rows that "
+                f"spill: {spilling}")
+            require(classes[0] > 0, f"{name}: no row of 0 products")
+            if label == "every class":
+                require(min(classes) > 0, f"{name}: a size class has no row")
+                if l1_size is not None:
+                    require(min(spilling[1:]) > 0, f"{name}: a size class has no spilling row")
+            check_ell_kernels(km, name, (a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx, c_nnz,
+                                         None), k, l1_size, worst, k3_only=True)
     torch.cuda.synchronize()
     return worst
 
@@ -837,11 +929,14 @@ def phase_dense_method(rt, seed: int) -> dict:
                                          "nnz_c")}}
 
 
-def ell_bounds(fm, nnz_a, m, nnz_b, n, nnz_c):
+def ell_bounds(fm, nnz_a, m, nnz_b, n, nnz_c, r_c):
     """(bound ms, what bounds it) of K3/K4: A's and B's live ELL entries
-    (index + f32 value), their widths, C's live structure and values and its
-    widths, each once, at 3.35 TB/s; 2 flops per product at 67 TFLOP/s."""
-    t_bytes = (8 * (nnz_a + nnz_b) + 4 * (m + n) + 8 * nnz_c + 4 * m) / HBM_BYTES_PER_S * 1e3
+    (index + f32 value), their widths, C's live structure and its widths,
+    each read once, and the (m, r_c) f32 output that the contract writes
+    whole (zeros past c_nnz included), at 3.35 TB/s; 2 flops per product at
+    67 TFLOP/s."""
+    t_bytes = (8 * (nnz_a + nnz_b) + 4 * (m + n) + 4 * nnz_c + 4 * m * r_c
+               + 4 * m) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * fm / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -901,8 +996,8 @@ def phase_ops_times(rt, km, shapes: dict) -> dict:
         m, n = a.shape[0], b.shape[0]
         lib = time_ms(sparse_mm(a, b))
         for name in ("spgemm_lp", "spgemm_numeric"):
-            row[name]["bound_ms"], row[name]["bound_by"] = ell_bounds(fm, nnz_a, m, nnz_b,
-                                                                      n, nnz_c)
+            row[name]["bound_ms"], row[name]["bound_by"] = ell_bounds(
+                fm, nnz_a, m, nnz_b, n, nnz_c, c_idx_p.shape[1])
             row[name]["library_ms"] = lib
         sb = symbolic_bound(nnz_a, m, n, bm.shape[1])
         row["spgemm_symbolic"].update(bound_ms=sb[0], bound_by=sb[1], library_ms=None)
@@ -916,22 +1011,27 @@ def phase_ops_times(rt, km, shapes: dict) -> dict:
             log(f"      {name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms (median of "
                 f"{plain_reps}), bound {r['bound_ms']:.3f} ms "
                 f"({r['bound_by']}), library {lib_s}")
-        log(f"      K3 / K4 = {row['spgemm_lp']['ms'] / row['spgemm_numeric']['ms']:.2f} "
-            f"(choose_kernel picks {pick})")
-        # where K3's time goes: the rows whose tables live in device memory
-        wide = torch.nonzero(km.lp.lp_table_slots(c_nnz, c_idx_p.shape[1], None)
-                             > km.lp.MID_SLOTS).flatten()
-        if wide.numel():
-            wa = (a_idx[wide], a_val[wide], ea.row_nnz[wide])
-            wc = (c_idx_p[wide], c_nnz[wide])
-            k3w = time_ms(lambda: km.lp.spgemm_lp(*wa, b_idx, b_val, eb.row_nnz, *wc, k=k))
-            k4w = time_ms(lambda: km.num.spgemm_numeric(*wa, b_idx, b_val, *wc, k=k,
+        log(f"      K3 / K4 = {row['spgemm_lp']['ms'] / row['spgemm_numeric']['ms']:.2f}, "
+            f"K3 / torch.sparse.mm = {row['spgemm_lp']['ms'] / lib:.2f} (choose_kernel picks "
+            f"{pick})")
+        # where K3's time goes: each size class's rows alone, K4 on the same rows
+        fm_row = rt.flops_stats(a, b.row_nnz())[1]
+        cls = km.lp.lp_row_class(c_nnz, None)
+        for c in range(len(km.lp.CLASS_SLOTS) + 1):
+            rows = torch.nonzero(cls == c).flatten()
+            if not rows.numel():
+                continue
+            wa = (a_idx[rows], a_val[rows], ea.row_nnz[rows])
+            wc = (c_idx_p[rows], c_nnz[rows])
+            k3c = time_ms(lambda: km.lp.spgemm_lp(*wa, b_idx, b_val, eb.row_nnz, *wc, k=k))
+            k4c = time_ms(lambda: km.num.spgemm_numeric(*wa, b_idx, b_val, *wc, k=k,
                                                         b_nnz=eb.row_nnz))
-            fm_w = int(rt.flops_stats(a, b.row_nnz())[1][wide].sum())
-            log(f"      the {wide.numel()} rows with K3 tables in device memory "
-                f"(c_nnz > {km.lp.MID_SLOTS // 2}; {fm_w} of the {fm} products, "
-                f"{int(c_nnz[wide].sum())} of the {nnz_c} C entries) alone: K3 {k3w:.3f} ms, "
-                f"K4 {k4w:.3f} ms")
+            what = ("device memory" if c == len(km.lp.CLASS_SLOTS)
+                    else f"<= {km.lp.CLASS_SLOTS[c]} slots")
+            log(f"      K3 class {c} ({what}): {rows.numel()} rows, "
+                f"{int(fm_row[rows].sum())} of the {fm} products, "
+                f"{int(c_nnz[rows].sum())} of the {nnz_c} C entries; alone K3 "
+                f"{k3c:.3f} ms, K4 {k4c:.3f} ms")
             del wa, wc
         del ea, eb, bm, a_idx, a_val, b_idx, b_val, c_idx_p
         torch.cuda.empty_cache()

@@ -36,14 +36,15 @@ struct EllArgs {
   int64_t k;
   // K4: f32 columns of the dense accumulator per pass
   int tile;
-  // K3: L1 size (0 = per row), the rows of each size class and the global
-  // tables of the largest rows
+  // K3: L1 size (0 = per row); the non-empty rows sorted by size class
+  // (device) and the rows of each class (a host array, read by the
+  // launcher); the device-memory tables of the widest rows and the scan of
+  // their c_nnz that places them
   int l1_size;
-  const int32_t* rows[3];
-  int64_t n_rows[3];
+  const int64_t* rows;
+  const int64_t* class_rows;
   const int64_t* g_off;
-  int32_t* g_ids;
-  float* g_vals;
+  int32_t* g_tab;
   cudaStream_t stream;
 };
 
@@ -73,8 +74,8 @@ __device__ __forceinline__ void zero_tail(const EllArgs& e, int64_t i,
 // prefix. K<TA, TB>::launch(const ell::EllArgs&) runs the kernel.
 //   int <name>_launch(a_idx, a_val, a_code, a_nnz, r_a, b_idx, b_val, b_code,
 //                     b_nnz, n, r_b, c_idx, c_nnz, r_c, out, m, k, tile,
-//                     l1_size, rows0, n0, rows1, n1, rows2, n2, g_off, g_ids,
-//                     g_vals, stream)   -> cudaGetLastError()
+//                     l1_size, rows, class_rows, g_off, g_tab, stream)
+//                     -> cudaGetLastError()
 //   const char* <name>_error_string(int code)
 #define ELL_C_API(NAME, KERNEL)                                               \
   extern "C" int NAME##_launch(                                               \
@@ -83,13 +84,11 @@ __device__ __forceinline__ void zero_tail(const EllArgs& e, int64_t i,
       const void* b_val, int b_code, const int32_t* b_nnz, int64_t n,         \
       int64_t r_b, const int32_t* c_idx, const int32_t* c_nnz, int64_t r_c,   \
       float* out, int64_t m, int64_t k, int tile, int l1_size,                \
-      const int32_t* rows0, int64_t n0, const int32_t* rows1, int64_t n1,     \
-      const int32_t* rows2, int64_t n2, const int64_t* g_off,                 \
-      int32_t* g_ids, float* g_vals, void* stream) {                          \
+      const int64_t* rows, const int64_t* class_rows, const int64_t* g_off,   \
+      int32_t* g_tab, void* stream) {                                         \
     const ell::EllArgs e{a_idx, a_val, a_nnz, r_a, b_idx, b_val, b_nnz, n,    \
                          r_b,   c_idx, c_nnz, r_c, out,   m,     k,     tile, \
-                         l1_size, {rows0, rows1, rows2}, {n0, n1, n2},        \
-                         g_off, g_ids, g_vals,                                \
+                         l1_size, rows,  class_rows, g_off, g_tab,            \
                          static_cast<cudaStream_t>(stream)};                  \
     return replay::dispatch<KERNEL>(a_code, b_code, e);                       \
   }                                                                           \

@@ -7,40 +7,97 @@
 // Per row, products go into an L1 table with the paper's 50% rule (cutoff
 // min(s1 / 2, s1 - 1) keys; past it a *new* key is rejected while keys
 // already in L1 still accumulate) and rejected products into an L2 table that
-// holds every spill. C's value at column c is L1[c] + L2[c].
+// holds every spill. C's value at column c is L1[c] + L2[c]. The wrapper
+// zeroes the (m, r_c) output; the kernel writes each row's c_nnz values.
 //
 // What bounds it: bytes, as spgemm_numeric.cu (live A entries, live B slots,
-// C's structure, C's values; 2 flops per product), plus the tables' traffic,
-// which stays in shared memory for all but the widest rows.
+// C's structure, the (m, r_c) output written whole; 2 flops per product),
+// plus the tables' traffic, which stays in shared memory for all but the
+// widest rows. At RMAT-16 A*A the output's zeros past c_nnz are nearly all
+// of the bytes: the wrapper writes them with one fill at the card's memory
+// rate.
 //
-// Design: one block per C row, tables sized per row. Each key's products are
-// summed in one table unless a race puts the key in both (below), so a table
-// needs no more room than the row's keys: L1 holds s1 = the next power of two
-// >= 2 * c_nnz[i] (at least 8) slots, or the caller's l1_size, and L2 exists,
-// with s2 = the next power of two >= 2 * c_nnz[i] slots, only where L1's
-// cutoff is below c_nnz[i], i.e. where a spill can happen. A table slot is an
-// int key (-1 = empty) and an f32 value. The wrapper sorts the rows into
-// three classes by table size: up to 2,048 slots (16 KiB of shared memory,
-// 128 threads), up to 16,384 slots (128 KiB, 256 threads), and larger rows,
-// whose tables live in device memory that the wrapper allocates (256
-// threads). The kernel allocates nothing.
+// Design. Each key's products are summed in one table unless a race puts
+// the key in both (below), so a table needs no more room than the row's
+// keys: L1 holds s1 = the next power of two >= 2 * c_nnz[i] (at least 8)
+// slots, or the caller's l1_size, and L2 exists, with s2 = the next power of
+// two >= 2 * c_nnz[i] slots, only where L1's cutoff is below c_nnz[i], i.e.
+// where a spill can happen. A slot is an int key (-1 = empty) beside its f32
+// value, so a probe and its add touch one 32-byte sector of a table in
+// device memory. The wrapper sorts the non-empty rows by size class (kClasses): a
+// class's shared memory is its largest table, so a row shares its SM with as
+// many others as their tables allow. A class gives each row a team of lanes:
+// 4 to 32 lanes of a warp for tables of at most 512 slots (many rows a
+// block, each with its own table slice), a whole block of 128 to 1,024
+// threads above that, and 1,024 threads with the tables in device memory,
+// allocated by the wrapper, for rows beyond 16,384 slots. (Cutting such a
+// row into column windows, a block each with a shared table, every window
+// rereading the row's products, measured slower at RMAT-16 A*A: PERF.md.)
 //
-// Insert (every thread, products of one A entry per warp, lanes over the B
-// row): probe linearly from key & (s - 1); a slot holding the key takes an
-// atomicAdd; at an empty slot, a table under its cutoff claims it with
-// atomicCAS(-1 -> key), a table at its cutoff rejects the key. Probes stop
-// after s slots, so a full table cannot hang the kernel. Concurrent inserts
-// may push L1 a little past its cutoff (two threads pass the check and both
-// claim), and a key that one thread spilled may enter L1 through another:
-// the emit adds L1 and L2 for every key, so such a key is still summed once
-// per product. The atomics add in no fixed order: results agree with the
-// plain version to f32 rounding, not bit for bit.
+// A team walks its row's products flat, one product per lane, so neither a
+// short B row nor a short A row leaves lanes idle: it stages `team` A entries
+// (B row, A value, B width), scans the widths, and lane l takes products
+// l, l + team, ...; a binary search over the scanned widths finds a product's
+// A entry, and consecutive lanes read consecutive slots of a B row.
+//
+// Insert: probe linearly from the key's multiplicative hash (lp_hash); a slot
+// holding the key takes an atomicAdd; an empty slot is claimed with
+// atomicCAS(-1 -> key). Only L1 of a row that can spill checks the cutoff (a
+// shared counter of claimed slots); elsewhere no cutoff can be reached and
+// the insert skips it. Probes stop after s slots, so a full table cannot hang
+// the kernel. Concurrent inserts may push L1 a little past its cutoff (two
+// threads pass the check and both claim), and a key that one thread spilled
+// may enter L1 through another: the emit adds L1 and L2 for every key, so
+// such a key is still summed once per product. The atomics add in no fixed
+// order: results agree with the plain version to f32 rounding, not bit for
+// bit.
 #include "ell_common.cuh"
 
 namespace {
 
-constexpr int kSmallSlots = 2048;   // class 0: 16 KiB of shared memory
-constexpr int kMidSlots = 16384;    // class 1: 128 KiB of shared memory
+struct SizeClass {
+  int slots;    // the largest table (L1 + L2 slots) of the class; 0: device memory
+  int team;     // lanes per row: 4 to 32 share a warp, more take a block
+  int threads;  // per block
+};
+
+// K3's size classes, in the order the wrapper sorts rows (CLASS_SLOTS in
+// kernels/spgemm_lp.py mirrors the slots): a row goes to the first class
+// whose slots hold its tables, and past the last shared one to device memory.
+constexpr SizeClass kClasses[] = {
+    {16, 4, 256},     {32, 8, 256},     {64, 16, 256},    {128, 32, 256},
+    {256, 32, 256},   {512, 32, 256},   {1024, 128, 128}, {2048, 256, 256},
+    {4096, 256, 256}, {8192, 512, 512}, {16384, 1024, 1024}, {0, 1024, 1024}};
+constexpr int kNumClasses = sizeof(kClasses) / sizeof(kClasses[0]);
+
+// Dynamic shared memory of a block: per thread a staged A entry (scanned
+// B width, B row, A value), per row its tables and its L1 claim counter.
+constexpr int smem_bytes(const SizeClass& c) {
+  return c.threads * 16 + (c.threads / c.team) * (4 + 8 * c.slots);
+}
+
+constexpr int max_smem_bytes() {
+  int most = 0;
+  for (const SizeClass& c : kClasses) most = smem_bytes(c) > most ? smem_bytes(c) : most;
+  return most;
+}
+static_assert(max_smem_bytes() <= 232448, "a class exceeds 227 KiB of shared memory");
+
+// A key's home slot in a table of `size` (a power of two) slots: Knuth's
+// multiplicative hash, the top log2(size) bits of key * 2654435761 (mod
+// 2^32). RMAT column ids are not permuted and their low bits are mostly 0,
+// so `key & (size - 1)` piles a row's keys onto a few home slots and linear
+// probing turns the pile into long runs. SPGEMM_LP_IDENTITY_HASH builds that
+// masked identity for scripts/k3_variants.py; the port never defines it.
+__device__ __forceinline__ int64_t lp_hash(int key, int64_t size) {
+#ifdef SPGEMM_LP_IDENTITY_HASH
+  return key & (size - 1);
+#else
+  const int bits = 63 - __clzll(size);
+  const uint32_t h = static_cast<uint32_t>(key) * 2654435761u;
+  return bits == 0 ? 0 : static_cast<int64_t>(h >> (32 - bits));
+#endif
+}
 
 __device__ __forceinline__ int64_t next_pow2(int64_t x) {
   int64_t p = 1;
@@ -49,26 +106,27 @@ __device__ __forceinline__ int64_t next_pow2(int64_t x) {
 }
 
 // Insert-or-accumulate (key, v) into the table; false when the key was
-// rejected (cutoff reached, or no slot found within `size` probes).
-// cutoff < 0: no cutoff (L2).
-__device__ __forceinline__ bool lp_insert(int* ids, float* vals, int64_t size,
-                                          int64_t cutoff, int* used, int key,
-                                          float v) {
+// rejected (kCutoff: `cutoff` keys claimed; or no slot within `size` probes).
+// A table of `size` slots at `tab`: slot p's key at tab[2p], its value's
+// bits at tab[2p + 1].
+template <bool kCutoff>
+__device__ __forceinline__ bool lp_insert(int* tab, int64_t size, int64_t cutoff,
+                                          int* used, int key, float v) {
   const int64_t mask = size - 1;
-  int64_t p = key & mask;
+  int64_t p = lp_hash(key, size);
   for (int64_t probe = 0; probe < size; ++probe) {
-    const int held = *reinterpret_cast<volatile int*>(ids + p);
+    int* slot = tab + 2 * p;
+    const int held = *reinterpret_cast<volatile int*>(slot);
     if (held == key) {
-      atomicAdd(vals + p, v);
+      atomicAdd(reinterpret_cast<float*>(slot + 1), v);
       return true;
     }
     if (held == -1) {
-      if (cutoff >= 0 && *reinterpret_cast<volatile int*>(used) >= cutoff)
-        return false;
-      const int prev = atomicCAS(ids + p, -1, key);
+      if (kCutoff && *reinterpret_cast<volatile int*>(used) >= cutoff) return false;
+      const int prev = atomicCAS(slot, -1, key);
       if (prev == -1 || prev == key) {
-        if (prev == -1 && cutoff >= 0) atomicAdd(used, 1);
-        atomicAdd(vals + p, v);
+        if (kCutoff && prev == -1) atomicAdd(used, 1);
+        atomicAdd(reinterpret_cast<float*>(slot + 1), v);
         return true;
       }
     }
@@ -77,82 +135,181 @@ __device__ __forceinline__ bool lp_insert(int* ids, float* vals, int64_t size,
   return false;
 }
 
-__device__ __forceinline__ float lp_lookup(const int* ids, const float* vals,
-                                           int64_t size, int key) {
+__device__ __forceinline__ float lp_lookup(const int* tab, int64_t size, int key) {
   const int64_t mask = size - 1;
-  int64_t p = key & mask;
+  int64_t p = lp_hash(key, size);
   for (int64_t probe = 0; probe < size; ++probe) {
-    const int held = ids[p];
-    if (held == key) return vals[p];
+    const int held = tab[2 * p];
+    if (held == key) return __int_as_float(tab[2 * p + 1]);
     if (held == -1) return 0.f;
     p = (p + 1) & mask;
   }
   return 0.f;
 }
 
-template <typename TA, typename TB>
-__global__ void __launch_bounds__(256)
-    spgemm_lp_kernel(const ell::EllArgs e, int cls) {
-  extern __shared__ int smem[];
-  __shared__ int used1;
-  const int64_t pos = blockIdx.x;
-  const int64_t i = __ldg(e.rows[cls] + pos);
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int64_t cn = ell::clamp_count(__ldg(e.c_nnz + i), e.r_c);
-  ell::zero_tail(e, i, cn);
-  if (cn == 0) return;  // the same for the whole block
+// Inclusive scan of x over a team: shuffles within a warp for a team of at
+// most 32 lanes, and warp totals in shared memory for a block-wide team.
+__device__ __forceinline__ long long team_scan(long long x, int lane, int team,
+                                               unsigned tmask, long long* warp_sums) {
+  if (team <= 32) {
+    for (int d = 1; d < team; d <<= 1) {
+      const long long y = __shfl_up_sync(tmask, x, d, team);
+      if (lane >= d) x += y;
+    }
+    return x;
+  }
+  const int wl = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, x, d);
+    if (wl >= d) x += y;
+  }
+  if (wl == 31) warp_sums[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    long long s = wl < (team >> 5) ? warp_sums[wl] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, s, d);
+      if (wl >= d) s += y;
+    }
+    warp_sums[wl] = s;
+  }
+  __syncthreads();
+  return w > 0 ? x + warp_sums[w - 1] : x;
+}
 
+// One team's share of a staged chunk: products lane, lane + team, ... of the
+// n_e A entries whose inclusive B-width scan is st_off.
+template <bool kSpill, typename TB>
+__device__ __forceinline__ void walk_products(
+    const ell::EllArgs& e, const TB* b_val, const int64_t* st_off, const int* st_j,
+    const float* st_av, int n_e, int lane, int team, int* tab, int64_t s1,
+    int64_t s2, int64_t cutoff, int* used) {
+  const int64_t total = st_off[n_e - 1];
+  int lo = 0;
+  for (int64_t p = lane; p < total; p += team) {
+    int hi = n_e - 1;  // p only grows: the entry index never moves back
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (st_off[mid] > p) hi = mid; else lo = mid + 1;
+    }
+    const int64_t bs = static_cast<int64_t>(st_j[lo]) * e.r_b + p -
+                       (lo > 0 ? st_off[lo - 1] : 0);
+    const int key = __ldg(e.b_idx + bs);
+    if (key < 0 || key >= e.k) continue;  // outside [0, k)
+    const float v = st_av[lo] * replay::load_val(b_val, bs);
+    if (!kSpill) {
+      lp_insert<false>(tab, s1, 0, nullptr, key, v);
+    } else if (!lp_insert<true>(tab, s1, cutoff, used, key, v)) {
+      lp_insert<false>(tab + 2 * s1, s2, 0, nullptr, key, v);  // L2 follows L1
+    }
+  }
+}
+
+// The A entry r of row i (B row, A value, live B width), zeros past live_a.
+template <typename TA>
+__device__ __forceinline__ void load_entry(const ell::EllArgs& e, const TA* a_val,
+                                           int64_t i, int64_t r, int64_t live_a,
+                                           int& j, float& av, long long& nb) {
+  j = 0;
+  av = 0.f;
+  nb = 0;
+  if (r < live_a) {
+    const int64_t slot = i * e.r_a + r;
+    j = static_cast<int>(ell::clamp_row(__ldg(e.a_idx + slot), e.n));
+    av = replay::load_val(a_val, slot);
+    nb = ell::b_width(e, j);
+  }
+}
+
+// Rows rows[0, n_rows) of one class; `cap` its tables' slots (0: device
+// memory, at the offsets of lp_bins), `team` its lanes per row.
+// kThreads bounds the block: 256 for the packed and small classes, whose
+// registers then allow six blocks an SM (40 registers, a few spilled; 32
+// spilled more and ran slower on rows of a few products), 1,024 for the
+// others.
+template <int kThreads, typename TA, typename TB>
+__global__ void __launch_bounds__(kThreads, kThreads == 1024 ? 1 : 6)
+    spgemm_lp_kernel(const ell::EllArgs e, const int64_t* rows, int64_t n_rows,
+                     int cap, int team) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ long long warp_sums[32];
+  const int per_block = blockDim.x / team;
+  const int t = threadIdx.x / team;
+  const int lane = threadIdx.x & (team - 1);
+  const int64_t pos = static_cast<int64_t>(blockIdx.x) * per_block + t;
+  // only teams of a packed block run out of rows: block-wide teams never do
+  if (pos >= n_rows) return;
+  const unsigned tmask =
+      team >= 32 ? 0xffffffffu : ((1u << team) - 1) << ((threadIdx.x & 31) & ~(team - 1));
+  auto team_sync = [&]() {
+    if (team > 32) __syncthreads(); else __syncwarp(tmask);
+  };
+  int64_t* st_off = reinterpret_cast<int64_t*>(smem) + t * team;
+  int* st_j = reinterpret_cast<int*>(smem + blockDim.x * 8) + t * team;
+  float* st_av = reinterpret_cast<float*>(smem + blockDim.x * 12) + t * team;
+  int* table = reinterpret_cast<int*>(smem + blockDim.x * 16) +
+               static_cast<int64_t>(t) * 2 * cap;
+  int* used = reinterpret_cast<int*>(smem + blockDim.x * 16) +
+              static_cast<int64_t>(per_block) * 2 * cap + t;
+
+  // Start the loads that need only the row before the tables are cleared:
+  // its sizes, this lane's first A entry and its first C column.
+  const int64_t i = __ldg(rows + pos);
+  const int64_t cn = ell::clamp_count(__ldg(e.c_nnz + i), e.r_c);
+  const int64_t live_a = ell::clamp_count(__ldg(e.a_nnz + i), e.r_a);
+  const TA* a_val = static_cast<const TA*>(e.a_val);
+  const TB* b_val = static_cast<const TB*>(e.b_val);
+  const int32_t* crow = e.c_idx + i * e.r_c;
+  const int first_key = lane < cn ? __ldg(crow + lane) : 0;
+  int j;
+  float av;
+  long long nb;
+  load_entry(e, a_val, i, lane, live_a, j, av, nb);
+  if (cn == 0) return;  // the same for the whole team; the wrapper bins none
   // table sizes: the same formula as the wrapper's lp_table_slots
   const int64_t s2 = next_pow2(2 * cn > 8 ? 2 * cn : 8);
   const int64_t s1 = e.l1_size > 0 ? e.l1_size : s2;
   const int64_t cutoff = s1 / 2 < s1 - 1 ? s1 / 2 : s1 - 1;
-  const bool has_l2 = cutoff < cn;
-  const int64_t slots = s1 + (has_l2 ? s2 : 0);
-  int* ids;
-  float* vals;
-  if (cls == 2) {
-    ids = e.g_ids + e.g_off[pos];
-    vals = e.g_vals + e.g_off[pos];
+  const bool spill = cutoff < cn;
+  const int64_t slots = s1 + (spill ? s2 : 0);
+  int* tab;
+  if (cap == 0) {
+    // row pos's allotment: 4 * c_nnz + 8 + l1_size slots (see lp_bins)
+    const int64_t x = 8 + e.l1_size;
+    const int64_t off = 4 * e.g_off[pos] + x * pos;
+    if (slots > 4 * e.g_off[pos + 1] + x * (pos + 1) - off) __trap();  // short allotment
+    tab = e.g_tab + 2 * off;
   } else {
-    if (slots > (cls == 0 ? kSmallSlots : kMidSlots)) __trap();  // class mismatch
-    ids = smem;
-    vals = reinterpret_cast<float*>(smem + slots);
+    if (slots > cap) __trap();  // a row binned into too small a class
+    tab = table;
   }
-  for (int64_t s = tid; s < slots; s += nthreads) {
-    ids[s] = -1;
-    vals[s] = 0.f;
-  }
-  if (tid == 0) used1 = 0;
-  __syncthreads();
+  for (int64_t s = lane; s < slots; s += team)
+    reinterpret_cast<int2*>(tab)[s] = make_int2(-1, 0);  // key -1, value 0.f
+  if (lane == 0) *used = 0;
+  team_sync();
 
-  const int64_t live_a = ell::clamp_count(__ldg(e.a_nnz + i), e.r_a);
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int nwarps = nthreads >> 5;
-  const TA* a_val = static_cast<const TA*>(e.a_val);
-  const TB* b_val = static_cast<const TB*>(e.b_val);
-  for (int64_t r = warp; r < live_a; r += nwarps) {
-    const int64_t slot = i * e.r_a + r;
-    const int64_t j = ell::clamp_row(__ldg(e.a_idx + slot), e.n);
-    const float av = replay::load_val(a_val, slot);
-    const int64_t nb = ell::b_width(e, j);
-    for (int64_t t = lane; t < nb; t += 32) {
-      const int key = __ldg(e.b_idx + j * e.r_b + t);
-      if (key < 0 || key >= e.k) continue;
-      const float v = av * replay::load_val(b_val, j * e.r_b + t);
-      if (!lp_insert(ids, vals, s1, cutoff, &used1, key, v) && has_l2)
-        lp_insert(ids + s1, vals + s1, s2, -1, nullptr, key, v);
-    }
+  for (int64_t r0 = 0; r0 < live_a; r0 += team) {
+    st_off[lane] = team_scan(nb, lane, team, tmask, warp_sums);
+    st_j[lane] = j;
+    st_av[lane] = av;
+    team_sync();
+    // the next chunk's entry loads while this one's products are walked
+    load_entry(e, a_val, i, r0 + team + lane, live_a, j, av, nb);
+    const int n_e = live_a - r0 < team ? static_cast<int>(live_a - r0) : team;
+    if (spill)
+      walk_products<true>(e, b_val, st_off, st_j, st_av, n_e, lane, team, tab, s1, s2,
+                          cutoff, used);
+    else
+      walk_products<false>(e, b_val, st_off, st_j, st_av, n_e, lane, team, tab, s1, s2,
+                           cutoff, used);
+    team_sync();  // the next chunk restages
   }
-  __syncthreads();
 
-  const int32_t* crow = e.c_idx + i * e.r_c;
   float* orow = e.out + i * e.r_c;
-  for (int64_t s = tid; s < cn; s += nthreads) {
-    const int key = __ldg(crow + s);
-    float v = lp_lookup(ids, vals, s1, key);
-    if (has_l2) v += lp_lookup(ids + s1, vals + s1, s2, key);
+  for (int64_t s = lane; s < cn; s += team) {
+    const int key = s == lane ? first_key : __ldg(crow + s);
+    float v = lp_lookup(tab, s1, key);
+    if (spill) v += lp_lookup(tab + 2 * s1, s2, key);
     orow[s] = v;
   }
 }
@@ -160,15 +317,25 @@ __global__ void __launch_bounds__(256)
 template <typename TA, typename TB>
 struct SpgemmLp {
   static void launch(const ell::EllArgs& e) {
-    const int threads[3] = {128, 256, 256};
-    const int bytes[3] = {kSmallSlots * 8, kMidSlots * 8, 0};
-    cudaFuncSetAttribute(spgemm_lp_kernel<TA, TB>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes[1]);
-    for (int cls = 0; cls < 3; ++cls) {
-      if (e.n_rows[cls] == 0) continue;
-      spgemm_lp_kernel<TA, TB>
-          <<<static_cast<unsigned>(e.n_rows[cls]), threads[cls], bytes[cls],
-             e.stream>>>(e, cls);
+    cudaFuncSetAttribute(spgemm_lp_kernel<256, TA, TB>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem_bytes());
+    cudaFuncSetAttribute(spgemm_lp_kernel<1024, TA, TB>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem_bytes());
+    const int64_t* rows = e.rows;
+    for (int c = 0; c < kNumClasses; ++c) {
+      const int64_t n = e.class_rows[c];
+      if (n == 0) continue;
+      const SizeClass& sc = kClasses[c];
+      const int per_block = sc.threads / sc.team;
+      const unsigned blocks = static_cast<unsigned>((n + per_block - 1) / per_block);
+      if (sc.threads <= 256) {
+        spgemm_lp_kernel<256, TA, TB><<<blocks, sc.threads, smem_bytes(sc), e.stream>>>(
+            e, rows, n, sc.slots, sc.team);
+      } else {
+        spgemm_lp_kernel<1024, TA, TB><<<blocks, sc.threads, smem_bytes(sc), e.stream>>>(
+            e, rows, n, sc.slots, sc.team);
+      }
+      rows += n;
     }
   }
 };

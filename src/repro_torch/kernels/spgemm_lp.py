@@ -12,9 +12,12 @@ which the emit adds), so the values do not depend on the table sizes: the
 kernel sizes L1 per row, at the next power of two >= 2 * c_nnz[i], unless
 the caller forces ``l1_size`` (which makes rows spill), and gives a row an
 L2 only where it can spill. What bounds it on the H100: bytes, as K4. The
-design: one block per row, tables in shared memory for rows up to 16,384
-slots and in device memory, allocated here, for wider ones (see the
-source's header).
+design (see the source's header): the wrapper bins the non-empty rows on
+the device into size classes (``lp_bins``), each class's shared memory its
+largest table; small rows are packed many to a block, 4 to 32 lanes each,
+wider ones take a block, and rows beyond 16,384 slots get tables in
+device memory, allocated here. A team of lanes walks its row's products
+flat, one product per lane, into tables keyed by a multiplicative hash.
 
 K2 ``lp_reuse_arrays`` replaces ``lp_reuse_arrays``: the Reuse-case replay
 of ``segsum_reuse`` with the in-tile reduction through a 256-slot LP table
@@ -31,6 +34,8 @@ wrappers run for CPU tensors only; ``NUMERIC_LAUNCHES`` (K3) and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.segsum_reuse import (check_replay_args, launch_replay,
@@ -46,11 +51,14 @@ NUMERIC_LAUNCHES = 0
 
 LP_TILE = 128  # products per block; the table holds 2 * LP_TILE slots
 
-# K3's size classes of per-row table slots (csrc/spgemm_lp.cu): up to
-# SMALL_SLOTS in 16 KiB of shared memory, up to MID_SLOTS in 128 KiB, wider
-# rows in device memory
-SMALL_SLOTS = 2048
-MID_SLOTS = 16384
+# K3's size classes (kClasses in csrc/spgemm_lp.cu): the most table slots
+# (L1 + L2) of each class whose tables sit in shared memory; rows with more
+# slots have theirs in device memory
+CLASS_SLOTS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+# lp_hash in csrc/spgemm_lp.cu: a key's home slot in a table of s slots is the
+# top log2(s) bits of key * LP_HASH_MUL (mod 2^32)
+LP_HASH_MUL = 2654435761
+_CONSTS: dict = {}  # (device, l1_size) -> _consts
 
 
 def _next_pow2(x: int) -> int:
@@ -82,6 +90,86 @@ def lp_table_slots(c_nnz: torch.Tensor, r_c: int, l1_size: int | None) -> torch.
     s1 = s2 if l1_size is None else torch.full_like(s2, l1_size)
     has_l2 = torch.minimum(s1 // 2, s1 - 1) < cn
     return torch.where(cn > 0, s1 + torch.where(has_l2, s2, 0), 0)
+
+
+def lp_home_slot(keys: torch.Tensor, size: int) -> torch.Tensor:
+    """The home slot of each key in a K3 table of ``size`` (a power of two)
+    slots, as the kernel's lp_hash computes it."""
+    bits = size.bit_length() - 1
+    return ((keys.long() * LP_HASH_MUL) & 0xFFFFFFFF) >> (32 - bits)
+
+
+@functools.lru_cache(maxsize=None)
+def class_bounds(l1_size: int | None) -> tuple:
+    """The largest c_nnz whose tables fit each of ``CLASS_SLOTS`` (0 where
+    no row fits); a row's slots never shrink as c_nnz grows, so a row of
+    c_nnz in (bounds[c - 1], bounds[c]] belongs to class c."""
+    def slots(cn: int) -> int:
+        return int(lp_table_slots(torch.tensor([cn]), 2**31 - 1, l1_size)[0])
+
+    bounds, lo = [], 0
+    for cap in CLASS_SLOTS:
+        hi = 2**31 - 1
+        while lo < hi:  # the largest cn in [lo, 2^31) whose slots fit cap
+            mid = (lo + hi + 1) // 2
+            if slots(mid) <= cap:
+                lo = mid
+            else:
+                hi = mid - 1
+        bounds.append(lo)
+    return tuple(bounds)
+
+
+def _consts(device, l1_size: int | None):
+    """(the class bounds with a leading 0, the buckets of the classes) as
+    int32 tensors on ``device``."""
+    key = (device, l1_size)
+    found = _CONSTS.get(key)
+    if found is None:  # made once: a host-to-device copy waits for the stream
+        found = _CONSTS[key] = (
+            torch.tensor((0, *class_bounds(l1_size)), dtype=torch.int32, device=device),
+            torch.arange(1, len(CLASS_SLOTS) + 2, dtype=torch.int32, device=device))
+    return found
+
+
+def _bucket(c_nnz: torch.Tensor, l1_size: int | None) -> torch.Tensor:
+    """(m,) int32: 0 for an empty row, c + 1 for class c, len(CLASS_SLOTS) + 1
+    past the shared-memory classes. By c_nnz as given: a row past rC, which
+    the kernel clamps to rC, can only land in a larger class than it needs."""
+    return torch.bucketize(c_nnz, _consts(c_nnz.device, l1_size)[0], out_int32=True)
+
+
+def lp_row_class(c_nnz: torch.Tensor, l1_size: int | None) -> torch.Tensor:
+    """(m,) int32: each row's K3 size class — the index of the first of
+    ``CLASS_SLOTS`` that holds its ``lp_table_slots``, ``len(CLASS_SLOTS)``
+    where its tables live in device memory, -1 for an empty row."""
+    return _bucket(c_nnz, l1_size) - 1
+
+
+def lp_bins(c_nnz: torch.Tensor, r_c: int, l1_size: int | None):
+    """K3's row binning, on the device in four ops (on the card the host's
+    dispatch of an op costs more than the op) and one wait, plus a second
+    where rows need device-memory tables: (rows, class_rows, g_off, g_slots).
+    ``rows`` (int64) holds the non-empty rows sorted by class (stable, so
+    ascending within a class); ``class_rows`` (a list) the rows of each
+    class, the device-memory class last. Row p of that class gets slots
+    [4 * g_off[p] + x * p, 4 * g_off[p + 1] + x * (p + 1)), x = 8 + l1_size
+    (0 where None), of device-memory tables of ``g_slots`` slots in all:
+    g_off is the exclusive scan of those rows' c_nnz (clamped to r_c), so
+    each gets 4 * c_nnz + x slots, at least its ``lp_table_slots`` (``g_off``
+    None where there is no such row)."""
+    bucket, order = torch.sort(_bucket(c_nnz, l1_size), stable=True)
+    # where each class starts (bincount would wait for its max): the one wait
+    starts = torch.searchsorted(bucket, _consts(c_nnz.device, l1_size)[1]).tolist()
+    starts.append(c_nnz.shape[0])
+    class_rows = [b - a for a, b in zip(starts, starts[1:])]
+    g_off, g_slots = None, 0
+    if class_rows[-1]:
+        g_off = torch.zeros(class_rows[-1] + 1, dtype=torch.int64, device=c_nnz.device)
+        torch.cumsum(c_nnz[order[starts[-2]:]].clamp(max=r_c), 0, dtype=torch.int64,
+                     out=g_off[1:])
+        g_slots = 4 * int(g_off[-1]) + (8 + (l1_size or 0)) * class_rows[-1]
+    return order[starts[0]:], class_rows, g_off, g_slots
 
 
 def _check_l1_size(l1_size) -> None:
@@ -141,22 +229,15 @@ def spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, *,
     if a_idx.device.type == "cpu":
         return spgemm_lp_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
                                l1_size=l1_size, k=k)
-    out = torch.empty(c_idx.shape, dtype=torch.float32, device=a_idx.device)
+    out = torch.zeros(c_idx.shape, dtype=torch.float32, device=a_idx.device)
     if out.numel():
-        slots = lp_table_slots(c_nnz, c_idx.shape[1], l1_size)
-        cls = (slots > SMALL_SLOTS).to(torch.int8) + (slots > MID_SLOTS).to(torch.int8)
-        rows = [torch.nonzero(cls == c).flatten().to(torch.int32) for c in range(3)]
-        big = slots[rows[2].long()]
-        g_off = g_ids = g_vals = None
-        if big.numel():
-            g_off = torch.zeros_like(big)
-            g_off[1:] = torch.cumsum(big, 0)[:-1]
-            total = int(big.sum())
-            g_ids = torch.empty(total, dtype=torch.int32, device=a_idx.device)
-            g_vals = torch.empty(total, dtype=torch.float32, device=a_idx.device)
+        rows, class_rows, g_off, g_slots = lp_bins(c_nnz, c_idx.shape[1], l1_size)
+        # a device-memory slot: an int32 key beside its f32 value's bits
+        g_tab = (None if g_off is None else
+                 torch.empty(2 * g_slots, dtype=torch.int32, device=a_idx.device))
         launch_ell("spgemm_lp", a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
-                   c_nnz, out, k, l1_size=l1_size or 0, rows=rows, g_off=g_off,
-                   g_ids=g_ids, g_vals=g_vals)
+                   c_nnz, out, k, l1_size=l1_size or 0, rows=rows,
+                   class_rows=class_rows, g_off=g_off, g_tab=g_tab)
         NUMERIC_LAUNCHES += 1
     return out.to(torch.promote_types(a_val.dtype, b_val.dtype))
 

@@ -11,7 +11,8 @@ rtol/atol 1e-5; f16/bf16 operands against a float64 numpy oracle within
 8e-3 * S, S being the sum of |products| of a segment: the plain version adds
 in f32 and rounds once to the 8-bit-mantissa type. The tests marked ``cuda``
 hold each CUDA kernel against its plain version on the card (K3 with and
-without a forced, spilling L1; K4 over several shared-memory passes) and
+without a forced, spilling L1, in every size class and on colliding keys;
+K4 over several shared-memory passes) and
 skip where there is none. This file imports JAX only inside the test that needs the
 reference, so that on a machine with a card and no JAX the ``cuda`` tests
 run with ``pytest --noconftest -m cuda tests/test_torch_kernels.py``.
@@ -314,6 +315,119 @@ def test_kernels_match_plain_on_the_card(cuda, dtypes, l1_size):
             assert got.dtype == want.dtype
             assert bool(((got.double() - want.double()).abs()
                          <= tol * scale.double() + 1e-6).all())
+
+
+def _log_widths(rng, count, top):
+    """Widths in [0, top], log-uniform: as many in [1, 2] as in [top/2, top]."""
+    return np.minimum(np.floor(np.exp(rng.random(count) * np.log(top + 1))) - 1,
+                      top).astype(np.int32)
+
+
+def _ell_with_structure(a_idx, a_nnz, b_idx, b_nnz, k, seed):
+    """Values and C's structure (vectorised) for numpy ELL index arrays."""
+    rng = np.random.default_rng(seed)
+    m, r_a = a_idx.shape
+    rows, rs = np.nonzero(np.arange(r_a)[None, :] < a_nnz[:, None])
+    j = a_idx[rows, rs]
+    ok = np.arange(b_idx.shape[1])[None, :] < b_nnz[j][:, None]
+    keys = np.unique((rows[:, None].astype(np.int64) * k + b_idx[j])[ok])
+    c_rows = keys // k
+    c_nnz = np.bincount(c_rows, minlength=m).astype(np.int32)
+    start = np.concatenate([[0], np.cumsum(c_nnz)[:-1]])
+    c_idx = np.zeros((m, max(int(c_nnz.max()), 1)), np.int32)
+    c_idx[c_rows, np.arange(keys.shape[0]) - start[c_rows]] = keys % k
+    a_val = rng.standard_normal(a_idx.shape).astype(np.float32)
+    b_val = rng.standard_normal(b_idx.shape).astype(np.float32)
+    return (a_idx.astype(np.int32), a_val, a_nnz, b_idx.astype(np.int32), b_val, b_nnz,
+            c_idx, c_nnz)
+
+
+def lp_class_operands(m, n, k, r_a, r_b, seed, stride=1):
+    """ELL operands with log-uniform A and B widths, so C's rows reach every
+    K3 size class and some rows have no product; garbage past a_nnz and
+    b_nnz; distinct live columns per B row, times ``stride`` (k then
+    k * stride)."""
+    rng = np.random.default_rng(seed)
+    a_nnz = _log_widths(rng, m, r_a)
+    a_nnz[m // 2] = r_a
+    a_idx = rng.integers(0, 3 * n, (m, r_a))
+    live = np.arange(r_a)[None, :] < a_nnz[:, None]
+    a_idx[live] %= n
+    b_nnz = _log_widths(rng, n, r_b)
+    base = rng.integers(0, k, (n, 1))
+    step = rng.integers(1, k // r_b + 1, (n, 1))
+    cols = (base + step * np.arange(r_b)[None, :]) % k
+    b_live = np.arange(r_b)[None, :] < b_nnz[:, None]
+    b_idx = np.where(b_live, cols, rng.integers(0, 2 * k, (n, r_b))) * stride
+    return _ell_with_structure(a_idx, a_nnz, b_idx, b_nnz, k * stride, seed)
+
+
+def lp_collision_operands(k, counts, seed):
+    """Row i has one A entry, B row i, whose counts[i] keys all share home
+    slot 0 of the row's per-row table under K3's multiplicative hash (found
+    by brute force over [0, k)); a last row has no product."""
+    cand = np.arange(k, dtype=np.int64)
+    r_b = max(counts)
+    b_idx = np.full((len(counts), r_b), k, np.int64)
+    for i, c in enumerate(counts):
+        size = 1 << max(2 * c - 1, 7).bit_length()  # the row's table: >= max(2c, 8)
+        keys = cand[k3.lp_home_slot(torch.from_numpy(cand), size).numpy() == 0][:c]
+        assert keys.shape[0] == c
+        b_idx[i, :c] = keys
+    m = len(counts) + 1
+    a_idx = np.concatenate([np.arange(m - 1), [0]])[:, None]
+    a_nnz = np.ones(m, np.int32)
+    a_nnz[-1] = 0
+    return _ell_with_structure(a_idx, a_nnz, b_idx, np.array(counts, np.int32), k, seed)
+
+
+# K3 cases over its size classes: name -> a function that makes the operands
+LP_CLASS_CASES = {
+    "every class": lambda: lp_class_operands(600, 600, 70_001, 160, 400, seed=21),
+    "one home slot": lambda: lp_collision_operands(
+        1 << 24, [1, 3, 4, 7, 15, 31, 63, 127, 255, 511, 1023, 2047], seed=22),
+    "multiples of 2^16": lambda: lp_class_operands(600, 600, 4096, 24, 48, seed=23,
+                                                   stride=1 << 16),
+    "k < 32": lambda: lp_class_operands(40, 30, 13, 6, 9, seed=24),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "bf16xf32"])
+@pytest.mark.parametrize("l1_size", [None, 4])
+@pytest.mark.parametrize("case", sorted(LP_CLASS_CASES))
+def test_lp_kernel_matches_plain_in_every_size_class_on_the_card(cuda, case, l1_size,
+                                                                 dtypes):
+    """K3 (tables binned into size classes) against its plain version: rows of
+    every class (the widest with tables in device memory), spilling
+    (l1_size 4) or not, rows of no product, keys on one home slot, keys that
+    are multiples of 2^16, k < 32."""
+    arrays = LP_CLASS_CASES[case]()
+    k = {"every class": 70_001, "one home slot": 1 << 24, "multiples of 2^16": 4096 << 16,
+         "k < 32": 13}[case]
+    a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz = (
+        torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in arrays)
+    a_val, b_val = a_val.to(dtypes[0]), b_val.to(dtypes[1])
+    cls = k3.lp_row_class(c_nnz, l1_size)
+    assert bool((cls == -1).any())  # rows of no product
+    if case == "every class":
+        assert set(cls.tolist()) == set(range(-1, len(k3.CLASS_SLOTS) + 1))
+    launches = k3.NUMERIC_LAUNCHES
+    got = k3.spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                       l1_size=l1_size, k=k)
+    torch.cuda.synchronize()
+    assert k3.NUMERIC_LAUNCHES == launches + 1
+    want = k3.spgemm_lp_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                              l1_size=l1_size, k=k)
+    scale = k3.spgemm_lp_plain(a_idx, a_val.float().abs(), a_nnz, b_idx,
+                               b_val.float().abs(), b_nnz, c_idx, c_nnz, k=k)
+    tol = 1e-4 if want.dtype == torch.float32 else 8e-3
+    assert got.dtype == want.dtype
+    assert bool(((got.double() - want.double()).abs()
+                 <= tol * scale.double() + 1e-6).all())
 
 
 @pytest.mark.cuda
