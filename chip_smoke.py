@@ -18,7 +18,9 @@ Phases, in order:
      (log-uniform widths), with and without a forced 4-slot L1 that makes
      rows of every class spill, on rows whose keys all share one home slot
      of K3's hash, and on keys that are multiples of 2^16, logging the rows
-     per class;
+     per class; K3 on rows whose structure lists fewer columns than their
+     products reach (the tables fill: those rows run again), and with
+     l1_size=65,536 on multigrid 512^2 A*P (no row in device memory);
   3. multigrid Reuse, the paper's R*A*P: galerkin_triple(2048, 2048, 4).
      Fresh AP = A*P and RAP = R*AP through spgemm(method="sparse"), held
      against scipy (structure exactly, values in float64), then five time
@@ -54,7 +56,9 @@ Phases, in order:
  11. K7 through ops.expert_matmul at qwen3-moe-30b-a3b widths (d_model
      2,048, expert width 768, 128 experts, top-8): 4,096 tokens routed by
      seeded router logits, sorted by expert and padded per expert to 128
-     rows; one layer's x @ w1 in bf16 and in f32, against the plain version;
+     rows; one layer's up projection x @ w1 and down projection (768 ->
+     2,048, on x @ w1's output) in bf16, f16 and f32, against the plain
+     version, each with its variant;
  12. K8 through ops.attention at T = 8,192: gemma2-9b widths (softcap 50; a
      local layer with its 4,096 window and a global layer; bf16 and f32),
      llama3.2-1b and qwen3-moe-30b-a3b widths (causal, bf16), against the
@@ -66,13 +70,16 @@ Phases, in order:
  14. one JSON line of the kernels; the last line is the result.
 
 Phase 2 also holds K6, K7 and K8 against their plain versions on synthetic
-inputs (K8 in f32, bf16 and f16 at every head dim, so each of its variants:
-"fma" for f32, "mma" for bf16/f16 at D 16 and 32, "wgmma" at D 64-256).
-Every K8 output is held to K8_TOL and to a relative Frobenius bound
-(K8_FRO); where q and k are scaled by 8 under a softcap, the output without
-the softcap must fail that check.
-Phases 12 and 13 log the K8 variant of each shape and, in 13, its share of
-the bound. f32 products on the card keep allow_tf32 off (checked), so the
+inputs (K7 in f32, bf16, f16 and two mixed pairs, so both of its variants:
+"wgmma" for bf16 x bf16 and f16 x f16, "fma" for the others; K8 in f32,
+bf16 and f16 at every head dim, so each of its variants: "fma" for f32,
+"mma" for bf16/f16 at D 16 and 32, "wgmma" at D 64-256). Every K7 output
+is held to K7_TOL and to a relative Frobenius bound (K7_FRO), every K8
+output to K8_TOL and K8_FRO; where q and k are scaled by 8 under a softcap,
+the output without the softcap must fail that check.
+Phases 11-13 log the K7 and K8 variant of each shape and, in 13, its share
+of the bound. Phase 1 logs ptxas's registers and spills per K7 and K8
+instantiation. f32 products on the card keep allow_tf32 off (checked), so the
 plain versions' matmuls are full f32.
 
 The launch counters are set to 0 just before phases 3, 4, 6, 7 and 10-12
@@ -281,7 +288,7 @@ def phase_device(build):
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
         + ", ".join(p.name for p in paths.values()))
     for name, text in build.BUILD_LOG.items():
-        if name == "flash_attention":  # one line per variant and head dim
+        if name in ("flash_attention", "grouped_matmul"):  # one line per instantiation
             for fn, regs, spills in ptxas_functions(text):
                 log(f"   nvcc[{name}]: {fn}: {regs} registers, {spills}")
             for code, what, fn in dict.fromkeys(re.findall(
@@ -297,15 +304,18 @@ def phase_device(build):
 
 
 def short_name(mangled: str) -> str:
-    """kernel<D, dtype> of a mangled kernel<int D, typename T> name, else the name."""
+    """kernel<args> of a mangled kernel template name whose arguments are
+    ints and dtypes (kernel<D, dtype>, kernel<dtype, dtype>), else the name."""
     types = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
-    m = re.search(r"(\w+?)ILi(\d+)E(f|6__half|13__nv_bfloat16)E", mangled)
+    m = re.search(r"(\w+?)I((?:Li\d+E|f|6__half|13__nv_bfloat16)+)E", mangled)
     if m:  # the name is the suffix <len><name> of the prefix whose length fits
+        args = [d or types[t] for d, t in
+                re.findall(r"Li(\d+)E|(f|6__half|13__nv_bfloat16)", m.group(2))]
         prefix = m.group(1)
         for i in range(len(prefix)):
             n = re.match(r"\d+", prefix[i:])
             if n and len(prefix) - i - len(n.group()) == int(n.group()):
-                return f"{prefix[i + len(n.group()):]}<{m.group(2)}, {types[m.group(3)]}>"
+                return f"{prefix[i + len(n.group()):]}<{', '.join(args)}>"
     return mangled
 
 
@@ -740,6 +750,84 @@ def lp_collision_ell(km, k, counts, dev):
     return a_idx[:, None].to(torch.int32), a_nnz, b_idx, b_nnz, b_live
 
 
+def lp_lost_product_ell(dev):
+    """ELL operands (index arrays, values, widths) whose C structure lists
+    fewer columns than some rows' products reach, so K3's tables, sized from
+    c_nnz, fill: row 0 one A entry over B columns 0-8 (values 1-9), c_nnz 1,
+    column 8 listed (the sum is 9); row 1 3 of 40 columns listed, the last
+    three, which arrive after a 16-slot table (L1 4 + L2 8 at l1_size 4) is
+    full; row 2 its full structure; row 3 no product; row 4 every 30th of
+    3,000 columns listed (a 256-slot table); row 5 three A entries over 120
+    columns, 5 listed. B's padded slots hold column 5,000 and value 1e6."""
+    b_rows = [torch.arange(9), torch.arange(40), torch.tensor([3, 5, 7]), torch.arange(3000),
+              torch.arange(0, 120, 3), torch.arange(1, 120, 3), torch.arange(2, 120, 3)]
+    r_b = max(r.shape[0] for r in b_rows)
+    b_idx = torch.full((len(b_rows), r_b), 5000, dtype=torch.int32)
+    b_val = torch.full((len(b_rows), r_b), 1e6)
+    for j, cols in enumerate(b_rows):
+        b_idx[j, :cols.shape[0]] = cols
+        b_val[j, :cols.shape[0]] = (torch.arange(cols.shape[0]) % 17 + 1).float()  # row 0: 1-9
+    b_nnz = torch.tensor([r.shape[0] for r in b_rows], dtype=torch.int32)
+    a_idx = torch.tensor([[0, 0, 0], [1, 0, 0], [2, 0, 0], [0, 0, 0], [3, 0, 0], [4, 5, 6]],
+                         dtype=torch.int32)
+    a_nnz = torch.tensor([1, 1, 1, 0, 1, 3], dtype=torch.int32)
+    a_val = torch.ones(a_idx.shape)
+    a_val[5] = torch.tensor([0.5, -2.0, 3.0])
+    c_lists = [[8], [37, 38, 39], [3, 5, 7], [], list(range(0, 3000, 30)), [0, 1, 2, 60, 119]]
+    c_idx = torch.zeros(len(c_lists), 100, dtype=torch.int32)
+    for i, cols in enumerate(c_lists):
+        c_idx[i, :len(cols)] = torch.tensor(cols, dtype=torch.int32)
+    c_nnz = torch.tensor([len(c) for c in c_lists], dtype=torch.int32)
+    return tuple(t.to(dev) for t in (a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz))
+
+
+def check_lost_products(km, worst, dev="cuda") -> None:
+    """K3 on rows whose structure lists fewer columns than their products
+    reach (lp_lost_product_ell), at l1_size None and 4, in every dtype pair:
+    the kernel lists the rows whose tables filled and the wrapper runs them
+    again (two launches); every value against the plain version, row 0's
+    exactly 9."""
+    a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz = lp_lost_product_ell(dev)
+    b_live = torch.arange(b_idx.shape[1], device=dev)[None, :] < b_nnz[:, None]
+    for l1_size in (None, 4):
+        before = km.lp.NUMERIC_LAUNCHES
+        got = km.lp.spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                              l1_size=l1_size, k=5000)
+        torch.cuda.synchronize()
+        require(km.lp.NUMERIC_LAUNCHES == before + 2,
+                f"K3 lost products l1={l1_size}: {km.lp.NUMERIC_LAUNCHES - before} launches, "
+                "not 2 (the rows that lost a product, again)")
+        require(float(got[0, 0]) == 9.0, f"K3 lost products l1={l1_size}: row 0 gives "
+                                         f"{float(got[0, 0])}, not 9")
+        check_ell_kernels(km, f"K3 lost products l1={l1_size}",
+                          (a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx, c_nnz, None), 5000,
+                          l1_size, worst, k3_only=True)
+
+
+def check_large_l1(rt, km, worst) -> None:
+    """K3 with l1_size=65,536 on multigrid 512^2 A*P (rows of at most 4
+    columns): every row takes the tables of l1_size=None, none in device
+    memory, and the values match the plain version."""
+    _, a, p = rt.galerkin_triple(512, 512, agg_size=4, device="cuda")
+    c_nnz, c_idx, _ = km.ops.pallas_spgemm(a, p, kernel="dense_acc")
+    ea, ep = rt.csr_to_ell(a), rt.csr_to_ell(p)
+    r_c, k = c_idx.shape[1], p.shape[1]
+    slots = {l1: int(km.lp.lp_table_slots(c_nnz, r_c, l1).sum()) for l1 in (None, 65536)}
+    classes = lp_class_rows(km, c_nnz, 65536)
+    log(f"   K3 l1=65536 at multigrid 512^2 A*P: {a.shape[0]} rows, rC {r_c}; table slots "
+        f"{slots[65536]} (l1=None: {slots[None]}); rows per class {classes}")
+    require(slots[65536] == slots[None] and classes[-1] == 0,
+            "K3 l1=65536 at A*P: rows get the forced L1 or device-memory tables")
+    args = (ea.indices, ea.values, ea.row_nnz, ep.indices, ep.values, ep.row_nnz, c_idx, c_nnz)
+    got = km.lp.spgemm_lp(*args, l1_size=65536, k=k)
+    want = km.lp.spgemm_lp_plain(*args, l1_size=65536, k=k)
+    scale = km.lp.spgemm_lp_plain(ea.indices, ea.values.abs(), ea.row_nnz, ep.indices,
+                                  ep.values.abs(), ep.row_nnz, c_idx, c_nnz, k=k)
+    err = tolerance_check("K3 l1=65536 at A*P", got, want, scale, F32_TOL)
+    worst["spgemm_lp"] = max(worst["spgemm_lp"], err)
+    log(f"   K3 l1=65536 at A*P == plain: max |kernel - plain| {err:.3e}")
+
+
 def lp_class_rows(km, c_nnz, l1_size) -> list:
     """Rows per K3 size class: [empty, each of CLASS_SLOTS, device memory]."""
     cls = km.lp.lp_row_class(c_nnz, l1_size)
@@ -799,6 +887,8 @@ def phase_ell_kernels_vs_plain(rt, km, seed: int) -> dict:
                     require(min(spilling[1:]) > 0, f"{name}: a size class has no spilling row")
             check_ell_kernels(km, name, (a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx, c_nnz,
                                          None), k, l1_size, worst, k3_only=True)
+    check_lost_products(km, worst)
+    check_large_l1(rt, km, worst)
     torch.cuda.synchronize()
     return worst
 
@@ -1056,7 +1146,17 @@ def sparse_mm(x, y):
 # ---------------------------------------------------------------------------
 
 NEW_KERNELS = ("bsr_spgemm", "grouped_matmul", "flash_attention")
-K7_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}  # the reference's tests
+# the reference's tests (f16 as bf16: its rounding is finer)
+K7_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+# ||kernel - plain||_F / ||plain||_F of each K7 output, beside K7_TOL, by x's
+# dtype: both sum in f32 and round once, so they differ by rounding flips of
+# the output; a wrong B descriptor or a lost stage moves every output. Bounds:
+# 5-8x the worst measured on an H100 (phases 2 and 11): bf16 1.03e-4, f16
+# 4.1e-5, f32 8.5e-7.
+K7_FRO = {torch.float32: 5e-6, torch.bfloat16: 6e-4, torch.float16: 3e-4}
+K7_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+            (torch.float16, torch.float16), (torch.bfloat16, torch.float32),
+            (torch.float16, torch.bfloat16)]
 K8_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2, torch.float16: 5e-2}
 # ||kernel - plain||_F / ||plain||_F of each K8 output, beside K8_TOL: at T
 # 8,192 a typical |out| is below K8_TOL's atol, so that rule alone would pass
@@ -1139,16 +1239,25 @@ def phase_new_kernels_vs_plain(km, seed: int, dev="cuda") -> dict:
             worst["bsr_spgemm"] = max(worst["bsr_spgemm"], err)
     log(f"   bsr_spgemm == plain (NaN in block 0 not leaked): max |kernel - plain| "
         f"{worst['bsr_spgemm']:.3e}")
-    for e, d, f, blocks in ((8, 512, 384, 13), (3, 128, 128, 1)):
-        be = torch.randint(0, e, (blocks,), generator=g, device=dev, dtype=torch.int32)
-        for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn(blocks * 128, d, generator=g, device=dev).to(dt)
-            w = (torch.randn(e, d, f, generator=g, device=dev) * 0.05).to(dt)
-            err, _ = close_check(f"grouped_matmul {e}x{d}x{f} {dt}",
-                                 km.gm.grouped_matmul(x, w, be),
-                                 km.gm.grouped_matmul_plain(x, w, be), K7_TOL[dt])
+    k7_rel = {}
+    # unsorted expert ids, some out of [0, E) (they clamp); one token block;
+    # the MoE projections' (d, f)
+    for e, d, f, blocks in ((8, 512, 384, 13), (3, 128, 128, 1), (4, 768, 2048, 5),
+                            (4, 2048, 768, 5)):
+        be = torch.randint(-2, e + 2, (blocks,), generator=g, device=dev, dtype=torch.int32)
+        for xd, wd in K7_PAIRS:
+            x = torch.randn(blocks * 128, d, generator=g, device=dev).to(xd)
+            w = (torch.randn(e, d, f, generator=g, device=dev) * 0.05).to(wd)
+            err, rel = close_check(f"grouped_matmul {e}x{d}x{f} {DT_NAME[xd]}x{DT_NAME[wd]} "
+                                   f"({km.gm.variant(xd, wd)})",
+                                   km.gm.grouped_matmul(x, w, be),
+                                   km.gm.grouped_matmul_plain(x, w, be), K7_TOL[xd], K7_FRO[xd])
             worst["grouped_matmul"] = max(worst["grouped_matmul"], err)
-    log(f"   grouped_matmul == plain: max |kernel - plain| {worst['grouped_matmul']:.3e}")
+            key = f"{DT_NAME[xd]}x{DT_NAME[wd]} ({km.gm.variant(xd, wd)})"
+            k7_rel[key] = max(k7_rel.get(key, 0.0), rel)
+    log(f"   grouped_matmul == plain: max |kernel - plain| {worst['grouped_matmul']:.3e}; "
+        "worst relative Frobenius " + ", ".join(f"{k} {r:.3e}" for k, r in k7_rel.items())
+        + f" (bounds {', '.join(f'{DT_NAME[dt]} {b}' for dt, b in K7_FRO.items())})")
     cases = [  # (hq, hkv, tq, tk, d, kwargs, scale of q and k)
         (4, 2, 320, 320, 256, dict(causal=True, window=100, softcap=50.0), 1.0),
         (2, 1, 136, 200, 256, dict(causal=True, softcap=50.0), 1.0),  # Tq != Tk, both ragged
@@ -1318,10 +1427,15 @@ def moe_layout(n_tokens, n_experts, top_k, g, dev):
     return rows, tokens, block_expert, int(padded.sum())
 
 
+MOE_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
 def phase_moe(rt, km, seed: int, out: dict, n_tokens=4096, dev="cuda") -> None:
     """K7 at qwen3-moe-30b-a3b widths through ops.expert_matmul: tokens routed
     top-8 over 128 experts, sorted by expert and padded per expert to 128
-    rows; one layer's x @ w1 in bf16 and in f32."""
+    rows; one layer's up projection x @ w1 (d_model -> expert width) and
+    down projection (expert width -> d_model, on x @ w1's output), each in
+    bf16, f16 and f32."""
     cfg = rt.get_config("qwen3-moe-30b-a3b")
     d, f, n_exp, top_k = cfg.d_model, cfg.moe_d_ff, cfg.num_experts, cfg.experts_per_token
     g = torch.Generator(device=dev).manual_seed(seed + 40)
@@ -1329,31 +1443,42 @@ def phase_moe(rt, km, seed: int, out: dict, n_tokens=4096, dev="cuda") -> None:
     x_tok = torch.randn(n_tokens, d, generator=g, device=dev)
     x = torch.zeros(n_rows, d, device=dev)
     x[rows] = x_tok[tokens]
-    w = torch.randn(n_exp, d, f, generator=g, device=dev) * 0.02
+    w1 = torch.randn(n_exp, d, f, generator=g, device=dev) * 0.02
+    w2 = torch.randn(n_exp, f, d, generator=g, device=dev) * 0.02
     used = int((torch.bincount(be.long(), minlength=n_exp) > 0).sum())
     log(f"   {cfg.name}: d_model {d}, expert width {f}, {n_exp} experts, top-{top_k}; "
         f"{n_tokens} tokens -> {rows.shape[0]} assignments in {n_rows} rows "
-        f"({n_rows // 128} blocks, {used} experts with tokens); x @ w1 "
+        f"({n_rows // 128} blocks, {used} experts with tokens); each projection "
         f"{2 * n_rows * d * f / 1e12:.3f} TFLOP")
-    ins = {dt: (x.to(dt), w.to(dt)) for dt in (torch.bfloat16, torch.float32)}
+    ins, ys = {}, {}
     reset_new_launches(km)
-    ys = {dt: km.ops.expert_matmul(xd, wd, be) for dt, (xd, wd) in ins.items()}  # main path
+    for dt in MOE_DTYPES:  # the main path: up, then down on its output
+        xd, w1d, w2d = x.to(dt), w1.to(dt), w2.to(dt)
+        ys["x@w1", dt] = km.ops.expert_matmul(xd, w1d, be)
+        ys["down", dt] = km.ops.expert_matmul(ys["x@w1", dt], w2d, be)
+        ins["x@w1", dt], ins["down", dt] = (xd, w1d), (ys["x@w1", dt], w2d)
     torch.cuda.synchronize()
     launches = read_new_launches(km)
-    require(launches == {"bsr_spgemm": 0, "grouped_matmul": 2, "flash_attention": 0},
-            f"launches {launches}")
+    require(launches == {"bsr_spgemm": 0, "grouped_matmul": 2 * len(MOE_DTYPES),
+                         "flash_attention": 0}, f"launches {launches}")
+    del x, w1, w2
     pad = torch.ones(n_rows, dtype=torch.bool, device=dev)
     pad[rows] = False
-    worst = {}
-    for dt, y in ys.items():
-        require(y.shape == (n_rows, f) and y.dtype == dt, f"K7 output {y.dtype} {tuple(y.shape)}")
-        require(bool((y[pad] == 0).all()), "K7: padding rows are not 0")
-        worst[dt], _ = close_check(f"K7 {dt}", y, km.gm.grouped_matmul_plain(*ins[dt], be),
-                                   K7_TOL[dt])
-        log(f"   K7 {DT_NAME[dt]} vs plain: max |kernel - plain| {worst[dt]:.3e}; "
-            f"padding rows 0")
-    out.update(launches=launches, worst=max(worst.values()), ins=ins, be=be, n_rows=n_rows,
-               assignments=rows.shape[0], cfg=cfg)
+    worst = 0.0
+    for (proj, dt), y in ys.items():
+        width = f if proj == "x@w1" else d
+        require(y.shape == (n_rows, width) and y.dtype == dt,
+                f"K7 {proj} output {y.dtype} {tuple(y.shape)}")
+        require(bool((y[pad] == 0).all()), f"K7 {proj}: padding rows are not 0")
+        err, rel = close_check(f"K7 {proj} {DT_NAME[dt]}", y,
+                               km.gm.grouped_matmul_plain(*ins[proj, dt], be), K7_TOL[dt],
+                               K7_FRO[dt])
+        worst = max(worst, err)
+        log(f"   K7 {proj} {DT_NAME[dt]}, variant {km.gm.variant(dt, dt)}: max |kernel - "
+            f"plain| {err:.3e}, relative Frobenius {rel:.3e} (bound {K7_FRO[dt]}); padding "
+            f"rows 0")
+    out.update(launches=launches, worst=worst, ins=ins, be=be, n_rows=n_rows,
+               assignments=rows.shape[0], cfg=cfg, used=used)
 
 
 ATTN_T = 8192
@@ -1466,14 +1591,18 @@ def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
     # K7
     be, n_rows, cfg = moe["be"], moe["n_rows"], moe["cfg"]
     times["grouped_matmul"] = {}
-    for dt, (x, w) in moe["ins"].items():
-        label = f"{cfg.name} {n_rows} rows {DT_NAME[dt]}"
+    for (proj, dt), (x, w) in moe["ins"].items():
+        label = f"{cfg.name} {n_rows} rows {proj} {DT_NAME[dt]}"
         r = {"ms": time_ms(lambda: km.ops.expert_matmul(x, w, be)),
-             "plain_ms": time_ms(lambda: km.gm.grouped_matmul_plain(x, w, be))}
+             "plain_ms": time_ms(lambda: km.gm.grouped_matmul_plain(x, w, be)),
+             "variant": km.gm.variant(x.dtype, w.dtype)}
+        # x, the weights of the experts that own a block and y, each once
         item = x.element_size()
-        t_bytes = (x.numel() + w.numel() + n_rows * w.shape[2]) * item / HBM_BYTES_PER_S * 1e3
-        peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
-        t_ops = 2 * n_rows * x.shape[1] * w.shape[2] / peak * 1e3
+        t_bytes = ((x.numel() + moe["used"] * w[0].numel() + n_rows * w.shape[2]) * item
+                   / HBM_BYTES_PER_S * 1e3)
+        flops = 2 * n_rows * x.shape[1] * w.shape[2]
+        peak = F32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S
+        t_ops = flops / peak * 1e3
         r["bound_ms"], r["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         wg = w[be.long()]  # the yardstick's gather, outside the timing
         xb = x.view(-1, 128, x.shape[1])
@@ -1481,9 +1610,10 @@ def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
         del wg
         torch.cuda.empty_cache()
         times["grouped_matmul"][label] = r
-        log(f"   K7 {label}: {r['ms']:.3f} ms ({2 * n_rows * x.shape[1] * w.shape[2] / r['ms'] / 1e9:.1f}"
-            f" TFLOP/s), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}), torch.bmm over w[block_expert] {r['library_ms']:.3f} ms")
+        log(f"   K7 {label}: variant {r['variant']}, {r['ms']:.3f} ms ({flops / r['ms'] / 1e9:.1f}"
+            f" TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of the bound), plain {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), torch.bmm over "
+            f"w[block_expert] {r['library_ms']:.3f} ms")
     # K8
     times["flash_attention"] = {}
     t = attn["t"]
@@ -1643,7 +1773,7 @@ def main(argv=None) -> int:
                     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:47",
                     "flash_attention": "src/repro/kernels/flash_attention.py:75"}
     new_shape = {"bsr_spgemm": "block multigrid 512^2 bs 8 f32",
-                 "grouped_matmul": f"{moe['cfg'].name} {moe['n_rows']} rows bf16",
+                 "grouped_matmul": f"{moe['cfg'].name} {moe['n_rows']} rows x@w1 bf16",
                  "flash_attention": "llama3.2-1b bf16"}
     path_runs = {"bsr_spgemm": bsr, "grouped_matmul": moe, "flash_attention": attn}
     for name in NEW_KERNELS:

@@ -39,12 +39,18 @@ struct EllArgs {
   // K3: L1 size (0 = per row); the non-empty rows sorted by size class
   // (device) and the rows of each class (a host array, read by the
   // launcher); the device-memory tables of the widest rows and the scan of
-  // their c_nnz that places them
+  // their slot allotments that places them; the count that sizes each
+  // listed row's tables (nullptr: its c_nnz); where a row loses a product
+  // (a full table), its id goes to lost_rows[atomicAdd(lost_count, 1)]
+  // (lost_count nullptr: the kernel cannot lose one)
   int l1_size;
   const int64_t* rows;
   const int64_t* class_rows;
   const int64_t* g_off;
   int32_t* g_tab;
+  const int64_t* size_counts;
+  int32_t* lost_count;
+  int64_t* lost_rows;
   cudaStream_t stream;
 };
 
@@ -74,8 +80,8 @@ __device__ __forceinline__ void zero_tail(const EllArgs& e, int64_t i,
 // prefix. K<TA, TB>::launch(const ell::EllArgs&) runs the kernel.
 //   int <name>_launch(a_idx, a_val, a_code, a_nnz, r_a, b_idx, b_val, b_code,
 //                     b_nnz, n, r_b, c_idx, c_nnz, r_c, out, m, k, tile,
-//                     l1_size, rows, class_rows, g_off, g_tab, stream)
-//                     -> cudaGetLastError()
+//                     l1_size, rows, class_rows, g_off, g_tab, size_counts,
+//                     lost_count, lost_rows, stream) -> cudaGetLastError()
 //   const char* <name>_error_string(int code)
 #define ELL_C_API(NAME, KERNEL)                                               \
   extern "C" int NAME##_launch(                                               \
@@ -85,10 +91,12 @@ __device__ __forceinline__ void zero_tail(const EllArgs& e, int64_t i,
       int64_t r_b, const int32_t* c_idx, const int32_t* c_nnz, int64_t r_c,   \
       float* out, int64_t m, int64_t k, int tile, int l1_size,                \
       const int64_t* rows, const int64_t* class_rows, const int64_t* g_off,   \
-      int32_t* g_tab, void* stream) {                                         \
+      int32_t* g_tab, const int64_t* size_counts, int32_t* lost_count,        \
+      int64_t* lost_rows, void* stream) {                                     \
     const ell::EllArgs e{a_idx, a_val, a_nnz, r_a, b_idx, b_val, b_nnz, n,    \
                          r_b,   c_idx, c_nnz, r_c, out,   m,     k,     tile, \
                          l1_size, rows,  class_rows, g_off, g_tab,            \
+                         size_counts, lost_count, lost_rows,                  \
                          static_cast<cudaStream_t>(stream)};                  \
     return replay::dispatch<KERNEL>(a_code, b_code, e);                       \
   }                                                                           \

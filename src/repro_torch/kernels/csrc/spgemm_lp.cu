@@ -19,10 +19,12 @@
 //
 // Design. Each key's products are summed in one table unless a race puts
 // the key in both (below), so a table needs no more room than the row's
-// keys: L1 holds s1 = the next power of two >= 2 * c_nnz[i] (at least 8)
-// slots, or the caller's l1_size, and L2 exists, with s2 = the next power of
-// two >= 2 * c_nnz[i] slots, only where L1's cutoff is below c_nnz[i], i.e.
-// where a spill can happen. A slot is an int key (-1 = empty) beside its f32
+// keys. With s2 = the next power of two >= 2 * c_nnz[i] (at least 8): a row
+// whose c_nnz is above the cutoff of the caller's l1_size spills, with an L1
+// of l1_size slots and an L2 of s2; every other row (and every row when
+// l1_size is not forced) has one table of s2 slots, which its c_nnz keys
+// cannot push past half full, so a forced l1_size never allots more than a
+// spilling row needs. A slot is an int key (-1 = empty) beside its f32
 // value, so a probe and its add touch one 32-byte sector of a table in
 // device memory. The wrapper sorts the non-empty rows by size class (kClasses): a
 // class's shared memory is its largest table, so a row shares its SM with as
@@ -51,6 +53,16 @@
 // such a key is still summed once per product. The atomics add in no fixed
 // order: results agree with the plain version to f32 rounding, not bit for
 // bit.
+//
+// Lost products. The tables are sized from c_nnz, the caller's count of the
+// row's distinct columns; a caller may pass a structure with fewer columns
+// than the row's products reach (ops.numeric_values and spgemm_lp accept any
+// structure), and the row's last table (L2, or its only table) then fills.
+// An insert that finds no slot there marks the row: the team votes, skips
+// the emit, and appends the row to lost_rows. The wrapper reads the count
+// (one wait) and runs just those rows again with size_counts = their
+// product counts, which bound their distinct keys, in tables in device
+// memory that cannot fill; that pass writes their outputs.
 #include "ell_common.cuh"
 
 namespace {
@@ -178,12 +190,13 @@ __device__ __forceinline__ long long team_scan(long long x, int lane, int team,
 }
 
 // One team's share of a staged chunk: products lane, lane + team, ... of the
-// n_e A entries whose inclusive B-width scan is st_off.
+// n_e A entries whose inclusive B-width scan is st_off. A product that no
+// table takes sets `lost`.
 template <bool kSpill, typename TB>
 __device__ __forceinline__ void walk_products(
     const ell::EllArgs& e, const TB* b_val, const int64_t* st_off, const int* st_j,
     const float* st_av, int n_e, int lane, int team, int* tab, int64_t s1,
-    int64_t s2, int64_t cutoff, int* used) {
+    int64_t s2, int64_t cutoff, int* used, bool& lost) {
   const int64_t total = st_off[n_e - 1];
   int lo = 0;
   for (int64_t p = lane; p < total; p += team) {
@@ -198,9 +211,9 @@ __device__ __forceinline__ void walk_products(
     if (key < 0 || key >= e.k) continue;  // outside [0, k)
     const float v = st_av[lo] * replay::load_val(b_val, bs);
     if (!kSpill) {
-      lp_insert<false>(tab, s1, 0, nullptr, key, v);
+      if (!lp_insert<false>(tab, s1, 0, nullptr, key, v)) lost = true;
     } else if (!lp_insert<true>(tab, s1, cutoff, used, key, v)) {
-      lp_insert<false>(tab + 2 * s1, s2, 0, nullptr, key, v);  // L2 follows L1
+      if (!lp_insert<false>(tab + 2 * s1, s2, 0, nullptr, key, v)) lost = true;  // L2 follows L1
     }
   }
 }
@@ -266,18 +279,19 @@ __global__ void __launch_bounds__(kThreads, kThreads == 1024 ? 1 : 6)
   long long nb;
   load_entry(e, a_val, i, lane, live_a, j, av, nb);
   if (cn == 0) return;  // the same for the whole team; the wrapper bins none
-  // table sizes: the same formula as the wrapper's lp_table_slots
-  const int64_t s2 = next_pow2(2 * cn > 8 ? 2 * cn : 8);
-  const int64_t s1 = e.l1_size > 0 ? e.l1_size : s2;
-  const int64_t cutoff = s1 / 2 < s1 - 1 ? s1 / 2 : s1 - 1;
-  const bool spill = cutoff < cn;
+  // table sizes: the same formula as the wrapper's lp_table_slots, from c_nnz
+  // or, in the pass that redoes lost rows, from the row's product count
+  const int64_t sz = e.size_counts ? e.size_counts[pos] : cn;
+  const int64_t s2 = next_pow2(2 * sz > 8 ? 2 * sz : 8);
+  const int64_t cutoff = e.l1_size / 2 < e.l1_size - 1 ? e.l1_size / 2 : e.l1_size - 1;
+  const bool spill = e.l1_size > 0 && cutoff < sz;
+  const int64_t s1 = spill ? e.l1_size : s2;
   const int64_t slots = s1 + (spill ? s2 : 0);
   int* tab;
   if (cap == 0) {
-    // row pos's allotment: 4 * c_nnz + 8 + l1_size slots (see lp_bins)
-    const int64_t x = 8 + e.l1_size;
-    const int64_t off = 4 * e.g_off[pos] + x * pos;
-    if (slots > 4 * e.g_off[pos + 1] + x * (pos + 1) - off) __trap();  // short allotment
+    // row pos's allotment: slots [g_off[pos], g_off[pos + 1]) (see lp_bins)
+    const int64_t off = e.g_off[pos];
+    if (slots > e.g_off[pos + 1] - off) __trap();  // short allotment
     tab = e.g_tab + 2 * off;
   } else {
     if (slots > cap) __trap();  // a row binned into too small a class
@@ -288,6 +302,7 @@ __global__ void __launch_bounds__(kThreads, kThreads == 1024 ? 1 : 6)
   if (lane == 0) *used = 0;
   team_sync();
 
+  bool lost = false;
   for (int64_t r0 = 0; r0 < live_a; r0 += team) {
     st_off[lane] = team_scan(nb, lane, team, tmask, warp_sums);
     st_j[lane] = j;
@@ -298,11 +313,16 @@ __global__ void __launch_bounds__(kThreads, kThreads == 1024 ? 1 : 6)
     const int n_e = live_a - r0 < team ? static_cast<int>(live_a - r0) : team;
     if (spill)
       walk_products<true>(e, b_val, st_off, st_j, st_av, n_e, lane, team, tab, s1, s2,
-                          cutoff, used);
+                          cutoff, used, lost);
     else
       walk_products<false>(e, b_val, st_off, st_j, st_av, n_e, lane, team, tab, s1, s2,
-                           cutoff, used);
+                           cutoff, used, lost);
     team_sync();  // the next chunk restages
+  }
+  if (e.lost_count != nullptr &&
+      (team > 32 ? __syncthreads_or(lost) : __any_sync(tmask, lost))) {
+    if (lane == 0) e.lost_rows[atomicAdd(e.lost_count, 1)] = i;  // redone by the wrapper
+    return;
   }
 
   float* orow = e.out + i * e.r_c;
@@ -321,6 +341,7 @@ struct SpgemmLp {
                          cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem_bytes());
     cudaFuncSetAttribute(spgemm_lp_kernel<1024, TA, TB>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem_bytes());
+    if (e.lost_count != nullptr) cudaMemsetAsync(e.lost_count, 0, sizeof(int32_t), e.stream);
     const int64_t* rows = e.rows;
     for (int c = 0; c < kNumClasses; ++c) {
       const int64_t n = e.class_rows[c];

@@ -8,11 +8,15 @@ phase. Tokens arrive sorted by expert and padded so that no block of
 ``TM = 128`` rows spans two experts: ``y[t] = x[t] @ w[block_expert[t //
 128]]`` with f32 products and sums, out in ``x.dtype``.
 
-What bounds it on the H100: operations, 2 * T * d * f flops, each weight
-tile serving a block of 128 tokens. The design (see the source's header):
-one thread block per (token block, 128-column tile of f), the weight tile
-chosen by ``block_expert``, f32 tiles in shared memory and an 8 x 8 f32
-register tile per thread; no tensor cores yet.
+What bounds it on the H100: at the MoE widths the bytes (x, the experts'
+weights and y, each once), just above the 2 * T * d * f flops on tensor
+cores. The C launcher picks the variant by the dtype pair (``variant``); a
+failed build or launch raises, nothing falls back. "wgmma" for x and w both
+bf16 or both f16 (a product of two such values is exact in f32, so tensor
+cores with f32 accumulators keep the contract): one block per (token block,
+128-column tile of f), a producer warp feeding a ring of TMA stages, two
+consumer warpgroups on ``wgmma`` (see the source's header). "fma" for every other pair: f32 tiles in shared memory
+and an 8 x 8 f32 register tile per thread.
 
 Beside the kernel: ``grouped_matmul_plain``, the reference's
 ``ref.grouped_matmul_ref`` in plain torch, one f32 product per expert (the
@@ -34,11 +38,23 @@ from repro_torch.runtime.validate import SpgemmInputError
 LAUNCHES = 0
 
 TM = 128  # token-block rows, the reference's
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _ARGTYPES = [_P, _INT, _P, _INT, _P, _P, _I64, _I64, _I64, _I64, _P]
+
+
+def variant(x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
+    """The kernel variant that a CUDA launch runs for (x's dtype, w's), as
+    ``variant_of`` in the C launcher chooses it: "wgmma" where both are bf16
+    or both f16, "fma" for every other pair the kernel takes, "none" where
+    it refuses a dtype (the card tests hold the library's
+    ``grouped_matmul_variant`` to this)."""
+    if x_dtype not in DTYPE_CODES or w_dtype not in DTYPE_CODES:
+        return "none"
+    return "wgmma" if x_dtype == w_dtype and x_dtype in TENSOR_CORE_DTYPES else "fma"
 
 
 def check_grouped_args(x, w, block_expert) -> None:
@@ -83,9 +99,9 @@ def grouped_matmul(x, w, block_expert) -> torch.Tensor:
     """y[t] = x[t] @ w[expert(t)] for expert-sorted, block-aligned tokens.
 
     x: (T, d) with T % 128 == 0; w: (E, d, f); block_expert: (T // 128,)
-    int32. Values f32, f16 or bf16 (f32 accumulation); out (T, f) in
-    ``x.dtype``. CUDA tensors launch the kernel (or raise); CPU tensors run
-    ``grouped_matmul_plain``.
+    int32. Values f32, f16 or bf16 (f32 products and sums); out (T, f) in
+    ``x.dtype``; ``variant`` names the kernel for a dtype pair. CUDA tensors
+    launch the kernel (or raise); CPU tensors run ``grouped_matmul_plain``.
     """
     global LAUNCHES
     check_grouped_args(x, w, block_expert)

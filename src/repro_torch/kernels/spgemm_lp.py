@@ -9,9 +9,13 @@ every spill; C's value at a column is L1's plus L2's. B's padded slots are
 masked by ``b_nnz``; the output is in ``promote_types(a, b)``. Every key's
 products are summed in one table (or, after a race on the card, in both,
 which the emit adds), so the values do not depend on the table sizes: the
-kernel sizes L1 per row, at the next power of two >= 2 * c_nnz[i], unless
-the caller forces ``l1_size`` (which makes rows spill), and gives a row an
-L2 only where it can spill. What bounds it on the H100: bytes, as K4. The
+kernel gives a row one table of the next power of two >= 2 * c_nnz[i]
+slots, and an L1 of the caller's ``l1_size`` beside such an L2 only where
+c_nnz[i] is past that L1's cutoff, so the row can spill. A row whose
+products reach more columns than its c_nnz (a structure that lists fewer
+columns than the product has) fills its last table: the kernel lists it,
+and the wrapper runs those rows again in tables sized by their product
+counts, which cannot fill. What bounds it on the H100: bytes, as K4. The
 design (see the source's header): the wrapper bins the non-empty rows on
 the device into size classes (``lp_bins``), each class's shared memory its
 largest table; small rows are packed many to a block, 4 to 32 lanes each,
@@ -80,16 +84,21 @@ def _next_pow2_tensor(x: torch.Tensor) -> torch.Tensor:
     return v + 1
 
 
+def l1_cutoff(l1_size: int) -> int:
+    """The paper's 50% rule: the keys an L1 of ``l1_size`` slots takes."""
+    return min(l1_size // 2, l1_size - 1)
+
+
 def lp_table_slots(c_nnz: torch.Tensor, r_c: int, l1_size: int | None) -> torch.Tensor:
-    """(m,) int64: the slots of each row's tables in K3 — L1 (``l1_size``, or
-    the next power of two >= 2 * c_nnz[i], at least 8) plus L2 (the latter
-    size) where L1's cutoff is below c_nnz[i]; 0 for an empty row. The same
-    formula as the kernel's."""
+    """(m,) int64: the slots of each row's tables in K3 — s2, the next power
+    of two >= 2 * c_nnz[i] (at least 8), and ``l1_size`` more (its L1, with
+    s2 its L2) where c_nnz[i] is past the forced L1's cutoff; 0 for an empty
+    row. The same formula as the kernel's."""
     cn = c_nnz.clamp(0, r_c).to(torch.int64)
     s2 = _next_pow2_tensor((2 * cn).clamp(min=8))
-    s1 = s2 if l1_size is None else torch.full_like(s2, l1_size)
-    has_l2 = torch.minimum(s1 // 2, s1 - 1) < cn
-    return torch.where(cn > 0, s1 + torch.where(has_l2, s2, 0), 0)
+    if l1_size is not None:
+        s2 = torch.where(cn > l1_cutoff(l1_size), s2 + l1_size, s2)
+    return torch.where(cn > 0, s2, 0)
 
 
 def lp_home_slot(keys: torch.Tensor, size: int) -> torch.Tensor:
@@ -146,18 +155,28 @@ def lp_row_class(c_nnz: torch.Tensor, l1_size: int | None) -> torch.Tensor:
     return _bucket(c_nnz, l1_size) - 1
 
 
+def device_allotment(counts: torch.Tensor, l1_size: int | None):
+    """(g_off, g_slots) of rows whose tables K3 keeps in device memory, sized
+    by ``counts`` (each >= 1): row p gets slots [g_off[p], g_off[p + 1]),
+    4 * count + 8, plus ``l1_size`` where the row spills, which is at least
+    its ``lp_table_slots``; ``g_slots`` in all (one wait)."""
+    allot = counts.to(torch.int64) * 4 + 8
+    if l1_size is not None:
+        allot += torch.where(counts > l1_cutoff(l1_size), l1_size, 0)
+    g_off = torch.zeros(counts.shape[0] + 1, dtype=torch.int64, device=counts.device)
+    torch.cumsum(allot, 0, out=g_off[1:])
+    return g_off, int(g_off[-1])
+
+
 def lp_bins(c_nnz: torch.Tensor, r_c: int, l1_size: int | None):
     """K3's row binning, on the device in four ops (on the card the host's
     dispatch of an op costs more than the op) and one wait, plus a second
     where rows need device-memory tables: (rows, class_rows, g_off, g_slots).
     ``rows`` (int64) holds the non-empty rows sorted by class (stable, so
     ascending within a class); ``class_rows`` (a list) the rows of each
-    class, the device-memory class last. Row p of that class gets slots
-    [4 * g_off[p] + x * p, 4 * g_off[p + 1] + x * (p + 1)), x = 8 + l1_size
-    (0 where None), of device-memory tables of ``g_slots`` slots in all:
-    g_off is the exclusive scan of those rows' c_nnz (clamped to r_c), so
-    each gets 4 * c_nnz + x slots, at least its ``lp_table_slots`` (``g_off``
-    None where there is no such row)."""
+    class, the device-memory class last; ``g_off`` and ``g_slots`` place
+    that class's tables (``device_allotment`` of their c_nnz, clamped to
+    r_c; None and 0 where there is no such row)."""
     bucket, order = torch.sort(_bucket(c_nnz, l1_size), stable=True)
     # where each class starts (bincount would wait for its max): the one wait
     starts = torch.searchsorted(bucket, _consts(c_nnz.device, l1_size)[1]).tolist()
@@ -165,10 +184,7 @@ def lp_bins(c_nnz: torch.Tensor, r_c: int, l1_size: int | None):
     class_rows = [b - a for a, b in zip(starts, starts[1:])]
     g_off, g_slots = None, 0
     if class_rows[-1]:
-        g_off = torch.zeros(class_rows[-1] + 1, dtype=torch.int64, device=c_nnz.device)
-        torch.cumsum(c_nnz[order[starts[-2]:]].clamp(max=r_c), 0, dtype=torch.int64,
-                     out=g_off[1:])
-        g_slots = 4 * int(g_off[-1]) + (8 + (l1_size or 0)) * class_rows[-1]
+        g_off, g_slots = device_allotment(c_nnz[order[starts[-2]:]].clamp(max=r_c), l1_size)
     return order[starts[0]:], class_rows, g_off, g_slots
 
 
@@ -213,8 +229,11 @@ def spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, *,
     carry 0); c_idx: (m, rC) symbolic structure of C; c_nnz: (m,) — each
     row's number of distinct columns, which sizes its tables. Values are f32,
     f16 or bf16 (f32 accumulation). ``l1_size``: a power of two forcing
-    every row's L1 size (rows then spill to L2); None sizes L1 per row so
-    that it never spills. ``k``: B's number of columns; a product whose
+    the L1 size of each row whose c_nnz is past its cutoff (those rows
+    spill to L2); None sizes every row's one table so that it never spills.
+    A structure may list fewer columns than a row's products reach: such
+    rows are run again with tables sized by their products (one more wait
+    on the card). ``k``: B's number of columns; a product whose
     column lies outside [0, k) is dropped (default: one past the largest
     column id in B's and C's arrays). CUDA tensors launch the kernel (or
     raise); CPU tensors run ``spgemm_lp_plain``.
@@ -230,16 +249,43 @@ def spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, *,
         return spgemm_lp_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
                                l1_size=l1_size, k=k)
     out = torch.zeros(c_idx.shape, dtype=torch.float32, device=a_idx.device)
-    if out.numel():
-        rows, class_rows, g_off, g_slots = lp_bins(c_nnz, c_idx.shape[1], l1_size)
-        # a device-memory slot: an int32 key beside its f32 value's bits
-        g_tab = (None if g_off is None else
-                 torch.empty(2 * g_slots, dtype=torch.int32, device=a_idx.device))
-        launch_ell("spgemm_lp", a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
-                   c_nnz, out, k, l1_size=l1_size or 0, rows=rows,
-                   class_rows=class_rows, g_off=g_off, g_tab=g_tab)
+    rows, class_rows, g_off, g_slots = (lp_bins(c_nnz, c_idx.shape[1], l1_size)
+                                        if out.numel() else (None, [0], None, 0))
+    if sum(class_rows):
+        ell = (a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, out, k)
+        lost = torch.empty(1, dtype=torch.int32, device=a_idx.device)  # zeroed by the launcher
+        lost_rows = torch.empty(rows.shape[0], dtype=torch.int64, device=a_idx.device)
+        launch_ell("spgemm_lp", *ell, l1_size=l1_size or 0, rows=rows,
+                   class_rows=class_rows, g_off=g_off, g_tab=_table(g_slots, a_idx.device),
+                   lost_count=lost, lost_rows=lost_rows)
         NUMERIC_LAUNCHES += 1
+        n_lost = int(lost)  # the wait for the kernel's count of lost rows
+        if n_lost:
+            _redo_lost_rows(ell, lost_rows[:n_lost], l1_size)
     return out.to(torch.promote_types(a_val.dtype, b_val.dtype))
+
+
+def _table(slots: int, device):
+    """Device-memory tables of ``slots`` slots, a slot an int32 key beside
+    its f32 value's bits (None for 0)."""
+    return torch.empty(2 * slots, dtype=torch.int32, device=device) if slots else None
+
+
+def _redo_lost_rows(ell, rows, l1_size) -> None:
+    """Run K3 again on ``rows``, whose tables filled, in device-memory
+    tables sized by each row's product count (which bounds its distinct
+    keys, so no table fills), rewriting their outputs in ``out``."""
+    global NUMERIC_LAUNCHES
+    a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, out, k = ell
+    n, r_a, r_b = b_idx.shape[0], a_idx.shape[1], b_idx.shape[1]
+    live = torch.arange(r_a, device=rows.device) < a_nnz[rows].clamp(0, r_a)[:, None]
+    widths = b_nnz[a_idx[rows].long().clamp(0, n - 1)].clamp(0, r_b)
+    products = torch.where(live, widths, 0).sum(1).clamp(min=1)
+    g_off, g_slots = device_allotment(products, l1_size)
+    class_rows = [0] * len(CLASS_SLOTS) + [rows.shape[0]]
+    launch_ell("spgemm_lp", *ell, l1_size=l1_size or 0, rows=rows, class_rows=class_rows,
+               g_off=g_off, g_tab=_table(g_slots, rows.device), size_counts=products)
+    NUMERIC_LAUNCHES += 1
 
 
 def spgemm_lp_bucketed(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, *,

@@ -44,7 +44,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _ARGTYPES = [_P, _P, _INT, _P, _I64, _P, _P, _INT, _P, _I64, _I64, _P, _P, _I64,
-             _P, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P]
+             _P, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P]
 
 
 def _pad_width(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -146,13 +146,16 @@ def spgemm_numeric_ref(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *,
 
 def launch_ell(lib_name: str, a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
                c_nnz, out, k: int, *, tile: int = 0, l1_size: int = 0,
-               rows=None, class_rows=None, g_off=None, g_tab=None) -> None:
+               rows=None, class_rows=None, g_off=None, g_tab=None, size_counts=None,
+               lost_count=None, lost_rows=None) -> None:
     """Launch ``<lib_name>_launch`` of ``csrc/<lib_name>.cu`` (the ELL C
     interface of ``csrc/ell_common.cuh``) on the current stream, writing
     the f32 ``out``. K3 passes its rows sorted by size class (``rows``, on
     the device) and the rows of each class (``class_rows``, a list read on
-    the host). A CUDA error after the launch raises ``KernelFallbackError``:
-    there is no rung to fall back to."""
+    the host), and where the kernel records rows that lost a product
+    (``lost_count``, ``lost_rows``) or what sizes each row's tables
+    (``size_counts``). A CUDA error after the launch raises
+    ``KernelFallbackError``: there is no rung to fall back to."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -166,7 +169,7 @@ def launch_ell(lib_name: str, a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
                       b_val.data_ptr(), DTYPE_CODES[b_val.dtype], ptr(b_nnz), n, r_b,
                       c_idx.data_ptr(), c_nnz.data_ptr(), c_idx.shape[1], out.data_ptr(), m,
                       k, tile, l1_size, ptr(rows), counts, ptr(g_off), ptr(g_tab),
-                      stream)
+                      ptr(size_counts), ptr(lost_count), ptr(lost_rows), stream)
 
 
 def spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *, k: int,

@@ -37,26 +37,45 @@ def _t(x):
     return convert.tensor_from_numpy(np.asarray(x), "cpu")
 
 
+NP_DTYPES = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16, "float16": np.float16}
+
+
 @pytest.mark.parametrize("e,d,f,blocks", [(4, 256, 256, 6), (8, 128, 384, 4)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "bfloat16xfloat32"])
 def test_grouped_matmul_matches_the_reference_kernel(e, d, f, blocks, dtype):
+    """x and w in one dtype, or x bf16 and w f32 (a mixed pair: out in x's
+    dtype)."""
     rng = np.random.default_rng(e * d + f)
-    np_dtype = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    x_dt, _, w_dt = dtype.partition("x")
+    w_dt = w_dt or x_dt
     t = blocks * TM
     be = np.sort(rng.integers(0, e, blocks)).astype(np.int32)
-    x = rng.standard_normal((t, d)).astype(np.float32).astype(np_dtype)
-    w = (rng.standard_normal((e, d, f)) * 0.1).astype(np.float32).astype(np_dtype)
+    x = rng.standard_normal((t, d)).astype(np.float32).astype(NP_DTYPES[x_dt])
+    w = (rng.standard_normal((e, d, f)) * 0.1).astype(np.float32).astype(NP_DTYPES[w_dt])
     want = np.asarray(jgrouped(jnp.asarray(x), jnp.asarray(w), jnp.asarray(be),
                                interpret=True), np.float32)
     launches = k7.LAUNCHES
     got = k7.grouped_matmul(_t(x), _t(w), _t(be))
     assert k7.LAUNCHES == launches  # CPU tensors never reach the kernel
-    assert got.dtype == (torch.float32 if dtype == "float32" else torch.bfloat16)
-    tol = 2e-4 if dtype == "float32" else 3e-2
+    assert got.dtype == getattr(torch, x_dt)
+    tol = 2e-4 if x_dt == "float32" else 3e-2
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
     oracle = np.asarray(jref.grouped_matmul_ref(jnp.asarray(x), jnp.asarray(w),
                                                 jnp.repeat(jnp.asarray(be), TM)), np.float32)
     np.testing.assert_allclose(got.float().numpy(), oracle, rtol=tol, atol=tol)
+
+
+def test_grouped_matmul_variant_follows_the_dtype_pair():
+    """"wgmma" (tensor cores) where x and w are both bf16 or both f16, "fma"
+    for every other pair the kernel takes, "none" for a dtype it refuses; the
+    card test holds the C launcher's choice to it."""
+    takes = (torch.float32, torch.float16, torch.bfloat16)
+    for xd in takes:
+        for wd in takes:
+            want = "wgmma" if xd == wd and xd != torch.float32 else "fma"
+            assert k7.variant(xd, wd) == want
+    assert k7.variant(torch.float64, torch.float64) == "none"
+    assert k7.variant(torch.bfloat16, torch.float64) == "none"
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas", "xla"])

@@ -430,6 +430,68 @@ def test_lp_kernel_matches_plain_in_every_size_class_on_the_card(cuda, case, l1_
                  <= tol * scale.double() + 1e-6).all())
 
 
+def lp_lost_product_operands():
+    """ELL operands whose C structure lists fewer columns than some rows'
+    products reach, so that K3's tables, sized from c_nnz, fill: row 0 is
+    one A entry whose B row has columns 0-8 (values 1-9) with c_nnz 1 and
+    column 8 listed (the plain sum is 9); row 1 lists 3 of 40 columns, the
+    last three, which arrive after a 16-slot table (L1 4 + L2 8 at l1_size
+    4, 8 slots otherwise) is full; row 2 has its full structure; row 3 no
+    product; row 4 lists every 30th of 3,000 columns (a 256-slot table);
+    row 5 has three A entries whose B rows give 120 columns, 5 listed."""
+    b_rows = [np.arange(9), np.arange(40), np.array([3, 5, 7]), np.arange(3000),
+              np.arange(0, 120, 3), np.arange(1, 120, 3), np.arange(2, 120, 3)]
+    r_b = max(len(r) for r in b_rows)
+    b_idx = np.full((len(b_rows), r_b), 5000, np.int32)  # padded slots: column 5000
+    b_val = np.full((len(b_rows), r_b), 1e6, np.float32)  # never read: masked
+    for j, cols in enumerate(b_rows):
+        b_idx[j, :len(cols)] = cols
+        b_val[j, :len(cols)] = np.arange(len(cols)) % 17 + 1  # row 0: 1-9
+    b_nnz = np.array([len(r) for r in b_rows], np.int32)
+    a_idx = np.array([[0, 0, 0], [1, 0, 0], [2, 0, 0], [0, 0, 0], [3, 0, 0], [4, 5, 6]],
+                     np.int32)
+    a_nnz = np.array([1, 1, 1, 0, 1, 3], np.int32)
+    a_val = np.ones(a_idx.shape, np.float32)
+    a_val[5] = [0.5, -2.0, 3.0]
+    c_lists = [[8], [37, 38, 39], [3, 5, 7], [], list(range(0, 3000, 30)),
+               [0, 1, 2, 60, 119]]
+    c_idx = np.zeros((len(c_lists), 100), np.int32)
+    for i, cols in enumerate(c_lists):
+        c_idx[i, :len(cols)] = cols
+    c_nnz = np.array([len(c) for c in c_lists], np.int32)
+    return a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "bf16xf32"])
+@pytest.mark.parametrize("l1_size", [None, 4])
+def test_lp_kernel_loses_no_product_when_the_structure_is_short(cuda, l1_size, dtypes):
+    """Rows whose products reach more columns than c_nnz lists fill K3's
+    tables; the kernel lists them and the wrapper runs them again (a second
+    launch) in tables sized by their products: every listed column gets all
+    its products, as in the plain version."""
+    a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz = (
+        torch.from_numpy(x).to(cuda) for x in lp_lost_product_operands())
+    a_val, b_val = a_val.to(dtypes[0]), b_val.to(dtypes[1])
+    launches = k3.NUMERIC_LAUNCHES
+    got = k3.spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                       l1_size=l1_size, k=5000)
+    torch.cuda.synchronize()
+    assert k3.NUMERIC_LAUNCHES == launches + 2  # the rows that lost a product, again
+    want = k3.spgemm_lp_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz,
+                              l1_size=l1_size, k=5000)
+    scale = k3.spgemm_lp_plain(a_idx, a_val.float().abs(), a_nnz, b_idx,
+                               b_val.float().abs(), b_nnz, c_idx, c_nnz, k=5000)
+    assert float(want[0, 0]) == 9.0 and float(got[0, 0]) == 9.0
+    tol = 1e-4 if want.dtype == torch.float32 else 8e-3
+    assert got.dtype == want.dtype
+    assert bool(((got.double() - want.double()).abs()
+                 <= tol * scale.double() + 1e-6).all())
+
+
 @pytest.mark.cuda
 def test_ops_path_on_the_card_matches_the_cpu(cuda):
     from repro_torch.kernels import ops
@@ -475,6 +537,14 @@ def test_new_c_interfaces_match_their_ctypes_signatures(name):
     assert name in _build.SOURCES
 
 
+def test_k7_comparison_build_is_never_the_ports():
+    """scripts/k7_variants.py builds K7 with bf16/f16 on "fma" through a
+    macro that the port's flags never set."""
+    src = (_build.CSRC_DIR / "grouped_matmul.cu").read_text()
+    assert "defined(GROUPED_MATMUL_FORCE_VARIANT)" in src
+    assert not any("GROUPED_MATMUL_FORCE_VARIANT" in flag for flag in _build.NVCC_FLAGS)
+
+
 def _synthetic_bsr_plan(nnzb_a, nnzb_b, nnzb_c, t_max, seed, device):
     """Random plan arrays whose live slots never name block 0 and whose
     padded slots all do (as plan_bsr_numeric pads them)."""
@@ -516,26 +586,70 @@ def test_bsr_kernel_matches_plain_on_the_card(cuda, bs, dtypes):
                               *_synthetic_bsr_plan(2, 2, 1, 1, 0, cuda))
 
 
+# K7's tolerance per x dtype (the reference's tests) and its relative
+# Frobenius bound (chip_smoke.py's K7_FRO)
+K7_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+K7_FRO = {torch.float32: 5e-6, torch.bfloat16: 6e-4, torch.float16: 3e-4}
+K7_PAIRS = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+            "f16": (torch.float16, torch.float16), "bf16xf32": (torch.bfloat16, torch.float32),
+            "f16xbf16": (torch.float16, torch.bfloat16)}
+
+
+def _k7_check(k7, x, w, be):
+    """One launch of K7 against its plain version: the launch count, the
+    dtype, K7_TOL and K7_FRO."""
+    launches = k7.LAUNCHES
+    got = k7.grouped_matmul(x, w, be)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES == launches + 1
+    want = k7.grouped_matmul_plain(x, w, be)
+    tol = K7_TOL[x.dtype]
+    assert got.dtype == x.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _rel_fro(got, want) <= K7_FRO[x.dtype]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", list(K7_PAIRS), ids=list(K7_PAIRS))
 def test_grouped_matmul_kernel_matches_plain_on_the_card(cuda, dtype):
+    """Each variant ("wgmma" for bf16 and f16 pairs, "fma" for the others) on
+    several widths, the MoE projections' (d, f) = (768, 2048) and (2048,
+    768) among them, and one token block; the library names the variant
+    that ``variant`` names."""
     import importlib
 
     k7 = importlib.import_module("repro_torch.kernels.grouped_matmul")
 
-    for e, d, f, blocks in ((4, 256, 256, 6), (8, 128, 384, 4), (16, 512, 128, 9)):
-        g = torch.Generator(device=cuda).manual_seed(d)
+    xd, wd = K7_PAIRS[dtype]
+    fn = _build.load("grouped_matmul").grouped_matmul_variant
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_char_p
+    assert fn(k1.DTYPE_CODES[xd], k1.DTYPE_CODES[wd]).decode() == k7.variant(xd, wd)
+    for e, d, f, blocks in ((4, 256, 256, 6), (8, 128, 384, 4), (16, 512, 128, 9),
+                            (3, 768, 2048, 5), (3, 2048, 768, 5), (2, 256, 128, 1)):
+        g = torch.Generator(device=cuda).manual_seed(d + f)
         be = torch.sort(torch.randint(0, e, (blocks,), generator=g, device=cuda)).values
-        x = torch.randn(blocks * 128, d, generator=g, device=cuda).to(dtype)
-        w = (torch.randn(e, d, f, generator=g, device=cuda) * 0.1).to(dtype)
-        launches = k7.LAUNCHES
-        got = k7.grouped_matmul(x, w, be.to(torch.int32))
-        torch.cuda.synchronize()
-        assert k7.LAUNCHES == launches + 1
-        want = k7.grouped_matmul_plain(x, w, be.to(torch.int32))
-        tol = 2e-4 if dtype == torch.float32 else 3e-2
-        assert got.dtype == dtype
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        x = torch.randn(blocks * 128, d, generator=g, device=cuda).to(xd)
+        w = (torch.randn(e, d, f, generator=g, device=cuda) * 0.1).to(wd)
+        _k7_check(k7, x, w, be.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(K7_PAIRS), ids=list(K7_PAIRS))
+def test_grouped_matmul_kernel_clamps_expert_ids_on_the_card(cuda, dtype):
+    """Expert ids below 0 and past E clamp into [0, E), unsorted; expert 2 of
+    4 owns no block."""
+    import importlib
+
+    k7 = importlib.import_module("repro_torch.kernels.grouped_matmul")
+    xd, wd = K7_PAIRS[dtype]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    be = torch.tensor([3, -5, 0, 9, 1, 4, -1, 3], dtype=torch.int32, device=cuda)
+    x = torch.randn(be.shape[0] * 128, 256, generator=g, device=cuda).to(xd)
+    w = (torch.randn(4, 256, 384, generator=g, device=cuda) * 0.1).to(wd)
+    _k7_check(k7, x, w, be)
+    clamped = k7.grouped_matmul(x, w, be.clamp(0, 3))
+    assert torch.equal(k7.grouped_matmul(x, w, be), clamped)
+    assert 2 not in be.clamp(0, 3).tolist()
 
 
 @pytest.mark.cuda

@@ -69,17 +69,56 @@ def test_every_row_lands_in_one_class_that_holds_its_tables(l1_size):
             assert bool((slots[mine] <= cap).all())
     assert bool((k3.lp_row_class(c_nnz, l1_size)[slots == 0] == -1).all())
     if class_rows[-1]:
-        # the kernel's allotment of device-memory row p: [4 * g_off[p] + x * p,
-        # 4 * g_off[p + 1] + x * (p + 1)), x = 8 + l1_size
+        # the kernel's allotment of device-memory row p: [g_off[p], g_off[p + 1])
         wide = rows[-class_rows[-1]:]
-        x = 8 + (l1_size or 0)
-        p = torch.arange(class_rows[-1] + 1)
-        start = 4 * g_off + x * p
         assert g_off.shape[0] == class_rows[-1] + 1 and int(g_off[0]) == 0
-        assert bool((start[1:] - start[:-1] >= slots[wide]).all())
-        assert int(start[-1]) == g_slots
+        assert bool((g_off[1:] - g_off[:-1] >= slots[wide]).all())
+        assert int(g_off[-1]) == g_slots
     else:
         assert g_off is None and g_slots == 0
+
+
+@pytest.mark.parametrize("l1_size", L1_SIZES)
+def test_a_forced_l1_only_sizes_rows_that_can_spill(l1_size):
+    """A row whose c_nnz is within the forced L1's cutoff gets the tables of
+    ``l1_size=None``; a row past it gets ``l1_size`` slots more (its L1)."""
+    r_c = 30_000
+    c_nnz = _c_nnz(5)
+    free = k3.lp_table_slots(c_nnz, r_c, None)
+    forced = k3.lp_table_slots(c_nnz, r_c, l1_size)
+    cn = c_nnz.clamp(0, r_c)
+    spills = (cn > k3.l1_cutoff(l1_size)) if l1_size else torch.zeros_like(cn, dtype=bool)
+    assert torch.equal(forced, torch.where(spills & (cn > 0), free + (l1_size or 0), free))
+
+
+def test_a_large_forced_l1_costs_nothing_at_multigrid_a_p():
+    """At multigrid 512^2 A*P (rows of at most 4 columns), l1_size=65,536
+    sizes every row as l1_size=None does and sends none to device memory:
+    the rule that gave every row the forced L1 allotted 1.7e10 slots there
+    (137 GB)."""
+    import scipy.sparse as sp
+
+    from repro_torch.sparse import galerkin_triple
+
+    _, a, p = galerkin_triple(512, 512, agg_size=4, device="cpu")
+
+    def scipy_csr(c):
+        nnz = int(c.indptr[-1])
+        return sp.csr_matrix((np.ones(nnz, np.float32), c.indices[:nnz].numpy(),
+                              c.indptr.numpy()), shape=c.shape)
+
+    c = scipy_csr(a) @ scipy_csr(p)
+    c_nnz = torch.from_numpy(np.diff(c.indptr).astype(np.int32))
+    r_c = int(c_nnz.max())
+    assert c_nnz.shape[0] == 262_144 and r_c == 4
+    free = k3.lp_table_slots(c_nnz, r_c, None)
+    forced = k3.lp_table_slots(c_nnz, r_c, 65_536)
+    assert int(forced.sum()) == int(free.sum()) == 8 * 262_144
+    cls = k3.lp_row_class(c_nnz, 65_536)
+    assert not bool((cls == len(k3.CLASS_SLOTS)).any())
+    assert torch.equal(cls, k3.lp_row_class(c_nnz, None))
+    _, class_rows, g_off, g_slots = k3.lp_bins(c_nnz, r_c, 65_536)
+    assert class_rows[-1] == 0 and g_off is None and g_slots == 0
 
 
 @pytest.mark.parametrize("l1_size", L1_SIZES)

@@ -144,9 +144,10 @@ def test_lp_table_slots_follow_the_kernel_formula():
     np.testing.assert_array_equal(per_row.numpy(),
                                   [0, 8, 8, 16, 2048, 4096, 16384, 32768])
     forced = k3.lp_table_slots(c_nnz, 10_000, 16)
-    # L1 16 slots (cutoff 8); an L2 of the per-row size where c_nnz > 8
+    # L1 16 slots (cutoff 8) and an L2 of the per-row size where c_nnz > 8;
+    # the per-row table alone where the forced L1 could not spill
     np.testing.assert_array_equal(forced.numpy(),
-                                  [0, 16, 16, 16, 16 + 2048, 16 + 4096, 16 + 16384,
+                                  [0, 8, 8, 16, 16 + 2048, 16 + 4096, 16 + 16384,
                                    16 + 32768])
     for bad in (3, 1, 0, 2**30):
         with pytest.raises(SpgemmConfigError):
