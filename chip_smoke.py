@@ -12,9 +12,15 @@ Phases, in order:
      (fm not a multiple of the tile, a sentinel tail, one segment spanning
      many blocks; f32, bf16, f16 and mixed values), and K5, K4 and K3
      against theirs on synthetic ELL operands (widths of no tile, garbage
-     past a_nnz/b_nnz, k = 70,001 over several shared-memory passes, rows
-     whose LP tables live in device memory, a forced 16-slot L1 that spills,
-     k < 32; the same dtypes); then K3 alone on rows of every size class
+     past a_nnz/b_nnz, k = 70,001 with windows past K4's shared columns,
+     rows whose LP tables live in device memory, a forced 16-slot L1 that
+     spills, k < 32; the same dtypes); K4 alone on rows of every window
+     class (k = 70,001, 65,536 and 5,000; empty rows, unsorted C columns, C
+     and B columns outside [0, k); with and without b_nnz), and K5 bitwise
+     against its plain version with its nonzero-word index against
+     symbolic_index (all-zero and dense B rows, clamped column ids, k32 of
+     1, 37 and 2,048, past the warps' accumulators, past shared memory);
+     then K3 alone on rows of every size class
      (log-uniform widths), with and without a forced 4-slot L1 that makes
      rows of every class spill, on rows whose keys all share one home slot
      of K3's hash, and on keys that are multiples of 2^16, logging the rows
@@ -46,8 +52,9 @@ Phases, in order:
   9. K3, K4 and K5 timed at the shapes of phases 6 and 7 beside their plain
      versions, bounds (K3/K4: the (m, rC) output counted whole),
      torch.sparse.mm (K3, K4), K3 / torch.sparse.mm and choose_kernel's pick,
-     and K3 and K4 on each K3 size class's rows alone, with the rows,
-     products and C entries of each class;
+     K3 and K4 on each K3 size class's rows alone, and K4 on each of its
+     window classes' rows alone, with the rows, products and C entries of
+     each class;
  10. K6 on the block multigrid: the 5-point operator of galerkin_triple(512,
      512, 4) as 262,144 block rows of 8 x 8 f32 blocks, squared at block
      granularity through plan_bsr_numeric (once) and bsr_spgemm_numeric (two
@@ -642,15 +649,18 @@ def synthetic_ell(m, n, k, r_a, r_b, g, dev, log_widths=False):
     return a_idx, a_nnz, b_idx, b_nnz, b_live
 
 
-def ell_structure(a_idx, a_nnz, b_idx, b_nnz, k):
+def ell_structure(a_idx, a_nnz, b_idx, b_nnz, k, drop=None):
     """C's symbolic structure from ELL operands: (c_idx, c_nnz), each row's
-    distinct columns in ascending order."""
+    distinct columns in ascending order; B slots where ``drop`` holds are
+    left out."""
     m, r_a = a_idx.shape
     dev = a_idx.device
     rows, rs = torch.nonzero(torch.arange(r_a, device=dev)[None, :] < a_nnz[:, None],
                              as_tuple=True)
     j = a_idx[rows, rs].long()
     ok = torch.arange(b_idx.shape[1], device=dev)[None, :] < b_nnz[j][:, None]
+    if drop is not None:
+        ok &= ~drop[j]
     keys = torch.unique((rows[:, None] * k + b_idx[j].long())[ok])
     c_rows = keys // k
     c_nnz = torch.bincount(c_rows, minlength=m).to(torch.int32)
@@ -828,6 +838,143 @@ def check_large_l1(rt, km, worst) -> None:
     log(f"   K3 l1=65536 at A*P == plain: max |kernel - plain| {err:.3e}")
 
 
+def k4_window_ell(km, k, g, dev="cuda"):
+    """ELL operands whose C rows span every K4 window class: B row j's live
+    columns span exactly spans[j] (each class limit and one past, the wide
+    class's shared columns and one past, k, and log-uniform widths), four B
+    rows carry one live column outside [0, k) (dropped), garbage past b_nnz
+    and a_nnz; A row j < n selects B row j alone, then rows of 2-6 random
+    entries, ten empty rows and a full one. C's structure from the live
+    products, each row's columns shuffled, columns 0 and k - 1 of every 7th
+    row and of the row of span k written outside [0, k) (they clamp to
+    listed ones), a listed column no product reaches in every 11th random
+    row, one c_nnz past rC and one negative."""
+    limits = [w for cap in (*km.num.CLASS_COLS, km.num.WIDE_SHARED_COLS, 53_248)
+              for w in (cap, cap + 1)] + [k]
+    u = torch.rand(40, generator=g, device=dev).cpu()
+    full = len([w for w in limits if w <= k]) - 1  # B row j = full spans all of [0, k)
+    spans = [w for w in limits if w <= k] + [int(x) for x in
+                                             (torch.exp(u * math.log(k)).floor().clamp(1, k))]
+    n, r_b = len(spans), 24
+    b_idx = torch.randint(-k, 2 * k, (n, r_b), generator=g, device=dev, dtype=torch.int32)
+    b_nnz = torch.zeros(n, dtype=torch.int32, device=dev)
+    for j, w in enumerate(spans):
+        base = int(torch.randint(0, k - w + 1, (1,), generator=g, device=dev))
+        live = min(r_b, w, int(torch.randint(2, r_b + 1, (1,), generator=g, device=dev)))
+        inner = torch.randperm(max(w - 2, 1), generator=g, device=dev)[:max(live - 2, 0)] + 1
+        cols = torch.unique(torch.cat([torch.tensor([0, w - 1], device=dev), inner]))[:live]
+        cols = (cols + base)[torch.randperm(cols.shape[0], generator=g, device=dev)]
+        b_idx[j, :cols.shape[0]] = cols.to(torch.int32)
+        b_nnz[j] = cols.shape[0]
+    for j in (1, 7, 11, 13):  # a live column outside [0, k): its products drop
+        if j < n and int(b_nnz[j]) < r_b:
+            b_idx[j, int(b_nnz[j])] = k + 7 if j % 2 else -4
+            b_nnz[j] += 1
+    r_a, m = 6, n + 120
+    a_idx = torch.randint(-3, n + 3, (m, r_a), generator=g, device=dev, dtype=torch.int32)
+    a_nnz = torch.randint(2, r_a + 1, (m,), generator=g, device=dev, dtype=torch.int32)
+    a_idx[:n, 0] = torch.arange(n, device=dev, dtype=torch.int32)
+    a_nnz[:n] = 1
+    a_nnz[n:n + 10] = 0
+    a_nnz[n + 10] = r_a
+    live = torch.arange(r_a, device=dev)[None, :] < a_nnz[:, None]
+    a_idx = torch.where(live, a_idx % n, a_idx)
+    b_live = torch.arange(r_b, device=dev)[None, :] < b_nnz[:, None]
+    in_k = (b_idx >= 0) & (b_idx < k)
+    c_idx, c_nnz = ell_structure(a_idx, a_nnz, b_idx, b_nnz, k, drop=~in_k)
+    # a listed column no product reaches (its value is 0), one slot past the
+    # row's columns: every 11th row of the random ones
+    r_c = c_idx.shape[1] + 1
+    c_idx = torch.nn.functional.pad(c_idx, (0, 1))
+    for i in range(n + 5, m, 11):
+        cn = int(c_nnz[i])
+        free = sorted(set(range(min(k, 64))) - set(c_idx[i, :cn].tolist()))
+        if cn and free:
+            c_idx[i, cn] = free[0]
+            c_nnz[i] += 1
+    # unsorted rows; columns 0 and k - 1 of every 7th row and of row `full`
+    # written outside [0, k)
+    live_c = torch.arange(r_c, device=dev)[None, :] < c_nnz[:, None]
+    keys = torch.where(live_c, torch.rand(c_idx.shape, generator=g, device=dev), 2.0)
+    c_idx = torch.gather(c_idx, 1, torch.argsort(keys, dim=1))
+    rows = torch.arange(m, device=dev)
+    sev = ((rows % 7 == 3) | (rows == full))[:, None] & live_c
+    c_idx = torch.where(sev & (c_idx == 0), -9, c_idx)
+    c_idx = torch.where(sev & (c_idx == k - 1), k + 2, c_idx).to(torch.int32)
+    c_nnz[n + 20] = r_c + 5
+    c_nnz[n + 21] = -2
+    return a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx.contiguous(), c_nnz
+
+
+def check_k4_windows(km, worst, g) -> None:
+    """K4 against its plain version on rows of every window class
+    (k4_window_ell), with and without b_nnz, in every dtype pair."""
+    for k in (70_001, 65_536, 5_000):
+        a_idx, a_nnz, b_idx, b_nnz, b_live, c_idx, c_nnz = k4_window_ell(km, k, g)
+        cls = km.num.window_class(c_idx, c_nnz, k)
+        counts = torch.bincount(cls + 1, minlength=len(km.num.CLASS_COLS) + 2).tolist()
+        log(f"   K4 windows k={k}: rows per class (empty, <= {km.num.CLASS_COLS} columns, "
+            f"wide): {counts}")
+        need = [c for c in range(len(km.num.CLASS_COLS) + 1)
+                if c == 0 or km.num.CLASS_COLS[c - 1] < k]
+        require(counts[0] > 0 and all(counts[c + 1] > 0 for c in need),
+                f"K4 windows k={k}: a window class has no row")
+        gv = torch.Generator(device="cuda").manual_seed(k)
+        for adt, bdt in ELL_DTYPES:
+            a_val = torch.randn(a_idx.shape, generator=gv, device="cuda").to(adt)
+            b_val = torch.randn(b_idx.shape, generator=gv, device="cuda").to(bdt)
+            b_val0 = torch.where(b_live, b_val, torch.zeros((), dtype=bdt, device="cuda"))
+            check_k4(km, f"K4 windows k={k}", f"{str(adt)[6:]}x{str(bdt)[6:]}",
+                     (a_idx, a_val, a_nnz, b_idx, b_val0, b_nnz, c_idx, c_nnz), k, adt, worst)
+        log(f"   K4 windows k={k}: == plain in every dtype pair, with and without b_nnz")
+
+
+# (k32, rA) of K5's index checks: k32 of 1, 37 (not a multiple of 128),
+# 2,048, past the warps' accumulators (hub blocks only) and past shared
+# memory (device slices)
+K5_INDEX_CASES = ((1, 4), (37, 40), (2048, 40), (9375, 40), (56_250, 6))
+
+
+def k5_operands(m, n, k32, r_a, g, dev="cuda"):
+    """A's ELL column ids and widths and B's (n, k32) int32 bitmask words:
+    up to 12 random words of a B row set, rows 0 and 5 all zero, row 3 dense;
+    A's ids span [-4, n + 4) (they clamp), widths in [0, rA] with garbage
+    past them, row m // 2 full, row 1 selects only the zero B rows."""
+    words = torch.zeros(n, k32, dtype=torch.int32, device=dev)
+    pos = torch.randint(0, k32, (n, 12), generator=g, device=dev)
+    vals = torch.randint(-2**31, 2**31 - 1, (n, 12), generator=g, device=dev,
+                         dtype=torch.int32)
+    words.scatter_(1, pos, vals)
+    words[[0, 5]] = 0
+    words[3] = -1
+    a_idx = torch.randint(-4, n + 4, (m, r_a), generator=g, device=dev, dtype=torch.int32)
+    a_nnz = torch.randint(0, r_a + 1, (m,), generator=g, device=dev, dtype=torch.int32)
+    a_nnz[m // 2] = r_a
+    a_idx[1, :2] = torch.tensor([0, 5], device=dev, dtype=torch.int32)
+    a_nnz[1] = 2
+    return a_idx, a_nnz, words
+
+
+def check_k5_index(km, g) -> None:
+    """K5 bitwise against its plain version, and its nonzero-word index
+    against symbolic_index, on k5_operands at each of K5_INDEX_CASES."""
+    m, n = 300, 64
+    for k32, r_a in K5_INDEX_CASES:
+        a_idx, a_nnz, words = k5_operands(m, n, k32, r_a, g)
+        got = km.sym.spgemm_symbolic(a_idx, a_nnz, words)
+        want = km.sym.spgemm_symbolic_plain(a_idx, a_nnz, words)
+        require(torch.equal(got, want), f"K5 k32={k32}: differs from its plain version")
+        out = torch.empty(m, dtype=torch.int32, device="cuda")
+        summary, meta = km.sym.index_views(km.sym._launch(a_idx, a_nnz, words, out), n, k32, m)
+        want_s, want_m = km.sym.symbolic_index(words)
+        require(torch.equal(summary, want_s) and torch.equal(meta, want_m),
+                f"K5 k32={k32}: its nonzero-word index differs from symbolic_index")
+        require(torch.equal(out, want), f"K5 k32={k32}: a second launch differs")
+        path = ("device slices" if k32 > km.sym.SHARED_WORDS else "hub blocks only"
+                if k32 > 8192 else "warps and hub blocks")
+        log(f"   K5 k32={k32} ({path}): == plain bitwise, index == symbolic_index")
+
+
 def lp_class_rows(km, c_nnz, l1_size) -> list:
     """Rows per K3 size class: [empty, each of CLASS_SLOTS, device memory]."""
     cls = km.lp.lp_row_class(c_nnz, l1_size)
@@ -838,7 +985,7 @@ def phase_ell_kernels_vs_plain(rt, km, seed: int) -> dict:
     worst = {name: 0.0 for name in OPS_KERNELS}
     g = torch.Generator(device="cuda").manual_seed(seed + 10)
     cases = [  # (m, n, k, r_a, r_b, l1_size)
-        (300, 400, 70_001, 131, 201, None),  # K4: 5 passes; K3: rows in device memory
+        (300, 400, 70_001, 131, 201, None),  # K4: wide windows; K3: rows in device memory
         (300, 400, 70_001, 131, 201, 16),  # K3 with a forced 16-slot L1: rows spill
         (9, 5, 13, 3, 5, None),  # k < 32
     ]
@@ -889,6 +1036,8 @@ def phase_ell_kernels_vs_plain(rt, km, seed: int) -> dict:
                                          None), k, l1_size, worst, k3_only=True)
     check_lost_products(km, worst)
     check_large_l1(rt, km, worst)
+    check_k4_windows(km, worst, g)
+    check_k5_index(km, g)
     torch.cuda.synchronize()
     return worst
 
@@ -1122,6 +1271,23 @@ def phase_ops_times(rt, km, shapes: dict) -> dict:
                 f"{int(fm_row[rows].sum())} of the {fm} products, "
                 f"{int(c_nnz[rows].sum())} of the {nnz_c} C entries; alone K3 "
                 f"{k3c:.3f} ms, K4 {k4c:.3f} ms")
+            del wa, wc
+        # where K4's time goes: each of its window classes' rows alone
+        wcls = km.num.window_class(c_idx_p, c_nnz, k)
+        for c in range(len(km.num.CLASS_COLS) + 1):
+            rows = torch.nonzero(wcls == c).flatten()
+            if not rows.numel():
+                continue
+            wa = (a_idx[rows], a_val[rows], ea.row_nnz[rows])
+            wc = (c_idx_p[rows], c_nnz[rows])
+            k4c = time_ms(lambda: km.num.spgemm_numeric(*wa, b_idx, b_val, *wc, k=k,
+                                                        b_nnz=eb.row_nnz))
+            what = ("wide" if c == len(km.num.CLASS_COLS)
+                    else f"<= {km.num.CLASS_COLS[c]} columns")
+            log(f"      K4 window class {c} ({what}): {rows.numel()} rows, "
+                f"{int(fm_row[rows].sum())} of the {fm} products, "
+                f"{int(c_nnz[rows].sum())} of the {nnz_c} C entries; alone K4 {k4c:.3f} ms "
+                f"(torch.sparse.mm, the whole product: {lib:.3f} ms)")
             del wa, wc
         del ea, eb, bm, a_idx, a_val, b_idx, b_val, c_idx_p
         torch.cuda.empty_cache()

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 from repro_torch.runtime.validate import KernelFallbackError
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # nvcc's report per library built by this process (ptxas registers, spills)
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_SMS: dict = {}  # device -> its SM count
 
 
 def nvcc_path() -> str:
@@ -107,3 +110,12 @@ def launch(name: str, argtypes, *args) -> None:
     if err != 0:
         raise KernelFallbackError(
             f"{name} kernel launch failed: CUDA error {err} ({err_str(err).decode()})")
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (cached: they size the kernels' device
+    slices)."""
+    found = _SMS.get(device)
+    if found is None:
+        found = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return found

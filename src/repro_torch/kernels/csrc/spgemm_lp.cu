@@ -93,7 +93,7 @@ constexpr int max_smem_bytes() {
   for (const SizeClass& c : kClasses) most = smem_bytes(c) > most ? smem_bytes(c) : most;
   return most;
 }
-static_assert(max_smem_bytes() <= 232448, "a class exceeds 227 KiB of shared memory");
+static_assert(max_smem_bytes() <= ell::kSmemBytes, "a class exceeds 227 KiB of shared memory");
 
 // A key's home slot in a table of `size` (a power of two) slots: Knuth's
 // multiplicative hash, the top log2(size) bits of key * 2654435761 (mod
@@ -159,36 +159,6 @@ __device__ __forceinline__ float lp_lookup(const int* tab, int64_t size, int key
   return 0.f;
 }
 
-// Inclusive scan of x over a team: shuffles within a warp for a team of at
-// most 32 lanes, and warp totals in shared memory for a block-wide team.
-__device__ __forceinline__ long long team_scan(long long x, int lane, int team,
-                                               unsigned tmask, long long* warp_sums) {
-  if (team <= 32) {
-    for (int d = 1; d < team; d <<= 1) {
-      const long long y = __shfl_up_sync(tmask, x, d, team);
-      if (lane >= d) x += y;
-    }
-    return x;
-  }
-  const int wl = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int d = 1; d < 32; d <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, x, d);
-    if (wl >= d) x += y;
-  }
-  if (wl == 31) warp_sums[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    long long s = wl < (team >> 5) ? warp_sums[wl] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, s, d);
-      if (wl >= d) s += y;
-    }
-    warp_sums[wl] = s;
-  }
-  __syncthreads();
-  return w > 0 ? x + warp_sums[w - 1] : x;
-}
-
 // One team's share of a staged chunk: products lane, lane + team, ... of the
 // n_e A entries whose inclusive B-width scan is st_off. A product that no
 // table takes sets `lost`.
@@ -200,11 +170,7 @@ __device__ __forceinline__ void walk_products(
   const int64_t total = st_off[n_e - 1];
   int lo = 0;
   for (int64_t p = lane; p < total; p += team) {
-    int hi = n_e - 1;  // p only grows: the entry index never moves back
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (st_off[mid] > p) hi = mid; else lo = mid + 1;
-    }
+    lo = ell::find_entry(st_off, n_e, p, lo);
     const int64_t bs = static_cast<int64_t>(st_j[lo]) * e.r_b + p -
                        (lo > 0 ? st_off[lo - 1] : 0);
     const int key = __ldg(e.b_idx + bs);
@@ -215,22 +181,6 @@ __device__ __forceinline__ void walk_products(
     } else if (!lp_insert<true>(tab, s1, cutoff, used, key, v)) {
       if (!lp_insert<false>(tab + 2 * s1, s2, 0, nullptr, key, v)) lost = true;  // L2 follows L1
     }
-  }
-}
-
-// The A entry r of row i (B row, A value, live B width), zeros past live_a.
-template <typename TA>
-__device__ __forceinline__ void load_entry(const ell::EllArgs& e, const TA* a_val,
-                                           int64_t i, int64_t r, int64_t live_a,
-                                           int& j, float& av, long long& nb) {
-  j = 0;
-  av = 0.f;
-  nb = 0;
-  if (r < live_a) {
-    const int64_t slot = i * e.r_a + r;
-    j = static_cast<int>(ell::clamp_row(__ldg(e.a_idx + slot), e.n));
-    av = replay::load_val(a_val, slot);
-    nb = ell::b_width(e, j);
   }
 }
 
@@ -252,11 +202,8 @@ __global__ void __launch_bounds__(kThreads, kThreads == 1024 ? 1 : 6)
   const int64_t pos = static_cast<int64_t>(blockIdx.x) * per_block + t;
   // only teams of a packed block run out of rows: block-wide teams never do
   if (pos >= n_rows) return;
-  const unsigned tmask =
-      team >= 32 ? 0xffffffffu : ((1u << team) - 1) << ((threadIdx.x & 31) & ~(team - 1));
-  auto team_sync = [&]() {
-    if (team > 32) __syncthreads(); else __syncwarp(tmask);
-  };
+  const unsigned tmask = ell::team_mask(team);
+  auto team_sync = [&]() { ell::team_sync(team, tmask); };
   int64_t* st_off = reinterpret_cast<int64_t*>(smem) + t * team;
   int* st_j = reinterpret_cast<int*>(smem + blockDim.x * 8) + t * team;
   float* st_av = reinterpret_cast<float*>(smem + blockDim.x * 12) + t * team;
@@ -277,7 +224,7 @@ __global__ void __launch_bounds__(kThreads, kThreads == 1024 ? 1 : 6)
   int j;
   float av;
   long long nb;
-  load_entry(e, a_val, i, lane, live_a, j, av, nb);
+  ell::load_entry(e, a_val, i, lane, live_a, j, av, nb);
   if (cn == 0) return;  // the same for the whole team; the wrapper bins none
   // table sizes: the same formula as the wrapper's lp_table_slots, from c_nnz
   // or, in the pass that redoes lost rows, from the row's product count
@@ -304,12 +251,12 @@ __global__ void __launch_bounds__(kThreads, kThreads == 1024 ? 1 : 6)
 
   bool lost = false;
   for (int64_t r0 = 0; r0 < live_a; r0 += team) {
-    st_off[lane] = team_scan(nb, lane, team, tmask, warp_sums);
+    st_off[lane] = ell::team_scan(nb, lane, team, tmask, warp_sums);
     st_j[lane] = j;
     st_av[lane] = av;
     team_sync();
     // the next chunk's entry loads while this one's products are walked
-    load_entry(e, a_val, i, r0 + team + lane, live_a, j, av, nb);
+    ell::load_entry(e, a_val, i, r0 + team + lane, live_a, j, av, nb);
     const int n_e = live_a - r0 < team ? static_cast<int>(live_a - r0) : team;
     if (spill)
       walk_products<true>(e, b_val, st_off, st_j, st_av, n_e, lane, team, tab, s1, s2,
@@ -325,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, kThreads == 1024 ? 1 : 6)
     return;
   }
 
-  float* orow = e.out + i * e.r_c;
+  float* orow = static_cast<float*>(e.out) + i * e.r_c;
   for (int64_t s = lane; s < cn; s += team) {
     const int key = s == lane ? first_key : __ldg(crow + s);
     float v = lp_lookup(tab, s1, key);

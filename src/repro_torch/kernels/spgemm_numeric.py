@@ -9,11 +9,17 @@ slots of B's row, whose padded slots carry 0 by the contract) at column
 (K3, ``spgemm_lp``, returns ``promote_types(a, b)``).
 
 What bounds it on the H100: bytes — A's live entries, the B slots visited,
-C's structure once and its values once; 2 flops per product. The design
-(see the source's header): one block per C row, the dense row in shared
-memory, walked in passes of at most ``K4_MAX_TILE`` columns over the window
-that C's row spans; each pass zeroes only its part. ``b_nnz`` (optional,
-not in the reference) lets the kernel skip B's padded slots, which add 0.
+C's structure once and its values once (the (m, rC) output whole, zeros
+included, written first by one fill); 2 flops per product. The design (see
+the source's header): a row's accumulator is dense over its window, the
+span of its C columns (``row_windows``), and only its C columns are zeroed
+and read, so its work is its products and c_nnz. The kernel bins rows by
+window on the device (``window_class``: ``CLASS_COLS``, then a wide class),
+with no host wait; small windows pack many rows into a block, 4 or 16 lanes
+each, and the wide class keeps the window's first columns in shared memory
+and the rest in device memory (``device_floats``), so each product is read
+once. ``b_nnz`` (optional, not in the reference) lets the kernel skip B's
+padded slots, which add 0.
 
 Beside the kernel: ``spgemm_numeric_plain``, the same function in plain
 torch, run by the wrapper for CPU tensors only; ``ell_numeric_plain``, the
@@ -35,7 +41,16 @@ from repro_torch.runtime.validate import SpgemmInputError
 # kernel launches by ``spgemm_numeric`` (reset by callers that count)
 LAUNCHES = 0
 
-K4_MAX_TILE = 16384  # f32 columns of the shared-memory row per pass (64 KiB)
+# K4's window classes (kClasses in csrc/spgemm_numeric.cu): the widest
+# window (hi - lo + 1 over a row's clamped C columns) of each class whose
+# accumulator is all in shared memory; wider rows take the wide class
+CLASS_COLS = (64, 512, 4096, 16384)
+# the wide class's columns in shared memory (kWideCols in the .cu: what two
+# 512-thread blocks an SM leave each); a window's columns past them live in
+# device slices, one a wide block, two an SM, of k columns each
+WIDE_SHARED_COLS = 26624
+DEVICE_SLICES_PER_SM = 2
+DEVICE_FLOATS_CAP = 1 << 28  # 1 GiB of slices at most (but always one slice)
 
 # expanded products per chunk of the plain versions
 _PLAIN_CHUNK_PRODUCTS = 1 << 24
@@ -44,7 +59,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _ARGTYPES = [_P, _P, _INT, _P, _I64, _P, _P, _INT, _P, _I64, _I64, _P, _P, _I64,
-             _P, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P]
+             _P, _I64, _I64, _P, _P, _I64, _INT, _P, _P, _P, _P, _P, _P, _P, _P]
 
 
 def _pad_width(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -144,16 +159,58 @@ def spgemm_numeric_ref(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *,
                              k, acc, acc)
 
 
+def row_windows(c_idx, c_nnz, k: int):
+    """(lo, hi) int64 per row: the span of its clamped C columns
+    ``c_idx[i, :c_nnz[i]]`` (lo k, hi -1 for an empty row), as K4's
+    binning finds them. Torch ops, for the tests and the timing scripts."""
+    r_c = c_idx.shape[1]
+    live = torch.arange(r_c, device=c_idx.device)[None, :] < c_nnz.clamp(0, r_c)[:, None]
+    cols = c_idx.long().clamp(0, k - 1)
+    lo = torch.where(live, cols, k).amin(1) if r_c else torch.full_like(c_nnz, k).long()
+    hi = torch.where(live, cols, -1).amax(1) if r_c else torch.full_like(c_nnz, -1).long()
+    return lo, hi
+
+
+def window_class(c_idx, c_nnz, k: int) -> torch.Tensor:
+    """(m,) int64: each row's K4 class — the first of ``CLASS_COLS`` that
+    holds its window (hi - lo + 1), ``len(CLASS_COLS)`` for the wide class,
+    -1 for an empty row."""
+    lo, hi = row_windows(c_idx, c_nnz, k)
+    bounds = torch.tensor(CLASS_COLS, dtype=torch.int64, device=c_idx.device)
+    cls = torch.bucketize(hi - lo + 1, bounds)
+    return torch.where(hi >= 0, cls, -1)
+
+
+def scratch_ints(m: int) -> int:
+    """int32 scratch of a K4 launch over m rows: class counts (2 per class,
+    one of them padding), the rows' windows (2 each) and one row list per
+    class (m each)."""
+    n_cls = len(CLASS_COLS) + 1
+    return 2 * n_cls + 2 * m + n_cls * m
+
+
+def device_floats(k: int, sms: int) -> int:
+    """f32 of the wide class's device slices: ``DEVICE_SLICES_PER_SM`` of k
+    columns an SM, at most ``DEVICE_FLOATS_CAP`` but at least one slice,
+    where a window can pass the wide class's shared columns (k above
+    ``WIDE_SHARED_COLS``), else 0. The kernel needs k less its shared columns
+    per wide block and runs as many wide blocks as the slices hold."""
+    if k <= WIDE_SHARED_COLS:
+        return 0
+    return max(k, min(DEVICE_SLICES_PER_SM * sms * k, DEVICE_FLOATS_CAP))
+
+
 def launch_ell(lib_name: str, a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
-               c_nnz, out, k: int, *, tile: int = 0, l1_size: int = 0,
+               c_nnz, out, k: int, *, scratch=None, acc=None, l1_size: int = 0,
                rows=None, class_rows=None, g_off=None, g_tab=None, size_counts=None,
                lost_count=None, lost_rows=None) -> None:
     """Launch ``<lib_name>_launch`` of ``csrc/<lib_name>.cu`` (the ELL C
     interface of ``csrc/ell_common.cuh``) on the current stream, writing
-    the f32 ``out``. K3 passes its rows sorted by size class (``rows``, on
-    the device) and the rows of each class (``class_rows``, a list read on
-    the host), and where the kernel records rows that lost a product
-    (``lost_count``, ``lost_rows``) or what sizes each row's tables
+    ``out`` (f32 for K3, A's dtype for K4). K4 passes its int32 ``scratch``
+    and its device slices ``acc``; K3 passes its rows sorted by size class
+    (``rows``, on the device) and the rows of each class (``class_rows``, a
+    list read on the host), and where the kernel records rows that lost a
+    product (``lost_count``, ``lost_rows``) or what sizes each row's tables
     (``size_counts``). A CUDA error after the launch raises
     ``KernelFallbackError``: there is no rung to fall back to."""
     def ptr(t):
@@ -168,7 +225,8 @@ def launch_ell(lib_name: str, a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
                       DTYPE_CODES[a_val.dtype], a_nnz.data_ptr(), r_a, b_idx.data_ptr(),
                       b_val.data_ptr(), DTYPE_CODES[b_val.dtype], ptr(b_nnz), n, r_b,
                       c_idx.data_ptr(), c_nnz.data_ptr(), c_idx.shape[1], out.data_ptr(), m,
-                      k, tile, l1_size, ptr(rows), counts, ptr(g_off), ptr(g_tab),
+                      k, ptr(scratch), ptr(acc), 0 if acc is None else acc.numel(), l1_size,
+                      ptr(rows), counts, ptr(g_off), ptr(g_tab),
                       ptr(size_counts), ptr(lost_count), ptr(lost_rows), stream)
 
 
@@ -189,12 +247,19 @@ def spgemm_numeric(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *, k: int,
     if a_idx.device.type == "cpu":
         return spgemm_numeric_plain(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz,
                                     k=k, b_nnz=b_nnz)
-    out = torch.empty(c_idx.shape, dtype=torch.float32, device=a_idx.device)
+    if c_idx.shape[0] >= 2**31:
+        raise SpgemmInputError(f"{c_idx.shape[0]} rows: K4 lists rows as int32")
+    dev = a_idx.device
+    out = torch.empty(c_idx.shape, dtype=a_val.dtype, device=dev)
     if out.numel():
+        m = c_idx.shape[0]
+        scratch = torch.empty(scratch_ints(m), dtype=torch.int32, device=dev)
+        floats = device_floats(k, _build.sm_count(dev))
+        acc = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
         launch_ell("spgemm_numeric", a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
-                   c_nnz, out, k, tile=min(K4_MAX_TILE, k))
+                   c_nnz, out, k, scratch=scratch, acc=acc)
         LAUNCHES += 1
-    return out.to(a_val.dtype)
+    return out
 
 
 def spgemm_numeric_bucketed(a_idx, a_val, a_nnz, b_idx, b_val, c_idx, c_nnz, *,

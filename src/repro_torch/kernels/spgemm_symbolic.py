@@ -6,10 +6,13 @@ B's bitmask rows ``b_bitmask[a_idx[i, r]]`` over ``r < a_nnz[i]``, i.e. the
 number of distinct columns of C's row. Bitmasks are int32 tensors holding
 the reference's uint32 bits (``core.compression.bitmask_rows``).
 
-What bounds it on the H100: bytes — B's bitmask (n * k32 * 4 bytes) at
-least once, and in practice one k32-word row per live A entry, mostly from
-L2. The design (see the source's header): one 128-thread block per C row,
-words OR-ed in registers, ``__popc`` and a block sum. The TPU-only
+What bounds it on the H100: bytes — B's bitmask (n * k32 * 4 bytes) once.
+The design (see the source's header): one sweep of the bitmask builds an
+index of each B row's nonzero words (a summary bit per word and the row's
+first and last nonzero word, ``symbolic_index``); then a warp per small C
+row, and a block per hub row, ORs only those words into a dense k32-word
+accumulator in shared memory (device memory past ``SHARED_WORDS``) and
+counts the bits of the words it touched. No host wait. The TPU-only
 ``k32 % 128`` alignment check is gone.
 
 Beside the kernel: ``spgemm_symbolic_plain``, the reference's
@@ -31,7 +34,13 @@ LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_ARGTYPES = [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P]
+_ARGTYPES = [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P, _I64, _P]
+
+# kSharedWords in csrc/spgemm_symbolic.cu: the widest accumulator (k32 words)
+# a hub block keeps in shared memory; past it, in device-memory slices
+SHARED_WORDS = 55296
+DEVICE_SLICES_PER_SM = 4  # the hub blocks' slices an SM, past SHARED_WORDS
+DEVICE_WORDS_CAP = 1 << 28  # 1 GiB of slices at most (but always one slice)
 
 # words of the (rows, k32) OR accumulator per chunk of the plain version
 _PLAIN_CHUNK_WORDS = 1 << 27
@@ -98,13 +107,72 @@ def spgemm_symbolic_plain(a_idx, a_nnz, b_bitmask) -> torch.Tensor:
     return out
 
 
-def _launch(a_idx, a_nnz, b_bitmask, out) -> None:
+def summary_words(k32: int) -> int:
+    """Summary words of a B row in K5's index: one bit per bitmask word."""
+    return -(-k32 // 32)
+
+
+def index_ints(n: int, k32: int, m: int) -> int:
+    """int32 scratch of a K5 launch: each B row's meta (first and last
+    nonzero word, nonzero words, padding), the hub-row count (and padding),
+    the hub-row list (m) and the summary (n rows of ``summary_words``)."""
+    return 4 * n + 4 + m + n * summary_words(k32)
+
+
+def device_words(k32: int, sms: int) -> int:
+    """int32 of the hub blocks' device slices: none where k32 words fit
+    shared memory (``SHARED_WORDS``), else ``DEVICE_SLICES_PER_SM`` slices of
+    k32 words an SM, at most ``DEVICE_WORDS_CAP`` but at least one slice."""
+    if k32 <= SHARED_WORDS:
+        return 0
+    return max(k32, min(DEVICE_SLICES_PER_SM * sms * k32, DEVICE_WORDS_CAP))
+
+
+def symbolic_index(b_bitmask: torch.Tensor):
+    """K5's index of B's nonzero words, in plain torch, as the kernel's first
+    sweep writes it: (summary, meta). ``summary`` (n, ``summary_words(k32)``)
+    int32: bit w & 31 of word w >> 5 says bitmask word w of the row is
+    nonzero. ``meta`` (n, 4) int32: the row's first and last nonzero word
+    (2^31 - 1 and -1 for an empty row), its nonzero words, and 0."""
+    n, k32 = b_bitmask.shape
+    g = summary_words(k32)
+    nz = torch.nn.functional.pad(b_bitmask != 0, (0, 32 * g - k32))
+    weights = torch.tensor([1 << b for b in range(32)], dtype=torch.int64,
+                           device=b_bitmask.device)
+    summary = (nz.view(n, g, 32).long() * weights).sum(-1)
+    summary = torch.where(summary >= 2**31, summary - 2**32, summary).to(torch.int32)
+    pos = torch.arange(k32, device=b_bitmask.device)
+    nzk = nz[:, :k32]
+    meta = torch.stack([torch.where(nzk, pos, 2**31 - 1).amin(1) if k32 else
+                        torch.full((n,), 2**31 - 1, device=b_bitmask.device),
+                        torch.where(nzk, pos, -1).amax(1) if k32 else
+                        torch.full((n,), -1, device=b_bitmask.device),
+                        nzk.sum(1), torch.zeros(n, dtype=torch.int64,
+                                                device=b_bitmask.device)], 1)
+    return summary, meta.to(torch.int32)
+
+
+def index_views(index: torch.Tensor, n: int, k32: int, m: int):
+    """(summary, meta) views of a K5 launch's int32 scratch, shaped as
+    ``symbolic_index`` returns them."""
+    return (index[4 * n + 4 + m:].view(n, summary_words(k32)), index[:4 * n].view(n, 4))
+
+
+def _launch(a_idx, a_nnz, b_bitmask, out) -> torch.Tensor:
+    """Launch K5 into ``out``; returns its scratch (``index_views`` reads the
+    index there)."""
     m, r_a = a_idx.shape
     n, k32 = b_bitmask.shape
-    with torch.cuda.device(a_idx.device):
-        stream = torch.cuda.current_stream(a_idx.device).cuda_stream
+    dev = a_idx.device
+    index = torch.empty(index_ints(n, k32, m), dtype=torch.int32, device=dev)
+    words = device_words(k32, _build.sm_count(dev))
+    slices = torch.empty(words, dtype=torch.int32, device=dev) if words else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         _build.launch("spgemm_symbolic", _ARGTYPES, a_idx.data_ptr(), r_a, a_nnz.data_ptr(),
-                      b_bitmask.data_ptr(), n, k32, out.data_ptr(), m, stream)
+                      b_bitmask.data_ptr(), n, k32, out.data_ptr(), m, index.data_ptr(),
+                      None if slices is None else slices.data_ptr(), words, stream)
+    return index
 
 
 def spgemm_symbolic(a_idx, a_nnz, b_bitmask) -> torch.Tensor:
@@ -125,6 +193,8 @@ def spgemm_symbolic(a_idx, a_nnz, b_bitmask) -> torch.Tensor:
             f"a_nnz has {a_nnz.shape[0]} rows, a_idx {a_idx.shape[0]}")
     if b_bitmask.shape[0] == 0:
         raise SpgemmInputError("b_bitmask has no rows")
+    if a_idx.shape[0] >= 2**31 or b_bitmask.shape[1] >= 2**26:
+        raise SpgemmInputError("K5 lists rows and words as int32: m < 2^31, k32 < 2^26")
     if device.type == "cpu":
         return spgemm_symbolic_plain(a_idx, a_nnz, b_bitmask)
     out = torch.empty(a_idx.shape[0], dtype=torch.int32, device=device)

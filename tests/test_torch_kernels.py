@@ -12,7 +12,7 @@ rtol/atol 1e-5; f16/bf16 operands against a float64 numpy oracle within
 in f32 and rounds once to the 8-bit-mantissa type. The tests marked ``cuda``
 hold each CUDA kernel against its plain version on the card (K3 with and
 without a forced, spilling L1, in every size class and on colliding keys;
-K4 over several shared-memory passes) and
+K4 with windows past its shared columns) and
 skip where there is none. This file imports JAX only inside the test that needs the
 reference, so that on a machine with a card and no JAX the ``cuda`` tests
 run with ``pytest --noconftest -m cuda tests/test_torch_kernels.py``.
