@@ -10,7 +10,12 @@ Phases, in order:
      (one nvcc per CUDA source, all started together);
   2. each replay kernel against its plain torch version on synthetic plans
      (fm not a multiple of the tile, a sentinel tail, one segment spanning
-     many blocks; f32, bf16, f16 and mixed values), and K5, K4 and K3
+     many blocks; f32, bf16, f16 and mixed values) and on edge plans: ids
+     that skip (the gaps must read 0), negative ids at the head, sentinels
+     only, fm below, at and one past whole tiles, one segment over many tiles
+     begun mid-tile, plan arrays as views at offsets 1-3 (misaligned for
+     int4 loads), each call made right after a NaN-filled tensor of the
+     output's size is freed (a slot left unwritten shows); and K5, K4 and K3
      against theirs on synthetic ELL operands (widths of no tile, garbage
      past a_nnz/b_nnz, k = 70,001 with windows past K4's shared columns,
      rows whose LP tables live in device memory, a forced 16-slot L1 that
@@ -341,6 +346,68 @@ def ptxas_functions(text: str) -> list:
     return out
 
 
+# each replay kernel's products a tile (kTile in its .cu), which the edge
+# plans are cut to; phase 2 holds each built library to it
+REPLAY_TILES = {"segsum_reuse": 2048, "lp_reuse": 1024}
+
+
+# the edge plans of the replay kernels, in the order edge_plans builds them
+EDGE_CASES = ("skips", "negative_head", "sentinels_only", "below_tile", "one_tile",
+              "past_two_tiles", "long_segment", "views_123", "views_333")
+
+
+def _stepped(fm: int, g, dev, hold=None) -> torch.Tensor:
+    """Sorted ids from 0 in steps of 0 or 1, as spgemm's plans have them; no
+    step inside ``hold`` (start, stop)."""
+    steps = (torch.rand(fm, generator=g, device=dev) < 0.55).long()
+    steps[0] = 0
+    if hold:
+        steps[hold[0] + 1:hold[1]] = 0
+    return torch.cumsum(steps, 0)
+
+
+def edge_plans(tile: int, g, dev="cuda") -> list:
+    """(case, a_slot, b_slot, seg_ids, nnz_cap, na, nb) for each of
+    EDGE_CASES, a replay kernel's tiles holding ``tile`` products: ids that
+    skip (the gaps read 0); negative ids at the head and ids past nnz_cap at
+    the tail; sentinels only; fm below, at and one past two whole tiles; one
+    segment over many tiles begun mid-tile, with a sentinel tail; that plan
+    again as views at element offsets 1, 2, 3 (each array misaligned for int4
+    loads) and 3, 3, 3. Slots reach past the value buffers (clamped). Shared
+    with tests/test_torch_kernels.py."""
+    def full(n, v):
+        return torch.full((n,), v, dtype=torch.int64, device=dev)
+
+    live = _stepped(4600, g, dev)
+    head = int(live[-1]) + 21
+    segs = [(torch.sort(torch.randint(0, 40000, (3000,), generator=g, device=dev)).values,
+             40000),
+            (torch.cat([torch.sort(torch.randint(-40, 0, (300,), generator=g,
+                                                 device=dev)).values,
+                        live, full(60, head), full(40, head + 3)]), head),
+            (full(2 * tile + 1, 777), 777)]
+    for fm in (tile - 24, tile, 2 * tile + 1):
+        seg = _stepped(fm, g, dev)
+        segs.append((seg, int(seg[-1]) + 29))
+    seg = _stepped(20000 - 50, g, dev, hold=(3000, 15000))
+    cap = int(seg[-1]) + 29
+    segs.append((torch.cat([seg, full(50, cap)]), cap))
+    na, nb = 700, 900
+    out = []
+    for case, (seg, cap) in zip(EDGE_CASES, segs):
+        arrays = [torch.randint(-3, na + 5, seg.shape, generator=g, device=dev),
+                  torch.randint(-3, nb + 5, seg.shape, generator=g, device=dev), seg]
+        out.append((case, *(x.to(torch.int32) for x in arrays), cap, na, nb))
+    for case, offsets in zip(EDGE_CASES[-2:], ((1, 2, 3), (3, 3, 3))):
+        views = []
+        for x, off in zip(out[6][1:4], offsets):
+            padded = torch.cat([torch.zeros(off, dtype=torch.int32, device=dev), x])
+            views.append(padded[off:])
+            require(views[-1].data_ptr() % 16 == 4 * off, f"{case}: view not at its offset")
+        out.append((case, *views, cap, na, nb))
+    return out
+
+
 def phase_kernels_vs_plain(seg_mod, lp_mod, seed: int) -> dict:
     worst = {"segsum_reuse": 0.0, "lp_reuse": 0.0}
     kernels = {"segsum_reuse": (seg_mod.segsum_reuse_arrays, seg_mod.segsum_reuse_plain),
@@ -373,6 +440,27 @@ def phase_kernels_vs_plain(seg_mod, lp_mod, seed: int) -> dict:
                     worst[name] = max(worst[name], err)
                 log(f"   {name} fm={fm} nnz_cap={nnz_cap} {str(adt)[6:]}x{str(bdt)[6:]}: "
                     f"max |kernel - plain| {err:.3e}")
+    for name, (kernel, plain) in kernels.items():
+        tile = REPLAY_TILES[name]
+        require(seg_mod.tile_products(name) == tile,
+                f"{name}: the library's tile is {seg_mod.tile_products(name)}, not {tile}")
+        for case, a_slot, b_slot, seg, nnz_cap, na, nb in edge_plans(tile, g):
+            errs = []
+            for adt, bdt, tol in dtypes:
+                a = random_values(na, adt, g)
+                b = random_values(nb, bdt, g)
+                want = plain(a_slot, b_slot, seg, a, b, nnz_cap)
+                scale = plain(a_slot, b_slot, seg, a.float().abs(), b.float().abs(), nnz_cap)
+                junk = torch.full((nnz_cap,), float("nan"), device="cuda")
+                del junk  # the caching allocator hands its block to the output
+                got = kernel(a_slot, b_slot, seg, a, b, nnz_cap=nnz_cap)
+                require(got.dtype == want.dtype, f"{name} {case}: output dtype {got.dtype}")
+                errs.append(tolerance_check(f"{name} {case} {adt}x{bdt}", got, want, scale,
+                                            tol))
+                if tol is F32_TOL and adt == bdt:
+                    worst[name] = max(worst[name], errs[-1])
+            log(f"   {name} (tile {tile}) {case}: fm {seg.shape[0]}, nnz_cap {nnz_cap}; "
+                f"max |kernel - plain| over f32, bf16, f16, bf16xf32 {max(errs):.3e}")
     torch.cuda.synchronize()
     return worst
 

@@ -6,7 +6,8 @@ both packages pass the same names. ``BACKEND_NAMES`` (replay backends) and
 the tables of what each name runs here.
 
 Kernels (``csrc/``, built by ``_build``):
-  segsum_reuse    — K1, replay of a pinned plan: segmented warp scan + atomics
+  segsum_reuse    — K1, replay of a pinned plan: tiles of consecutive products,
+                    a segmented scan, each segment stored once
   lp_reuse        — K2, the same replay through a shared-memory LP hash table
   spgemm_symbolic — K5, C's row sizes: OR of B's bitmask rows + popcount
   spgemm_numeric  — K4, numeric phase through a dense row in shared memory

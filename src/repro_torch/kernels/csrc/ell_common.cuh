@@ -22,17 +22,7 @@ namespace ell {
 
 constexpr int kSmemBytes = 232448;  // a block's shared memory on the H100
 
-// The SMs of the current device (read once per library: it sizes
-// persistent grids).
-static inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
+using replay::sm_count;  // it sizes the persistent grids
 
 struct EllArgs {
   const int32_t* a_idx;  // (m, r_a)

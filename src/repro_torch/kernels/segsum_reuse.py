@@ -3,14 +3,19 @@
 Replaces the Pallas TPU kernel ``repro/kernels/segsum_reuse.py``
 (``segsum_reuse_arrays``). For every product t of a precomposed plan, in
 sorted order: ``C[seg_ids[t]] += A[a_slot_s[t]] * B[b_slot_s[t]]``, with f32
-products and f32 accumulation, cast to ``promote_types(a, b)``; the sentinel
-``seg_ids == nnz_cap`` is dropped.
+products and f32 accumulation, cast to ``promote_types(a, b)``; ids outside
+``[0, nnz_cap)``, the sentinel ``nnz_cap`` among them, are dropped. Like the
+reference kernel it takes seg_ids sorted, as every plan has them: on the card,
+unsorted seg_ids give wrong sums (the plain version does not care).
 
 What bounds it on the H100: bytes — 12 B of plan per product, two value
 reads at random slots, and ``4 * nnz_cap`` bytes written; two flops per
-product. The design (see the source's header): one thread per product,
-gathers through the read-only cache, a segmented warp scan on the sorted
-segment ids, and one ``atomicAdd`` per (warp, segment).
+product. The design (see the source's header and ``csrc/replay_tile.cuh``):
+tiles of 2,048 consecutive products, eight a thread loaded as int4 vectors,
+summed by segment in registers and across the tile by a segmented scan;
+each segment is stored once, the slots no product reaches are written 0,
+and a small second kernel adds the partial sums of segments that span
+tiles, so the output needs no fill first.
 
 Beside the kernel: ``segsum_reuse_plain``, the same function in plain torch,
 which the wrapper runs for CPU tensors only (and which ``chip_smoke.py``
@@ -36,7 +41,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ARGTYPES = [_P, _P, _P, _P, ctypes.c_int, _I64, _P, ctypes.c_int, _I64, _P,
-             _I64, _I64, _P]
+             _I64, _I64, _P, _I64, _P]
 
 
 def check_replay_args(a_slot_s, b_slot_s, seg_ids, a_values, b_values,
@@ -91,19 +96,45 @@ def replay_plain(a_slot_s, b_slot_s, seg_ids, a_values, b_values,
     return out[:nnz_cap].to(torch.promote_types(a_values.dtype, b_values.dtype))
 
 
+def workspace_bytes(lib_name: str, fm: int) -> int:
+    """Bytes of scratch ``<lib_name>_launch`` needs for ``fm`` products (the
+    tiles' carries and the bounds of the slots no product reaches)."""
+    fn = getattr(_build.load(lib_name), f"{lib_name}_workspace_bytes")
+    fn.argtypes, fn.restype = [_I64], _I64
+    return fn(fm)
+
+
+def tile_products(lib_name: str) -> int:
+    """Products a tile of ``<lib_name>_launch`` (K1 2,048, K2 1,024)."""
+    fn = getattr(_build.load(lib_name), f"{lib_name}_tile_products")
+    fn.argtypes, fn.restype = [], _I64
+    return fn()
+
+
 def launch_replay(lib_name: str, a_slot_s, b_slot_s, seg_ids, a_values,
                   b_values, out: torch.Tensor) -> None:
     """Launch ``<lib_name>_launch`` of ``csrc/<lib_name>.cu`` on the current
-    stream, adding into the zeroed f32 ``out``. A CUDA error after the launch
-    raises ``KernelFallbackError``: there is no rung to fall back to."""
+    stream, writing every slot of the f32 ``out`` (which needs no zeroing).
+    A CUDA error after the launch raises ``KernelFallbackError``: there is no
+    rung to fall back to."""
     device = a_values.device
+    fm = seg_ids.shape[0]
     with torch.cuda.device(device):
+        work = torch.empty(workspace_bytes(lib_name, fm), dtype=torch.uint8, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         _build.launch(lib_name, _ARGTYPES, a_slot_s.data_ptr(), b_slot_s.data_ptr(),
                       seg_ids.data_ptr(), a_values.data_ptr(), DTYPE_CODES[a_values.dtype],
                       a_values.shape[0], b_values.data_ptr(), DTYPE_CODES[b_values.dtype],
-                      b_values.shape[0], out.data_ptr(), seg_ids.shape[0], out.shape[0],
-                      stream)
+                      b_values.shape[0], out.data_ptr(), fm, out.shape[0],
+                      work.data_ptr(), work.shape[0], stream)
+
+
+def replay_out(seg_ids, nnz_cap: int, device) -> torch.Tensor:
+    """The f32 output of a launch: unwritten (the kernel writes every slot),
+    or zeros when there is no product and so no launch."""
+    if seg_ids.shape[0] == 0:
+        return torch.zeros(nnz_cap, dtype=torch.float32, device=device)
+    return torch.empty(nnz_cap, dtype=torch.float32, device=device)
 
 
 def segsum_reuse_plain(a_slot_s, b_slot_s, seg_ids, a_values, b_values,
@@ -117,14 +148,15 @@ def segsum_reuse_arrays(a_slot_s, b_slot_s, seg_ids, a_values, b_values, *,
     """Kernel entry on raw plan arrays. Returns (nnz_cap,) C values.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
-    ``segsum_reuse_plain``.
+    ``segsum_reuse_plain``. seg_ids must be sorted, as a plan's are: the
+    kernel gives wrong sums for unsorted ones and does not check.
     """
     global LAUNCHES
     check_replay_args(a_slot_s, b_slot_s, seg_ids, a_values, b_values, nnz_cap)
     if a_values.device.type == "cpu":
         return segsum_reuse_plain(a_slot_s, b_slot_s, seg_ids, a_values,
                                   b_values, nnz_cap)
-    out = torch.zeros(nnz_cap, dtype=torch.float32, device=a_values.device)
+    out = replay_out(seg_ids, nnz_cap, a_values.device)
     if seg_ids.shape[0] > 0 and nnz_cap > 0:
         launch_replay("segsum_reuse", a_slot_s, b_slot_s, seg_ids, a_values,
                       b_values, out)

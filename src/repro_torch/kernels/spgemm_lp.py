@@ -24,10 +24,14 @@ device memory, allocated here. A team of lanes walks its row's products
 flat, one product per lane, into tables keyed by a multiplicative hash.
 
 K2 ``lp_reuse_arrays`` replaces ``lp_reuse_arrays``: the Reuse-case replay
-of ``segsum_reuse`` with the in-tile reduction through a 256-slot LP table
-per 128-product tile (one ``atomicAdd`` per occupied slot). Same contract as
-K1: ``C[seg_ids[t]] += A[a_slot_s[t]] * B[b_slot_s[t]]``, f32 accumulation
-cast to ``promote_types(a, b)``, sentinel dropped; bytes-bound as K1.
+of ``segsum_reuse`` with the in-tile reduction through an LP table in shared
+memory: 2,048 slots (at most 50% full) per tile of 1,024 products, four a
+thread, each thread's run of one key summed in registers before its insert;
+the flush writes each segment once and the slots no product reaches 0, with
+the carries and ends of K1 (``csrc/replay_tile.cuh``), so the output needs
+no fill. Same contract as K1: ``C[seg_ids[t]] += A[a_slot_s[t]] *
+B[b_slot_s[t]]``, f32 accumulation cast to ``promote_types(a, b)``, ids
+outside ``[0, nnz_cap)`` dropped, seg_ids sorted; bytes-bound as K1.
 
 Beside the kernels: ``spgemm_lp_plain`` (which sums each key's products in
 the order of the insert stream, so on the CPU it is bitwise the reference's
@@ -42,7 +46,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.segsum_reuse import (check_replay_args, launch_replay,
+from repro_torch.kernels.segsum_reuse import (check_replay_args, launch_replay, replay_out,
                                               replay_plain)
 from repro_torch.kernels.spgemm_numeric import (_pad_width, check_ell_args,
                                                 ell_numeric_plain, launch_ell)
@@ -321,14 +325,15 @@ def lp_reuse_arrays(a_slot_s, b_slot_s, seg_ids, a_values, b_values, *,
     """LP-table replay on raw plan arrays. Returns (nnz_cap,) C values.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
-    ``lp_reuse_plain``.
+    ``lp_reuse_plain``. seg_ids must be sorted, as a plan's are: the kernel
+    gives wrong sums for unsorted ones and does not check.
     """
     global LAUNCHES
     check_replay_args(a_slot_s, b_slot_s, seg_ids, a_values, b_values, nnz_cap)
     if a_values.device.type == "cpu":
         return lp_reuse_plain(a_slot_s, b_slot_s, seg_ids, a_values, b_values,
                               nnz_cap)
-    out = torch.zeros(nnz_cap, dtype=torch.float32, device=a_values.device)
+    out = replay_out(seg_ids, nnz_cap, a_values.device)
     if seg_ids.shape[0] > 0 and nnz_cap > 0:
         launch_replay("lp_reuse", a_slot_s, b_slot_s, seg_ids, a_values,
                       b_values, out)

@@ -258,3 +258,44 @@ def test_telemetry_snapshot_diff_and_reset():
     assert "fallback" not in delta
     ttelemetry.reset_all()
     assert not any(ttelemetry.snapshot().values())
+
+
+def _plan_operands(case):
+    """(A, B) of a plan-order case, as the reference's CSRs: RMAT-9 A*A,
+    multigrid 32^2 A*P, and R*(A*P) with the reference's A*P."""
+    if case == "rmat9_aa":
+        a = jgen.rmat_csr(9, 8, 0)
+        return a, a
+    r, a, p = jgen.galerkin_triple(32, 32, 4)
+    if case == "mg32_ap":
+        return a, p
+    ap = jsp.spgemm(a, p, method="sparse", plan_cache=jcache.PlanCache()).c
+    return r, ap
+
+
+@pytest.mark.parametrize("path", ["executor", "spgemm_lp"])
+@pytest.mark.parametrize("case", ["rmat9_aa", "mg32_ap", "mg32_rap"])
+def test_plans_keep_the_order_the_replay_kernels_rely_on(case, path):
+    """The CUDA replay kernels write each segment once from sorted tiles:
+    live seg_ids are non-decreasing from 0 in steps of at most 1 (so every
+    live slot is reached), sentinels (nnz_cap) fill only the tail, and the
+    ids equal the reference plan's bitwise."""
+    ja, jb = _plan_operands(case)
+    ta, tb = _to_torch(ja), _to_torch(jb)
+    want = np.asarray(jsp.spgemm(ja, jb, method="sparse",
+                                 plan_cache=jcache.PlanCache()).plan.seg_ids)
+    if path == "executor":
+        plan = texec.ReuseExecutor.from_matrices(ta, tb, backend="pallas",
+                                                 plan_cache=tcache.PlanCache()).plan
+    else:
+        plan = tsp.spgemm(ta, tb, method="lp", plan_cache=tcache.PlanCache()).plan
+    seg = plan.seg_ids.numpy()
+    nnz_cap, nnz = plan.indices.shape[0], int(plan.indptr[-1])
+    assert seg.dtype == np.int32
+    np.testing.assert_array_equal(seg, want)
+    live = seg < nnz_cap
+    n_live = int(live.sum())
+    assert n_live > 0 and live[:n_live].all() and (seg[n_live:] == nnz_cap).all()
+    steps = np.diff(seg[:n_live].astype(np.int64))
+    assert seg[0] == 0 and steps.min() >= 0 and steps.max() <= 1
+    assert seg[n_live - 1] == nnz - 1  # every slot of C's structure is reached

@@ -18,8 +18,10 @@ reference, so that on a machine with a card and no JAX the ``cuda`` tests
 run with ``pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
 import ctypes
+import importlib.util
 import math
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -204,8 +206,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(name, bad):
     args[idx] = bad[1](args[idx])
     with pytest.raises(SpgemmInputError):
         arrays(*args, nnz_cap=11)
-    with pytest.raises(SpgemmInputError):
-        arrays(*_good_args(), nnz_cap=-1)
+    for nnz_cap in (-1, 2**31):  # the kernels keep ids and nnz_cap in int32
+        with pytest.raises(SpgemmInputError, match="nnz_cap"):
+            arrays(*_good_args(), nnz_cap=nnz_cap)
 
 
 def test_build_names_libraries_by_content_and_raises_without_nvcc(monkeypatch, tmp_path):
@@ -227,19 +230,101 @@ def test_build_names_libraries_by_content_and_raises_without_nvcc(monkeypatch, t
 
 def test_c_interfaces_match_the_ctypes_signature():
     """Every replay library exports <name>_launch with the argument list the
-    wrapper declares, and <name>_error_string; every source targets sm_90a
+    wrapper declares (its workspace included), <name>_workspace_bytes,
+    <name>_tile_products and <name>_error_string; every source targets sm_90a
     (the ELL kernels' interface: tests/test_torch_ops.py)."""
-    common = (_build.CSRC_DIR / "replay_common.cuh").read_text()
+    common = (_build.CSRC_DIR / "replay_tile.cuh").read_text()
     api = common[common.index("#define REPLAY_C_API"):]
     params = re.search(r"NAME##_launch\((.*?)\)\s*\{", api.replace("\\\n", ""),
                        re.S).group(1)
     c_types = {"ptr": ctypes.c_void_p, "int64_t": ctypes.c_int64, "int": ctypes.c_int}
     declared = ["ptr" if "*" in p else p.split()[0] for p in params.split(",")]
     assert [c_types[t] for t in declared] == k1._ARGTYPES
+    assert "NAME##_workspace_bytes(int64_t fm)" in api.replace("\\\n", "")
+    assert "NAME##_tile_products()" in api.replace("\\\n", "")
     for name in WRAPPERS:
-        assert re.search(rf"REPLAY_C_API\({name},", (_build.CSRC_DIR / f"{name}.cu").read_text())
+        assert re.search(rf"REPLAY_C_API\({name}, \w+, kTile\)",
+                         (_build.CSRC_DIR / f"{name}.cu").read_text())
     for name in _build.SOURCES:
         assert "sm_90a" in (_build.CSRC_DIR / f"{name}.cu").read_text()
+
+
+# chip_smoke.py's builders of the replay kernels' edge plans (one builder
+# serves phase 2 and these tests)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+EDGE_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float16, torch.float16), (torch.bfloat16, torch.float32)]
+
+
+def _oracle_clamped(a_slot, b_slot, seg, a, b, nnz_cap):
+    """float64 sums and sums of |products| per slot, ids outside [0, nnz_cap)
+    dropped and slots clamped into the value buffers (numpy)."""
+    live = (seg >= 0) & (seg < nnz_cap)
+    prod = (a.astype(np.float64)[np.clip(a_slot[live], 0, a.shape[0] - 1)]
+            * b.astype(np.float64)[np.clip(b_slot[live], 0, b.shape[0] - 1)])
+    out, scale = np.zeros(nnz_cap), np.zeros(nnz_cap)
+    np.add.at(out, seg[live], prod)
+    np.add.at(scale, seg[live], np.abs(prod))
+    return out, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_libraries_have_the_tiles_the_edge_plans_are_cut_to(cuda, name):
+    """K1 takes 2,048 products a tile, K2 1,024 (each .cu's kTile)."""
+    assert k1.tile_products(name) == cs.REPLAY_TILES[name]
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+@pytest.mark.parametrize("case", range(len(cs.EDGE_CASES)), ids=cs.EDGE_CASES)
+def test_edge_plans_match_float64(name, case):
+    """On the CPU the wrappers take every edge plan (views at offsets too)
+    and agree with a float64 oracle in every dtype pair."""
+    mod, arrays, _ = WRAPPERS[name]
+    g = torch.Generator().manual_seed(1)
+    _, a_slot, b_slot, seg, nnz_cap, na, nb = cs.edge_plans(cs.REPLAY_TILES[name], g,
+                                                            dev="cpu")[case]
+    plan = [x.numpy() for x in (a_slot, b_slot, seg)]
+    for adt, bdt in EDGE_DTYPES:
+        a = torch.randn(na, generator=g).to(adt)
+        b = torch.randn(nb, generator=g).to(bdt)
+        launches = mod.LAUNCHES
+        got = arrays(a_slot, b_slot, seg, a, b, nnz_cap=nnz_cap)
+        assert mod.LAUNCHES == launches
+        assert got.dtype == torch.promote_types(adt, bdt) and got.shape == (nnz_cap,)
+        want, scale = _oracle_clamped(*plan, a.double().numpy(), b.double().numpy(), nnz_cap)
+        tol = 1e-5 if got.dtype == torch.float32 else 8e-3
+        assert np.all(np.abs(got.double().numpy() - want) <= tol * scale + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+@pytest.mark.parametrize("case", range(len(cs.EDGE_CASES)), ids=cs.EDGE_CASES)
+def test_kernel_writes_every_slot_of_edge_plans_on_the_card(cuda, name, case):
+    """Each edge plan in every dtype pair, the output handed memory full of
+    NaN by the caching allocator: a slot the kernel leaves unwritten shows."""
+    mod, arrays, plain = WRAPPERS[name]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    _, a_slot, b_slot, seg, nnz_cap, na, nb = cs.edge_plans(cs.REPLAY_TILES[name], g,
+                                                            dev="cuda")[case]
+    for adt, bdt in EDGE_DTYPES:
+        a = torch.randn(na, generator=g, device=cuda).to(adt)
+        b = torch.randn(nb, generator=g, device=cuda).to(bdt)
+        want = plain(a_slot, b_slot, seg, a, b, nnz_cap)
+        scale = plain(a_slot, b_slot, seg, a.float().abs(), b.float().abs(), nnz_cap)
+        junk = torch.full((nnz_cap,), float("nan"), device=cuda)
+        del junk
+        launches = mod.LAUNCHES
+        got = arrays(a_slot, b_slot, seg, a, b, nnz_cap=nnz_cap)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == launches + 1
+        assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+        tol = 1e-4 if want.dtype == torch.float32 else 8e-3
+        assert bool(((got.double() - want.double()).abs()
+                     <= tol * scale.double() + 1e-6).all())
 
 
 @pytest.mark.cuda
