@@ -79,6 +79,7 @@ Phases, in order:
      and one PyTorch call where one computes the same function
      (torch.sparse.mm on the scalar CSR for K6, torch.bmm over w[block_expert]
      for K7, scaled_dot_product_attention for K8 where there is no softcap);
+     K6 also at bs 16 f32 on the 512^2 plan, against the plain version;
  14. one JSON line of the kernels; the last line is the result.
 
 Phase 2 also holds K6, K7 and K8 against their plain versions on synthetic
@@ -1809,6 +1810,20 @@ def sparse_mm_yardstick(a_ip, a_ix, blocks):
     return ms, f"{ms:.3f} ms (torch.sparse.mm, scalar CSR, the whole product)"
 
 
+def bsr_bound(a, b, ca, contribs) -> tuple:
+    """(ms, "bytes" or "operations") of K6 on these inputs: A's and B's
+    blocks once each (once in all where they are one tensor), the plan and C
+    once at 3.35 TB/s, against 2 * bs^3 flops a block product at 67
+    TFLOP/s."""
+    nnzb_c, t_max = ca.shape
+    bs = a.shape[1]
+    moved = a.numel() * a.element_size() + (0 if b is a else b.numel() * b.element_size()) \
+        + (2 * t_max + 1) * nnzb_c * 4 + nnzb_c * bs * bs * a.element_size()
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * bs ** 3 * contribs / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
     """K6, K7 and K8 at the shapes of phases 10-12 (median of 7, CUDA
     events) beside their plain versions, bounds and one PyTorch call where
@@ -1821,9 +1836,7 @@ def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
     nnzb_c, t_max = ca.shape
     row = {"ms": time_ms(lambda: km.bsr_api.bsr_spgemm_numeric(v, v, ca, cb, cn)),
            "plain_ms": time_ms(lambda: km.bsr.bsr_spgemm_plain(v, v, ca, cb, cn))}
-    t_bytes = (v.numel() * 4 + (2 * t_max + 1) * nnzb_c * 4 + nnzb_c * 256) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * 512 * bsr["contribs"] / F32_FLOPS_PER_S * 1e3
-    row["bound_ms"], row["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    row["bound_ms"], row["bound_by"] = bsr_bound(v, v, ca, bsr["contribs"])
     row["library_ms"], lib_s = sparse_mm_yardstick(bsr["a_ip"], bsr["a_ix"], v)
     times["bsr_spgemm"] = {"block multigrid 512^2 bs 8 f32": row}
     log(f"   K6 block multigrid 512^2, bs 8, f32 ({bsr['contribs']} block products, {nnzb_c} C "
@@ -1842,6 +1855,24 @@ def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
         row["at_256"] = {"ms": k_ms, "library_ms": lib_ms}
         del v2, plan
         torch.cuda.empty_cache()
+    # bs 16 f32 on the same plan (the structure is the same), against the
+    # plain version (scipy checks bs 16 at the small grid in phase 10)
+    v16 = torch.randn(v.shape[0], 16, 16, generator=torch.Generator(device="cuda").manual_seed(16),
+                      device="cuda")
+    got = km.bsr_api.bsr_spgemm_numeric(v16, v16, ca, cb, cn)
+    err16 = tolerance_check("K6 bs 16, 512^2", got, km.bsr.bsr_spgemm_plain(v16, v16, ca, cb, cn),
+                            km.bsr.bsr_spgemm_plain(v16.abs(), v16.abs(), ca, cb, cn), F32_TOL)
+    del got
+    row16 = {"ms": time_ms(lambda: km.bsr_api.bsr_spgemm_numeric(v16, v16, ca, cb, cn)),
+             "plain_ms": time_ms(lambda: km.bsr.bsr_spgemm_plain(v16, v16, ca, cb, cn)),
+             "library_ms": None, "max_abs_err": err16}
+    row16["bound_ms"], row16["bound_by"] = bsr_bound(v16, v16, ca, bsr["contribs"])
+    times["bsr_spgemm"]["block multigrid 512^2 bs 16 f32"] = row16
+    log(f"   K6 block multigrid 512^2, bs 16, f32: {row16['ms']:.3f} ms, plain "
+        f"{row16['plain_ms']:.3f} ms, bound {row16['bound_ms']:.3f} ms ({row16['bound_by']}), "
+        f"max |kernel - plain| {err16:.3e}")
+    del v16
+    torch.cuda.empty_cache()
     # K7
     be, n_rows, cfg = moe["be"], moe["n_rows"], moe["cfg"]
     times["grouped_matmul"] = {}

@@ -12,8 +12,10 @@ Kernels (``csrc/``, built by ``_build``):
   spgemm_symbolic — K5, C's row sizes: OR of B's bitmask rows + popcount
   spgemm_numeric  — K4, numeric phase through a dense row in shared memory
   spgemm_lp       — K3, numeric phase through the two-level LP hash tables
-  bsr_spgemm      — K6, block-sparse (BSR) numeric phase: one warp per C
-                    block sums its A_blk @ B_blk contributions in registers
+  bsr_spgemm      — K6, block-sparse (BSR) numeric phase: a CTA per tile of
+                    consecutive C blocks stages the tile's plan and A span in
+                    shared memory once, streams B blocks through a cp.async
+                    ring and sums each C block in registers (f32 FMAs)
                     (``plan_bsr_numeric`` is its symbolic phase, on the device)
   grouped_matmul  — K7, MoE expert-grouped matmul: a tiled f32 GEMM per
                     128-token block, the weight tile chosen by block_expert

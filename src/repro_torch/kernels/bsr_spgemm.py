@@ -17,11 +17,14 @@ Two phases at block granularity, as in the reference:
   A[contrib_a[s, t]] @ B[contrib_b[s, t]]`` with f32 products and sums,
   out in ``a_blocks.dtype``.
 
-What bounds the kernel on the H100: bytes, one A and one B block per
-contribution (mostly from L2) and each C block written once; 2 * bs^3 flops
-per contribution. The design (see the source's header): one warp per C
-block, the sum in registers, the contribution loop in place of the TPU's
-sequential grid axis; no atomics.
+What bounds the kernel on the H100: bytes, A's blocks, the plan and C each
+moved once; 2 * bs^3 flops per contribution. The design (see the source's
+header): a CTA takes a tile of ``TILE_BLOCKS[bs]`` consecutive C blocks,
+lists each group's products from the tile's plan in shared memory and,
+when it fits ``A_SPAN_BLOCKS[bs]`` blocks, stages the span of A blocks the
+tile reads (``tile_a_spans``) there once; groups of bs threads stream
+their B blocks through a cp.async ring and sum each C block's products in
+registers (f32 FMAs), then write it once. No atomics, no output fill.
 
 Beside the kernel: ``bsr_spgemm_plain``, the same function in plain torch
 (the counterpart of the reference's oracle ``bsr_spgemm_ref``), which the
@@ -42,6 +45,10 @@ from repro_torch.runtime.validate import SpgemmInputError
 LAUNCHES = 0
 
 BLOCK_SIZES = (8, 16)  # what the kernel takes (the reference's tests use both)
+# C blocks a CTA takes, and the A blocks it can stage, by bs (kTile and
+# kASpan in csrc/bsr_spgemm.cu)
+TILE_BLOCKS = {8: 128, 16: 64}
+A_SPAN_BLOCKS = {8: 64, 16: 36}
 
 # C blocks per chunk of the plain version
 _PLAIN_CHUNK_BLOCKS = 1 << 20
@@ -120,6 +127,23 @@ def check_bsr_args(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n) -> None:
                                "A and B")
 
 
+def tile_a_spans(contrib_a, contrib_n, bs: int, nnzb_a: int) -> torch.Tensor:
+    """The span (max - min + 1 of the clamped live A slots; 0 where none is
+    live) of each tile of ``TILE_BLOCKS[bs]`` consecutive C blocks: the
+    kernel stages a tile's A blocks when its span is at most
+    ``A_SPAN_BLOCKS[bs]``, and reads them from device memory otherwise."""
+    nnzb_c, t_max = contrib_a.shape
+    tile = TILE_BLOCKS[bs]
+    pad = -nnzb_c % tile
+    n = torch.nn.functional.pad(contrib_n.clamp(0, t_max), (0, pad))
+    slots = torch.nn.functional.pad(contrib_a.long().clamp(0, nnzb_a - 1), (0, 0, 0, pad))
+    live = torch.arange(t_max, device=slots.device)[None, :] < n[:, None]
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(live, slots, big).view(-1, tile * t_max).amin(1)
+    hi = torch.where(live, slots, -1).view(-1, tile * t_max).amax(1)
+    return torch.where(hi >= 0, hi - lo + 1, 0)
+
+
 def bsr_spgemm_plain(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n) -> torch.Tensor:
     """``bsr_spgemm_numeric`` in plain torch: per chunk of C blocks and per
     contribution slot t, a batched f32 product of the gathered A and B
@@ -153,6 +177,11 @@ def bsr_spgemm_numeric(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n) -> t
         return bsr_spgemm_plain(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n)
     nnzb_c, t_max = contrib_a.shape
     bs = a_blocks.shape[1]
+    # the kernel reads every array in 16-byte pieces: a view that starts
+    # elsewhere is copied
+    a_blocks, b_blocks, contrib_a, contrib_b, contrib_n = (
+        t if t.data_ptr() % 16 == 0 else t.clone()
+        for t in (a_blocks, b_blocks, contrib_a, contrib_b, contrib_n))
     out = torch.empty(nnzb_c, bs, bs, dtype=a_blocks.dtype, device=a_blocks.device)
     if nnzb_c:
         with torch.cuda.device(a_blocks.device):

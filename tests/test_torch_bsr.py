@@ -168,6 +168,57 @@ def test_padded_slots_are_skipped_so_a_nan_in_block_0_does_not_leak():
     assert np.all(got.numpy()[cn == 0] == 0)
 
 
+def _galerkin_plans():
+    """The 5-point block operator of galerkin_triple(64, 64, 4), squared: the
+    reference's plan (numpy) and the port's."""
+    from repro.sparse import galerkin_triple
+
+    _, a, _ = galerkin_triple(64, 64, agg_size=4)
+    nnzb = int(a.indptr[-1])
+    ip, ix = np.asarray(a.indptr).astype(np.int32), np.asarray(a.indices)[:nnzb].astype(np.int32)
+    return ip, ix, ip, ix
+
+
+@pytest.mark.parametrize("bs", k6.BLOCK_SIZES)
+@pytest.mark.parametrize("case", STRUCTURES + ["galerkin 64^2"],
+                         ids=lambda c: c if isinstance(c, str) else f"s{c[6]}")
+def test_tiles_of_plans_fit_the_a_staging_buffer(case, bs):
+    """The CUDA kernel stages a tile's A blocks in shared memory when the
+    live A slots of its TILE_BLOCKS[bs] consecutive C blocks span at most
+    A_SPAN_BLOCKS[bs] blocks. In the reference's plans (and the port's, bit
+    for bit the same) every tile's span fits: consecutive C blocks come in
+    block-row order with their A slots ascending."""
+    ops = _galerkin_plans() if isinstance(case, str) else _operands(case)
+    want = jbsr.plan_bsr_numeric(*ops)
+    got = plan_bsr_numeric(*(torch.from_numpy(x) for x in ops))
+    assert np.array_equal(got[2].numpy(), want[2]) and np.array_equal(got[4].numpy(), want[4])
+    nnzb_a = max(int(ops[0][-1]), 1)
+    spans = k6.tile_a_spans(got[2], got[4], bs, nnzb_a)
+    assert spans.shape == (-(-got[2].shape[0] // k6.TILE_BLOCKS[bs]),)
+    assert bool((spans <= k6.A_SPAN_BLOCKS[bs]).all())
+
+
+def test_tile_a_spans_matches_a_loop_over_the_tiles():
+    """tile_a_spans against the rule written out: per tile, max - min + 1 of
+    the live slots (t < clamp(contrib_n, 0, T_max)), ids clamped into the
+    block array; 0 for a tile with no live slot."""
+    rng = np.random.default_rng(5)
+    nnzb_a, t_max = 300, 4
+    for bs in k6.BLOCK_SIZES:
+        tile = k6.TILE_BLOCKS[bs]
+        nnzb_c = 2 * tile + 9
+        cn = rng.integers(-2, t_max + 3, nnzb_c).astype(np.int32)
+        cn[tile:2 * tile] = 0  # a tile with no live slot
+        ca = rng.integers(-5, nnzb_a + 5, (nnzb_c, t_max)).astype(np.int32)
+        got = k6.tile_a_spans(torch.from_numpy(ca), torch.from_numpy(cn), bs, nnzb_a).tolist()
+        want = []
+        for s0 in range(0, nnzb_c, tile):
+            live = [min(max(int(ca[s, t]), 0), nnzb_a - 1) for s in range(s0, min(s0 + tile, nnzb_c))
+                    for t in range(min(max(int(cn[s]), 0), t_max))]
+            want.append(max(live) - min(live) + 1 if live else 0)
+        assert got == want and want[1] == 0
+
+
 @pytest.mark.parametrize("bad", ["bs4", "bs_mismatch", "not_square", "int64_plan",
                                  "f64_blocks", "plan_shapes", "no_a_blocks"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad):

@@ -641,12 +641,113 @@ def _synthetic_bsr_plan(nnzb_a, nnzb_b, nnzb_c, t_max, seed, device):
     return (ca.to(torch.int32).to(device), cb.to(torch.int32).to(device), n.to(device))
 
 
+K6_PAIRS = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+            "bf16xf32": (torch.bfloat16, torch.float32), "f16": (torch.float16, torch.float16),
+            "f16xbf16": (torch.float16, torch.bfloat16)}
+
+
+def test_bsr_tile_constants_mirror_the_source():
+    """TILE_BLOCKS and A_SPAN_BLOCKS (the tile_a_spans rule) are kTile and
+    kASpan of csrc/bsr_spgemm.cu at each block size."""
+    from repro_torch.kernels import bsr_spgemm as k6
+
+    src = (_build.CSRC_DIR / "bsr_spgemm.cu").read_text()
+    for name, mirror in (("kTile", k6.TILE_BLOCKS), ("kASpan", k6.A_SPAN_BLOCKS)):
+        at8, at16 = re.search(rf"static constexpr int {name} = BS == 8 \? (\d+) : (\d+);",
+                              src).groups()
+        assert mirror == {8: int(at8), 16: int(at16)}, name
+    assert set(k6.TILE_BLOCKS) == set(k6.A_SPAN_BLOCKS) == set(k6.BLOCK_SIZES)
+
+
+def _edge_bsr_plans(bs, device):
+    """(name, nnzb_a, nnzb_b, contrib_a, contrib_b, contrib_n) of K6's edge
+    plans at block size ``bs``: a plan of plan_bsr_numeric (every tile's A
+    span staged), random plans over many A blocks (spans too wide: A read
+    from device memory), nnzb_c of 1, of the tile size +- 1 and not a
+    multiple of it, T_max 1 and 33 (a plan too wide to stage), counts below
+    0 and above T_max, and blocks with no live slot. Live slots never name
+    block 0; padded slots all do."""
+    from repro_torch import sparse as rt_sparse
+    from repro_torch.kernels import bsr_spgemm as k6
+
+    tile = k6.TILE_BLOCKS[bs]
+    _, a, _ = rt_sparse.galerkin_triple(32, 32, agg_size=4, device=device)
+    nnzb = int(a.indptr[-1])
+    ip, ix = a.indptr, a.indices[:nnzb].contiguous()
+    c_ip, c_ix, ca, cb, cn = k6.plan_bsr_numeric(ip, ix, ip, ix)
+    # shift every slot by one so that block 0 is only named by padded slots
+    live = torch.arange(ca.shape[1], device=device)[None, :] < cn[:, None]
+    plans = [("plan_bsr_numeric", nnzb + 1, nnzb + 1, torch.where(live, ca + 1, 0),
+              torch.where(live, cb + 1, 0), cn)]
+    g = torch.Generator().manual_seed(bs)
+    for name, nnzb_a, nnzb_b, nnzb_c, t_max, n_lo, n_hi in (
+            ("random, wide spans", 5000, 3000, 3 * tile + 7, 5, 0, 5),
+            ("nnzb_c 1", 40, 30, 1, 3, 1, 3),
+            ("tile - 1", 50, 60, tile - 1, 4, 0, 4),
+            ("tile + 1", 50, 60, tile + 1, 4, 0, 4),
+            ("T_max 1", 9, 7, 2 * tile + 3, 1, 0, 1),
+            ("T_max 33", 500, 400, tile + 5, 33, 0, 33),
+            ("counts outside [0, T_max]", 60, 70, 2 * tile, 6, -4, 11)):
+        n = torch.randint(n_lo, n_hi + 1, (nnzb_c,), generator=g, dtype=torch.int32)
+        n[0] = min(max(n_hi, 0), t_max)
+        keep = torch.arange(t_max)[None, :] < n.clamp(0, t_max)[:, None]
+        ca = torch.where(keep, torch.randint(1, nnzb_a, (nnzb_c, t_max), generator=g), 0)
+        cb = torch.where(keep, torch.randint(1, nnzb_b, (nnzb_c, t_max), generator=g), 0)
+        plans.append((name, nnzb_a, nnzb_b, ca.to(torch.int32).to(device),
+                      cb.to(torch.int32).to(device), n.to(device)))
+    return plans
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs", [8, 16])
-@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
-                                    (torch.bfloat16, torch.bfloat16),
-                                    (torch.bfloat16, torch.float32)],
-                         ids=["f32", "bf16", "bf16xf32"])
+def test_bsr_kernel_writes_every_block_of_edge_plans_on_the_card(cuda, bs):
+    """Each edge plan in every dtype pair, A's and B's block 0 NaN (only
+    padded slots name it) and the output handed memory full of NaN by the
+    caching allocator: a C block left unwritten or a padded slot read shows.
+    Both tile paths run: the plan of plan_bsr_numeric stages every tile's A
+    span, the wide random plan stages none."""
+    from repro_torch.kernels import bsr_spgemm as k6
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for name, nnzb_a, nnzb_b, ca, cb, cn in _edge_bsr_plans(bs, cuda):
+        spans = k6.tile_a_spans(ca, cn, bs, nnzb_a)
+        if name == "plan_bsr_numeric":
+            assert bool((spans <= k6.A_SPAN_BLOCKS[bs]).all()), name
+        if name == "random, wide spans":
+            assert bool((spans > k6.A_SPAN_BLOCKS[bs]).all()), name
+        for pair, (adt, bdt) in K6_PAIRS.items():
+            a = torch.randn(nnzb_a, bs, bs, generator=g, device=cuda).to(adt)
+            b = torch.randn(nnzb_b, bs, bs, generator=g, device=cuda).to(bdt)
+            a[0] = b[0] = 0
+            scale = k6.bsr_spgemm_plain(a.float().abs(), b.float().abs(), ca, cb, cn)
+            a[0] = b[0] = float("nan")
+            want = k6.bsr_spgemm_plain(a, b, ca, cb, cn)
+            junk = torch.full((ca.shape[0], bs, bs), float("nan"), dtype=adt, device=cuda)
+            del junk
+            launches = k6.LAUNCHES
+            got = k6.bsr_spgemm_numeric(a, b, ca, cb, cn)
+            torch.cuda.synchronize()
+            assert k6.LAUNCHES == launches + 1
+            assert got.dtype == want.dtype == adt and got.shape == want.shape
+            assert bool(torch.isfinite(got.float()).all()), f"{name} {pair}"
+            tol = 1e-4 if adt == torch.float32 else 8e-3
+            assert bool(((got.double() - want.double()).abs()
+                         <= tol * scale.double() + 1e-6).all()), f"{name} {pair}"
+            assert bool((got[cn <= 0] == 0).all()), f"{name} {pair}"
+    # views that do not start on 16 bytes (the kernel's loads need it) are
+    # copied by the wrapper
+    name, nnzb_a, nnzb_b, ca, cb, cn = _edge_bsr_plans(bs, cuda)[1]
+    a = torch.randn(nnzb_a * bs * bs + 1, generator=g, device=cuda)[1:].view(nnzb_a, bs, bs)
+    b = torch.randn(nnzb_b, bs, bs, generator=g, device=cuda)
+    ca_view = torch.cat([ca.new_zeros(1), ca.flatten()])[1:].view(ca.shape)
+    assert a.data_ptr() % 16 and ca_view.data_ptr() % 16
+    got = k6.bsr_spgemm_numeric(a, b, ca_view, cb, cn)
+    torch.testing.assert_close(got, k6.bsr_spgemm_plain(a, b, ca, cb, cn), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("dtypes", list(K6_PAIRS.values()), ids=list(K6_PAIRS))
 def test_bsr_kernel_matches_plain_on_the_card(cuda, bs, dtypes):
     from repro_torch.kernels import bsr_spgemm as k6
 
