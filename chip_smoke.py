@@ -80,7 +80,27 @@ Phases, in order:
      (torch.sparse.mm on the scalar CSR for K6, torch.bmm over w[block_expert]
      for K7, scaled_dot_product_attention for K8 where there is no softcap);
      K6 also at bs 16 f32 on the 512^2 plan, against the plain version;
- 14. one JSON line of the kernels; the last line is the result.
+ 14. the selection and robustness layer at full data size: (a)
+     spgemm(tune="measure") at phase 3's A*P (one micro-bench of the replay
+     candidates, the winner a kernel whose launches moved; a second call
+     from the plan-cache entry; an executor in measure mode hits the bucket;
+     values against the plain replay); (b) numeric_values(tune="measure")
+     at RMAT-16 A*A and 512^2 A*P (the candidates K3 and K4 only, the
+     winner one of them, C against scipy, each candidate's time beside the
+     plain version's and the peak memory logged); (c) fit_thresholds
+     on phase 9's K3 and K4 times, stamped with this card, active, its
+     picks no slower in total than the static rule's, its JSON printed; (d)
+     the degradation ladder, whose rungs on the card are kernels only: each
+     kernel failpoint armed in turn (values within F32_TOL of the other
+     kernel run directly, exactly one fault:<k>-><other>, one recorder
+     event, the failed kernel never launched), "raise" raising
+     KernelFallbackError, a NaN in P under nan_guard rerun through the
+     other kernel and flagged as data; (e) every data fault raising its
+     typed error under validate="device" and "host", validate="off"
+     calling check_csr never and adding nothing; (f) spgemm(trace="on") and a
+     traced replay (spans, Chrome export under build/), "xprof" spans in
+     torch.profiler, traced against untraced replay host time;
+ 15. one JSON line of the kernels; the last line is the result.
 
 Phase 2 also holds K6, K7 and K8 against their plain versions on synthetic
 inputs (K7 in f32, bf16, f16 and two mixed pairs, so both of its variants:
@@ -96,13 +116,19 @@ instantiation. f32 products on the card keep allow_tf32 off (checked), so the
 plain versions' matmuls are full f32.
 
 The launch counters are set to 0 just before phases 3, 4, 6, 7 and 10-12
-drive the main path and read just after. Any failed check raises, so the script exits
+drive the main path and read just after, and so is FALLBACK_COUNTS: with the
+degradation ladder on by default, each of those phases requires that no
+fault:* or nan_guard:* key (and no dtype:* key it does not expect) appears;
+so does every timed sweep that goes through an entry point (phases 5 and
+14), so that no kernel's time is another rung's.
+Any failed check raises, so the script exits
 non-zero and prints no result. It needs torch, numpy and scipy; it exits
 non-zero when no CUDA card is visible or when the repo's src/ is missing.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import math
@@ -487,6 +513,7 @@ def phase_multigrid(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
 
     seg_mod.LAUNCHES = 0
     lp_mod.LAUNCHES = 0
+    rt.telemetry.FALLBACK_COUNTS.clear()
     # the main path: fresh products, plan-cache hits, pinned K1 replays
     ap_pos = rt.spgemm(a_pos, p, method="sparse")
     rap_pos = rt.spgemm(r, ap_pos.c, method="sparse")
@@ -518,6 +545,7 @@ def phase_multigrid(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
     require(launches["segsum_reuse"] == replays,
             f"segsum_reuse launched {launches['segsum_reuse']} times for {replays} replays")
     require(launches["lp_reuse"] == 0, "lp_reuse launched on the multigrid path")
+    check_fallbacks(rt, "multigrid path")
     log(f"   AP: fm {ap.stats['fm']} fm_cap {ap.stats['fm_cap']} nnz {ap.stats['nnz_c']} "
         f"nnz_cap {ap.stats['nnz_cap']} kernel {ap.stats['kernel']}; RAP: fm "
         f"{rap.stats['fm']} fm_cap {rap.stats['fm_cap']} nnz {rap.stats['nnz_c']}")
@@ -549,6 +577,7 @@ def phase_powerlaw(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
 
     seg_mod.LAUNCHES = 0
     lp_mod.LAUNCHES = 0
+    rt.telemetry.FALLBACK_COUNTS.clear()
     res = rt.spgemm(a, a, method="lp")
     ex = rt.ReuseExecutor.from_matrices(a, a, backend="pallas_lp")
     replays = [res.c.values]
@@ -562,6 +591,7 @@ def phase_powerlaw(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
     log(f"   launches on the power-law path: {launches} for 1 lp multiply + 3 replays")
     require(launches["lp_reuse"] == 4, f"lp_reuse launched {launches['lp_reuse']} times, not 4")
     require(launches["segsum_reuse"] == 0, "segsum_reuse launched on the power-law path")
+    check_fallbacks(rt, "power-law path")
     st = res.stats
     require(st["lp_backend"] == "pallas" and st["kernel"] == "flat_lp",
             f"lp method stats: {st['lp_backend']}, {st['kernel']}")
@@ -618,6 +648,7 @@ def phase_times(rt, seg_mod, lp_mod, seed: int, mg: dict, pw: dict) -> dict:
 
     a, p, r = mg["a"], mg["p"], mg["r"]
     rm = pw["rmat"]
+    rt.telemetry.FALLBACK_COUNTS.clear()
     e2e = {
         "fresh AP spgemm(sparse)": wall_ms(
             lambda: rt.spgemm(a, p, method="sparse", plan_cache=False)),
@@ -628,6 +659,7 @@ def phase_times(rt, seg_mod, lp_mod, seed: int, mg: dict, pw: dict) -> dict:
         "replay A*A (pallas_lp)": wall_ms(
             lambda: pw["rmat_ex"].apply(rm.values, rm.values), reps=7),
     }
+    check_fallbacks(rt, "end-to-end times")
 
     from repro_torch.core.plan_cache import structure_key
     from repro_torch.core.spgemm import prepare_sparse_inputs
@@ -698,12 +730,27 @@ def reset_launches(km) -> None:
     km.seg.LAUNCHES = km.lp.LAUNCHES = km.lp.NUMERIC_LAUNCHES = 0
     km.sym.LAUNCHES = km.num.LAUNCHES = 0
     km.ops.reset_kernel_counts()
+    km.telemetry.FALLBACK_COUNTS.clear()
 
 
 def read_launches(km) -> dict:
     return {"segsum_reuse": km.seg.LAUNCHES, "lp_reuse": km.lp.LAUNCHES,
             "spgemm_symbolic": km.sym.LAUNCHES, "spgemm_numeric": km.num.LAUNCHES,
             "spgemm_lp": km.lp.NUMERIC_LAUNCHES}
+
+
+def check_fallbacks(rt, name, dtype_keys=()) -> None:
+    """With the degradation ladder on by default a failed kernel would step
+    to the plain path and the launch counts alone might not show it: the
+    main path must leave no ``fault:*`` or ``nan_guard:*`` key in
+    ``FALLBACK_COUNTS`` (set to 0 with the launch counts), and no ``dtype:*``
+    key but ``dtype_keys``."""
+    got = dict(rt.telemetry.FALLBACK_COUNTS)
+    bad = {k: v for k, v in got.items()
+           if k.startswith(("fault:", "nan_guard:")) or (k.startswith("dtype:")
+                                                         and k not in dtype_keys)}
+    require(not bad, f"{name}: fallbacks on the main path {got}")
+    log(f"   {name}: FALLBACK_COUNTS {got} (no fault:* or nan_guard:* key)")
 
 
 def _widths(count, top, g, dev, log_widths):
@@ -1205,6 +1252,7 @@ def phase_ops_powerlaw(rt, km, seed: int, pw: dict, out: dict) -> None:
     require(launches == {"segsum_reuse": 0, "lp_reuse": 0, "spgemm_symbolic": 2,
                          "spgemm_numeric": 1, "spgemm_lp": 1}, f"launches {launches}")
     require(picks == {"flat_lp": 1, "dense_acc": 1}, f"numeric kernels {picks}")
+    check_fallbacks(rt, "A*A kernels/ops path")
     worst = check_ops_result(rt, km, "A*A kernels/ops", a, a, sizes, c_nnz, c_idx,
                              {"K3 (auto)": v_auto, "K4 (dense_acc)": v_dense}, ref, scale,
                              g, sample=64)
@@ -1231,6 +1279,7 @@ def phase_ops_multigrid(rt, km, seed: int, out: dict) -> None:
     require(launches == {"segsum_reuse": 0, "lp_reuse": 0, "spgemm_symbolic": 2,
                          "spgemm_numeric": 1, "spgemm_lp": 1}, f"launches {launches}")
     require(picks == {"dense_acc": 1, "flat_lp": 1}, f"numeric kernels {picks}")
+    check_fallbacks(rt, "A*P kernels/ops path")
     a_s, p_s = to_scipy(a), to_scipy(p)
     worst = check_ops_result(rt, km, "A*P kernels/ops", a, p, sizes, c_nnz, c_idx,
                              {"K4 (auto)": v_auto, "K3 (flat_lp)": v_lp}, a_s @ p_s,
@@ -1449,6 +1498,7 @@ def close_check(name, got, want, tol, fro=None) -> tuple:
 
 def reset_new_launches(km) -> None:
     km.bsr.LAUNCHES = km.gm.LAUNCHES = km.fa.LAUNCHES = 0
+    km.telemetry.FALLBACK_COUNTS.clear()
 
 
 def read_new_launches(km) -> dict:
@@ -1638,6 +1688,7 @@ def phase_bsr(rt, km, seed: int, out: dict, grid=512, small_grid=128, dev="cuda"
         f"{launches}")
     require(launches == {"bsr_spgemm": 2, "grouped_matmul": 0, "flash_attention": 0},
             f"launches {launches}")
+    check_fallbacks(rt, "block multigrid path")
     worst = 0.0
     for step, (v, c) in enumerate(zip(values, results)):
         want = km.bsr.bsr_spgemm_plain(v, v, ca, cb, cn)
@@ -1716,6 +1767,7 @@ def phase_moe(rt, km, seed: int, out: dict, n_tokens=4096, dev="cuda") -> None:
     launches = read_new_launches(km)
     require(launches == {"bsr_spgemm": 0, "grouped_matmul": 2 * len(MOE_DTYPES),
                          "flash_attention": 0}, f"launches {launches}")
+    check_fallbacks(rt, "MoE path")
     del x, w1, w2
     pad = torch.ones(n_rows, dtype=torch.bool, device=dev)
     pad[rows] = False
@@ -1781,6 +1833,7 @@ def phase_attention(rt, km, seed: int, out: dict, t=ATTN_T, dev="cuda") -> None:
     n = len(results)
     require(launches == {"bsr_spgemm": 0, "grouped_matmul": 0, "flash_attention": n},
             f"launches {launches}")
+    check_fallbacks(rt, "attention path")
     for label, cfg, kw, dt, _ in attention_shapes(rt):
         got = results.pop(label)
         err, rel = close_check(f"K8 {label}", got,
@@ -1926,6 +1979,359 @@ def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the selection and robustness layer on the card (core.autotune,
+# runtime/, obs/): measured picks, fitted thresholds, the degradation ladder,
+# validation and tracing, through the entry points
+# ---------------------------------------------------------------------------
+
+REPLAY_KERNEL = {"pallas": "segsum_reuse", "pallas_lp": "lp_reuse"}
+
+
+def phase_tune_measure_replay(rt, km, a, p, out: dict) -> None:
+    """(a) spgemm(tune="measure") at multigrid A*P: one sweep of the replay
+    candidates, the winner dispatched; the same structure again comes from
+    the plan-cache entry; an executor in measure mode hits the bucket."""
+    tel, tune = rt.telemetry, rt.autotune
+    tune.reset_tuner()
+    tel.reset_all()
+    km.seg.LAUNCHES = km.lp.LAUNCHES = 0
+    cache = rt.PlanCache()
+    res = rt.spgemm(a, p, method="sparse", tune="measure", plan_cache=cache)
+    torch.cuda.synchronize()
+    winner = res.stats["replay_backend"]
+    counts = dict(tel.TUNE_COUNTS)
+    launches = {"segsum_reuse": km.seg.LAUNCHES, "lp_reuse": km.lp.LAUNCHES}
+    log(f"   spgemm(tune='measure') A*P: winner {winner}, TUNE_COUNTS {counts}, launches "
+        f"{launches} (the sweep: one warm-up and 3 timed runs a candidate, then the winner)")
+    require(counts == {"micro_bench": 1}, f"TUNE_COUNTS {counts}")
+    require(winner in REPLAY_KERNEL, f"measured replay winner {winner}: not a kernel")
+    require(res.stats["kernel_source"] == "measured", f"stats {res.stats['kernel_source']}")
+    win_k = REPLAY_KERNEL.get(winner, winner)
+    require(all(n == (5 if k == win_k else 4) for k, n in launches.items()),
+            f"launches {launches}: each kernel's sweep runs 4, the winner's dispatch 1 more")
+    check_fallbacks(rt, "measured spgemm")
+    again = rt.spgemm(a, p, method="sparse", tune="measure", plan_cache=cache)
+    torch.cuda.synchronize()
+    counts = dict(tel.TUNE_COUNTS)
+    require(counts == {"micro_bench": 1, "plan_meta_hit": 1}, f"TUNE_COUNTS {counts}")
+    now = {"segsum_reuse": km.seg.LAUNCHES, "lp_reuse": km.lp.LAUNCHES}
+    require(again.stats["replay_backend"] == winner
+            and all(now[k] == n + (k == win_k) for k, n in launches.items()),
+            f"launches {now}: the plan-cache winner must launch its kernel once")
+    ex = rt.ReuseExecutor.from_matrices(a, p, plan_cache=cache, tune="measure")
+    got = ex.apply(a.values, p.values)
+    torch.cuda.synchronize()
+    counts = dict(tel.TUNE_COUNTS)
+    require(counts == {"micro_bench": 1, "plan_meta_hit": 1, "bucket_hit": 1},
+            f"TUNE_COUNTS {counts}")
+    require(ex.backend == winner and ex.kernel_source == "measured",
+            f"executor {ex.backend} ({ex.kernel_source})")
+    pl = ex.plan
+    want = km.seg.segsum_reuse_plain(pl.a_slot_s, pl.b_slot_s, pl.seg_ids, a.values,
+                                     p.values, ex.nnz_cap)
+    scale = km.seg.segsum_reuse_plain(pl.a_slot_s, pl.b_slot_s, pl.seg_ids, a.values.abs(),
+                                      p.values.abs(), ex.nnz_cap)
+    err = tolerance_check("measured executor replay", got, want, scale, F32_TOL)
+    err = max(err, tolerance_check("measured spgemm", res.c.values, want, scale, F32_TOL))
+    # each candidate's time (µs; the pick's protocol, run again for the log),
+    # beside the plain replay's, which is no candidate on the card
+    tel.FALLBACK_COUNTS.clear()
+    cands = rt.replay_candidates(pl, a.values, p.values)
+    require(sorted(cands) == sorted(REPLAY_KERNEL), f"replay candidates {sorted(cands)}")
+    cands["plain (yardstick)"] = lambda: rt.numeric_reuse(pl, a.values, p.values)
+    _, times = tune.measure_candidates(cands)
+    check_fallbacks(rt, "replay candidates' times")
+    log(f"   executor(tune='measure'): bucket_hit, {winner}; |replay - plain| {err:.3e}; "
+        f"candidates (µs, a second sweep for the log): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    out.update(replay_winner=winner, replay_times_us=times, executor=ex)
+
+
+def phase_tune_measure_numeric(rt, km, shapes: dict, out: dict) -> None:
+    """(b) numeric_values(tune="measure") at each shape: the candidates
+    "dense_acc" and "flat_lp" timed on the real operands, one output alive
+    at a time ("xla", the plain version, is a candidate on the CPU only,
+    and is timed here beside them for the log); the winner is a kernel; C
+    against scipy."""
+    tel, tune = rt.telemetry, rt.autotune
+    out["numeric"] = {}
+    for label, (a, b, c_idx, c_nnz, ref, scale) in shapes.items():
+        tune.reset_tuner()
+        tel.reset_all()
+        reset_launches(km)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        vals = km.ops.numeric_values(a, b, c_idx, c_nnz, tune="measure")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        picks, counts = dict(km.ops.KERNEL_COUNTS), dict(tel.TUNE_COUNTS)
+        out_gib = vals.numel() * vals.element_size() / 2**30
+        log(f"   {label}: numeric_values(tune='measure') -> {picks}, TUNE_COUNTS {counts}; "
+            f"peak above the operands {peak / 2**30:.3f} GiB (one output "
+            f"{out_gib:.3f} GiB)")
+        require(counts == {"micro_bench": 1}, f"TUNE_COUNTS {counts}")
+        winner = next(iter(picks))
+        require(len(picks) == 1 and winner in ("dense_acc", "flat_lp"), f"picks {picks}")
+        check_fallbacks(rt, f"{label} measured numeric phase")
+        check_against_scipy(f"{label} measured ({winner})",
+                            ell_csr(rt, c_nnz, c_idx, vals, (a.shape[0], b.shape[1])),
+                            ref, scale)
+        del vals
+        tel.FALLBACK_COUNTS.clear()
+        _, times = tune.measure_candidates({
+            name: (lambda n=name: km.ops.numeric_values(a, b, c_idx, c_nnz, kernel=n,
+                                                        on_kernel_failure="raise"))
+            for name in ("xla", "dense_acc", "flat_lp")})
+        check_fallbacks(rt, f"{label} numeric candidates' times")
+        log(f"   {label}: candidates and the plain version 'xla' (µs, a second sweep for the log): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+        out["numeric"][label] = {"winner": winner, "times_us": times,
+                                 "peak_gib": peak / 2**30}
+        torch.cuda.empty_cache()
+
+
+def phase_tune_fit(rt, ops_times: dict, arf: dict, out: dict) -> None:
+    """(c) fit_thresholds on phase 9's K4 (dense_acc) and K3 (lp_hash) times
+    at both shapes, stamped with this card; the fitted picks' total is no
+    more than the static rule's on those points."""
+    tune = rt.autotune
+    tune.reset_tuner()
+    dev_name = torch.cuda.get_device_name(0)
+    rows, points = [], []
+    for label, times in ops_times.items():
+        regime = re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_")
+        t_dense, t_lp = times["spgemm_numeric"]["ms"] * 1e3, times["spgemm_lp"]["ms"] * 1e3
+        points.append((arf[label], t_dense, t_lp))
+        for arm, us in (("dense_acc", t_dense), ("lp_hash", t_lp)):
+            rows.append({"name": f"accumulators/{regime}/{arm}", "us_per_call": us,
+                         "backend": "cuda", "platform": dev_name,
+                         "derived": {"avg_row_flops": arf[label]}})
+    table = tune.fit_thresholds(rows, source="chip_smoke.py phase 9")
+    tune.set_tuned_thresholds(table)
+    cutoff, source = tune.avg_row_flops_cutoff(torch.device("cuda"))
+    require(source == "fitted", f"the fitted table does not cover {tune.backend_key('cuda')}")
+    fitted = sum(td if x < cutoff else tl for x, td, tl in points)
+    static = sum(td if x < 256 else tl for x, td, tl in points)
+    log(f"   fitted table (JSON): {json.dumps(table.to_json())}")
+    log(f"   fitted avg-row-flops cutoff {cutoff} for {tune.backend_key('cuda')} from "
+        f"{len(points)} points (avg row flops, K4 µs, K3 µs): {points}; fitted picks "
+        f"{fitted:.1f} µs against the static rule's {static:.1f} µs")
+    require(fitted <= static + 1e-9, "the fitted picks are slower than the static rule's")
+    tune.set_tuned_thresholds(None)
+    require(tune.avg_row_flops_cutoff(torch.device("cuda")) == (256.0, "static"),
+            "the table did not deactivate")
+    out.update(fit=table.to_json(), cutoff=cutoff, fitted_us=fitted, static_us=static)
+
+
+LADDER_RUNGS = {"pallas": "segsum_reuse", "pallas_lp": "lp_reuse",
+                "flat_lp": "spgemm_lp", "dense_acc": "spgemm_numeric"}
+
+
+def phase_ladder(rt, km, a, p, c_idx, c_nnz) -> None:
+    """(d) each kernel failpoint armed in turn: on the card the next rung
+    is the other kernel (K1 and K2, K3 and K4), never the plain version;
+    values within F32_TOL of that kernel run directly, exactly one
+    ``fault:<k>-><other>``, one recorder "fallback" event, and the failed
+    kernel never launched; "raise" gives KernelFallbackError; a NaN in B
+    under nan_guard is rerun through the other kernel and flagged as
+    data."""
+    tel, faults, tune = rt.telemetry, rt.faults, rt.autotune
+    tune.reset_tuner()
+    plan_ex = {b: rt.ReuseExecutor.from_matrices(a, p, backend=b) for b in ("pallas", "pallas_lp")}
+    pl = plan_ex["pallas"].plan
+    replay_scale = km.seg.segsum_reuse_plain(pl.a_slot_s, pl.b_slot_s, pl.seg_ids,
+                                             a.values.abs(), p.values.abs(), pl.indices.shape[0])
+    numeric_scale = km.ops.numeric_values(with_values(a, a.values.abs()),
+                                          with_values(p, p.values.abs()), c_idx, c_nnz,
+                                          kernel="xla")
+    cases = [  # (site, next rung, call, the next rung run directly, scale)
+        ("pallas", "pallas_lp", lambda: plan_ex["pallas"].apply(a.values, p.values),
+         lambda: plan_ex["pallas_lp"].apply(a.values, p.values), replay_scale),
+        ("pallas_lp", "pallas", lambda: plan_ex["pallas_lp"].apply(a.values, p.values),
+         lambda: plan_ex["pallas"].apply(a.values, p.values), replay_scale),
+        ("flat_lp", "dense_acc", lambda: km.ops.numeric_values(a, p, c_idx, c_nnz, kernel="flat_lp"),
+         lambda: km.ops.numeric_values(a, p, c_idx, c_nnz, kernel="dense_acc"), numeric_scale),
+        ("dense_acc", "flat_lp", lambda: km.ops.numeric_values(a, p, c_idx, c_nnz),
+         lambda: km.ops.numeric_values(a, p, c_idx, c_nnz, kernel="flat_lp"), numeric_scale),
+    ]
+    for site, nxt, call, direct, scale in cases:
+        want = direct()
+        tel.reset_all()
+        rt.recorder.reset_recorder()
+        reset_launches(km)
+        km.seg.LAUNCHES = km.lp.LAUNCHES = 0
+        with faults.failpoint(f"kernel:{site}"):
+            got = call()
+        torch.cuda.synchronize()
+        fb, launches = dict(tel.FALLBACK_COUNTS), read_launches(km)
+        require(fb == {f"fault:{site}->{nxt}": 1}, f"kernel:{site}: FALLBACK_COUNTS {fb}")
+        events = rt.recorder.default_recorder().events()
+        require(sum(e["event"] == "fallback" for e in events) == 1,
+                f"kernel:{site}: recorder events {events}")
+        require(launches[LADDER_RUNGS[site]] == 0,
+                f"kernel:{site}: the failed kernel launched {launches}")
+        require(launches[LADDER_RUNGS[nxt]] > 0, f"kernel:{site}: {nxt} never launched")
+        err = tolerance_check(f"kernel:{site} -> {nxt}", got, want, scale, F32_TOL)
+        log(f"   kernel:{site} armed: {fb}, one recorder fallback event, 0 launches of "
+            f"{LADDER_RUNGS[site]}; against {nxt} run directly: max |diff| {err:.3e}")
+        del got, want
+    strict = rt.ReuseExecutor(pl, backend="pallas", on_kernel_failure="raise")
+    for sites, policy, call in (
+            (("dense_acc",), "raise",
+             lambda: km.ops.numeric_values(a, p, c_idx, c_nnz, on_kernel_failure="raise")),
+            (("pallas",), "raise", lambda: strict.apply(a.values, p.values)),
+            # both numeric kernels failing exhausts the card's ladder
+            (("dense_acc", "flat_lp"), "fallback",
+             lambda: km.ops.numeric_values(a, p, c_idx, c_nnz))):
+        tel.reset_all()
+        try:
+            with contextlib.ExitStack() as armed:
+                for site in sites:
+                    armed.enter_context(faults.failpoint(f"kernel:{site}"))
+                call()
+        except rt.KernelFallbackError as e:
+            log(f"   {', '.join(sites)} armed, on_kernel_failure={policy!r}: "
+                f"KernelFallbackError ({e}); FALLBACK_COUNTS {dict(tel.FALLBACK_COUNTS)}")
+        else:
+            require(False, f"{sites} armed, on_kernel_failure={policy!r}: no KernelFallbackError")
+    tel.reset_all()
+    reset_launches(km)
+    km.seg.LAUNCHES = km.lp.LAUNCHES = 0
+    bad_p = p.values.clone()
+    bad_p[0] = float("nan")
+    guard = rt.ReuseExecutor(pl, backend="pallas", nan_guard=True)
+    guard.apply(a.values, bad_p)
+    fb, launches = dict(tel.FALLBACK_COUNTS), read_launches(km)
+    require(fb == {"nan_guard:rerun": 1, "nan_guard:data": 1}, f"nan_guard: {fb}")
+    require(launches["segsum_reuse"] == 1 and launches["lp_reuse"] == 1,
+            f"nan_guard: the rerun is not the other kernel: {launches}")
+    log(f"   NaN in P's values under nan_guard: {fb}, rerun through lp_reuse, events "
+        f"{guard.nan_events}")
+
+
+def phase_validation(rt, km, a, p) -> None:
+    """(e) every data fault raises its FaultSpec's typed error under
+    validate="device" and "host"; validate="off" leaves the counters and
+    launches where a plain call leaves them."""
+    faults = rt.faults
+    for spec in faults.data_faults():
+        for seed in (0, 1):
+            bad = faults.inject_csr(spec.name, a, seed=seed)
+            for mode in ("device", "host"):
+                try:
+                    rt.spgemm(bad, p, method="sparse", plan_cache=False, validate=mode)
+                    require(False, f"{spec.name} ({mode}): no error")
+                except spec.expects:
+                    pass
+        log(f"   {spec.name}: {spec.expects.__name__} in 'device' and 'host' (seeds 0, 1)")
+    # a spy on check_csr (spgemm reads it from its module at each call): "off"
+    # must never call it, where "device" and "host" check both operands
+    vmod = importlib.import_module("repro_torch.runtime.validate")
+    real, calls = vmod.check_csr, []
+    vmod.check_csr = lambda *args, **kw: (calls.append(args[1]), real(*args, **kw))[1]
+    counts = {}
+    try:
+        for validate in (None, "off", "device", "host"):
+            rt.telemetry.reset_all()
+            reset_launches(km)
+            calls.clear()
+            rt.spgemm(a, p, method="lp", plan_cache=False, validate=validate)
+            torch.cuda.synchronize()
+            counts[validate] = (rt.telemetry.snapshot(), read_launches(km), list(calls))
+    finally:
+        vmod.check_csr = real
+    require(counts["off"][2] == [], f"validate='off' called check_csr: {counts['off'][2]}")
+    require(counts["device"][2] == ["device"] * 2 and counts["host"][2] == ["host"] * 2,
+            f"check_csr calls: device {counts['device'][2]}, host {counts['host'][2]}")
+    require(counts[None][:2] == counts["off"][:2],
+            f"validate='off' changed the counters: {counts[None][:2]} / {counts['off'][:2]}")
+    log(f"   validate='off': check_csr called 0 times ('device' and 'host': twice); == a "
+        f"plain call: launches {counts['off'][1]}, STAGE_COUNTS {counts['off'][0]['trace']}")
+
+
+def phase_tracing(rt, km, a, p, ex, root: Path) -> dict:
+    """(f) spgemm(trace="on") and a replay in trace_scope("on"): every span
+    named in SPAN_NAMES, the Chrome export parses; a replay under "xprof"
+    inside torch.profiler shows the spans among its annotations; the host
+    time of a traced replay against an untraced one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = rt.trace
+    tr.reset_tracing()
+    rt.spgemm(a, p, method="sparse", trace="on")
+    with tr.trace_scope("on"):
+        ex.apply(a.values, p.values)
+    torch.cuda.synchronize()
+    names = [e["name"] for e in tr.events()]
+    require(names and set(names) <= tr.SPAN_NAMES, f"spans {names}")
+    path = root / "build" / "chip_smoke_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tr.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    require(len(events) == len(names), "the Chrome export lost events")
+    log(f"   spans {names}; Chrome export {path.relative_to(root)} ({len(events)} events)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tr.trace_scope("xprof"):
+            ex.apply(a.values, p.values)
+        torch.cuda.synchronize()
+    keys = {e.key for e in prof.key_averages()}
+    require("numeric.dispatch" in keys, "the xprof span is not among the profiler's events")
+    log("   trace_scope('xprof'): 'numeric.dispatch' among torch.profiler's user annotations")
+    tr.reset_tracing()
+    tr.set_tracing("off")
+    untraced = wall_ms(lambda: ex.apply(a.values, p.values), reps=7)
+    with tr.trace_scope("on"):
+        traced = wall_ms(lambda: ex.apply(a.values, p.values), reps=7)
+    tr.reset_tracing()
+    log(f"   replay ({ex.backend}) host time, median of 7: untraced {untraced:.4f} ms, traced "
+        f"{traced:.4f} ms ({(traced / untraced - 1) * 100:+.1f}%)")
+    return {"untraced_ms": untraced, "traced_ms": traced}
+
+
+def phase_tune_ladder(rt, km, seed: int, ops_times: dict, root: Path, grid=2048,
+                      small_grid=512, rmat_scale=16, dev="cuda") -> dict:
+    """Phase 14 (a)-(f) at full data size: phase 3's galerkin_triple(2048,
+    2048, 4) A*P, phase 4's rmat_csr(16, 8) A*A and phase 7's 512^2 A*P."""
+    out: dict = {}
+    g = torch.Generator(device=dev).manual_seed(seed + 60)
+    _, a, p = rt.galerkin_triple(grid, grid, agg_size=4, device=dev)
+    a = with_values(a, torch.randn(a.nnz_cap, generator=g, device=dev))
+    phase_tune_measure_replay(rt, km, a, p, out)
+    ex = out.pop("executor")
+    # the numeric shapes: RMAT A*A and the small multigrid A*P, with C's
+    # structure from the sort path (ELL) and scipy's float64 product
+    rm = rt.rmat_csr(rmat_scale, 8, seed=0, device=dev)
+    _, sa, sp_ = rt.galerkin_triple(small_grid, small_grid, agg_size=4, device=dev)
+    vals = torch.randn(sa.nnz_cap, generator=g, device=dev)
+    sa = with_values(sa, torch.where(vals == 0, 1.0, vals))
+    shapes, arf = {}, {}
+    for label, (x, y) in (("power-law A*A", (rm, rm)),
+                          (f"multigrid {small_grid}^2 A*P", (sa, sp_))):
+        c = rt.spgemm(x, y, method="sparse", plan_cache=False).c
+        ell = rt.csr_to_ell(c)
+        del c
+        xs, ys = to_scipy(x), to_scipy(y)
+        shapes[label] = (x, y, ell.indices, ell.row_nnz, xs @ ys, abs(xs) @ abs(ys))
+        arf[label] = int(rt.flops_stats(x, y.row_nnz())[0]) / x.shape[0]
+    phase_tune_measure_numeric(rt, km, shapes, out)
+    phase_tune_fit(rt, ops_times, {"power-law A*A": arf["power-law A*A"],
+                                   "multigrid 512^2 A*P": arf[f"multigrid {small_grid}^2 A*P"]},
+                   out)
+    label = f"multigrid {small_grid}^2 A*P"
+    _, _, c_idx, c_nnz, _, _ = shapes.pop(label)
+    shapes.clear()
+    torch.cuda.empty_cache()
+    phase_ladder(rt, km, sa, sp_, c_idx, c_nnz)
+    phase_validation(rt, km, sa, sp_)
+    out["trace"] = phase_tracing(rt, km, a, p, ex, root)
+    rt.autotune.reset_tuner()
+    rt.telemetry.reset_all()
+    rt.faults.reset_failpoints()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1943,8 +2349,12 @@ def main(argv=None) -> int:
     import repro_torch.sparse as rt_sparse
     import repro_torch.configs as rt_configs
     import repro_torch.kernels as kernels_api
+    from repro_torch.core import autotune, executor, telemetry
     from repro_torch.kernels import _build, ops, segsum_reuse, spgemm_lp
     from repro_torch.kernels import spgemm_numeric, spgemm_symbolic
+    from repro_torch.obs import recorder, trace
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.validate import KernelFallbackError
 
     class rt:  # the port's public entry points used below
         spgemm = staticmethod(rt_core.spgemm)
@@ -1956,11 +2366,20 @@ def main(argv=None) -> int:
         bitmask_rows = staticmethod(rt_core.bitmask_rows)
         flops_stats = staticmethod(rt_core.flops_stats)
         get_config = staticmethod(rt_configs.get_config)
+        PlanCache = rt_core.PlanCache
+        numeric_reuse = staticmethod(rt_core.numeric_reuse)
+        replay_candidates = staticmethod(executor.replay_candidates)
+
+    # the selection and robustness layer: counters, tuner, faults, obs
+    rt.telemetry, rt.autotune, rt.faults, rt.recorder, rt.trace = (
+        telemetry, autotune, faults, recorder, trace)
+    rt.KernelFallbackError = KernelFallbackError
 
     class km:  # the kernels' modules: wrappers, plain versions, launch counts
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
 
     km.ops = ops
+    km.telemetry = telemetry
     km.bsr_api = kernels_api  # plan_bsr_numeric, bsr_spgemm_numeric
     # the modules (the package exports functions of the same names)
     km.bsr, km.gm, km.fa = (importlib.import_module(f"repro_torch.kernels.{name}")
@@ -2020,6 +2439,10 @@ def main(argv=None) -> int:
         phase_attention(rt, km, args.seed, attn)
     with Phase("phase 13: times of K6, K7 and K8"):
         new_times = phase_new_times(rt, km, bsr, moe, attn)
+    del bsr["blocks"], bsr["plan"], moe["ins"], attn["ins"]
+    torch.cuda.empty_cache()
+    with Phase("phase 14: autotune, validation, the ladder and tracing on the card"):
+        phase_tune_ladder(rt, km, args.seed, ops_times, Path(__file__).resolve().parent)
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     kernels = [

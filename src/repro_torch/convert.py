@@ -5,9 +5,9 @@ on the JAX side), so this module needs nothing of JAX. A plan built by the
 reference replays in the port, and a port plan handed back through
 ``plan_to_numpy`` replays in the reference. ELL arrays cross as they are;
 a bitmask crosses bit for bit between the reference's uint32 and the port's
-int32 (``bitmask_from_numpy``, ``bitmask_to_numpy``). BSR operands and the
-block plan of ``kernels.bsr_spgemm`` cross as int32 structure arrays and
-(nnzb, bs, bs) blocks (``bsr_from_numpy``, ``bsr_plan_from_numpy``).
+int32 (``bitmask_from_numpy``, ``bitmask_to_numpy``). A BSR operand
+crosses as a port ``BSR`` (``bsr_from_numpy``) and the block plan of
+``kernels.bsr_spgemm`` as its five int32 arrays (``bsr_plan_from_numpy``).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.spgemm import SpgemmPlan
-from repro_torch.sparse.formats import CSR, ELL
+from repro_torch.sparse.formats import BSR, CSR, ELL
 
 _PLAN_FIELDS = ("indptr", "indices", "seg_ids", "a_slot_s", "b_slot_s")
 
@@ -93,12 +93,21 @@ def bitmask_to_numpy(words: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(tensor_to_numpy(words)).view(np.uint32)
 
 
-def bsr_from_numpy(indptr, indices, blocks, device="cuda") -> tuple:
-    """A reference BSR operand as ``(indptr, indices, blocks)`` tensors on
-    ``device``: int32 structure and (nnzb, bs, bs) blocks."""
-    return (tensor_from_numpy(np.asarray(indptr, np.int32), device),
-            tensor_from_numpy(np.asarray(indices, np.int32), device),
-            tensor_from_numpy(blocks, device))
+def bsr_from_numpy(indptr, indices, blocks, shape=None, device="cuda") -> BSR:
+    """A reference BSR operand's arrays as a port ``BSR`` on ``device``:
+    int32 structure and (nnzb, bm, bn) blocks. ``shape`` defaults to the
+    smallest that holds every live block; the result still unpacks as
+    ``(indptr, indices, blocks)``."""
+    indptr = np.asarray(indptr, np.int32)
+    indices = np.asarray(indices, np.int32)
+    bm, bn = np.shape(blocks)[1:]
+    if shape is None:
+        live = indices[:int(indptr[-1])]
+        shape = ((len(indptr) - 1) * bm, (int(live.max()) + 1 if live.size else 0) * bn)
+    return BSR(indptr=tensor_from_numpy(indptr, device),
+               indices=tensor_from_numpy(indices, device),
+               blocks=tensor_from_numpy(blocks, device),
+               shape=(int(shape[0]), int(shape[1])), block_shape=(int(bm), int(bn)))
 
 
 def bsr_plan_from_numpy(c_indptr, c_indices, contrib_a, contrib_b, contrib_n,

@@ -17,27 +17,40 @@ resolves to, "pallas" the CUDA ``segsum_reuse`` kernel, "pallas_lp" the CUDA
 the plain path and bump ``FALLBACK_COUNTS["dtype:executor->xla"]``. Batched
 replay always runs the plain path, as in the reference.
 
-There is no degradation ladder in this slice: a kernel whose launch fails
-raises ``KernelFallbackError`` from its wrapper, and a kernel that cannot be
-built raises from ``kernels._build`` (the reference's
-``on_kernel_failure="raise"``).
-``on_kernel_failure="fallback"``, ``nan_guard``, ``watchdog``, ``validate``
-and ``tune`` raise ``SpgemmConfigError`` until the port's runtime/ and
-autotune slices land.
+The reference's selection and robustness options, with its defaults:
+``tune="measure"`` times the eligible replay backends on the first
+operands (``replay_candidates``) and pins the winner; ``validate=`` builds a
+``PlanGuard`` at pin time; ``nan_guard=True`` reruns a non-finite output and
+classifies it (``nan_guard:rerun``, ``:recovered``, ``:data``); ``watchdog=``
+deadlines each replay, synchronising the card inside the step;
+``on_kernel_failure="fallback"`` turns a kernel failure (a CUDA error of the
+launch, an armed failpoint) into one step down the ladder on the same device
+(``runtime.ladder``), counted as ``FALLBACK_COUNTS["fault:<backend>-><next>"]``,
+where "raise" gives ``KernelFallbackError``. A kernel library that cannot be
+built or loaded raises its typed ``KernelFallbackError`` through the ladder:
+a broken build is never a rung.
+
+Where the plain replay stands in for a kernel, the CPU and the card differ.
+On the CPU it is the reference's: the next rung after a kernel, a measured
+candidate, and the nan guard's rerun. On the card none of the three: the two
+replay kernels are each the other's rung and rerun, and only they are
+measured; the plain replay runs there only as the backend a caller picks
+("xla", "auto") or where the dtype guard sends f64/int operands.
 """
 from __future__ import annotations
 
+import time
 from collections import Counter, OrderedDict
 from typing import Sequence
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.meta import DEFAULT_PAD_POLICY, f32_accumulation_ok
 from repro_torch.core.plan_cache import default_plan_cache, structure_key
 from repro_torch.core.spgemm import (
     SpgemmPlan,
     _note_stage,
-    _reject_later_slice_options as _reject_spgemm_options,
     gather_clamped,
     lp_replay_values,
     numeric_reuse,
@@ -45,11 +58,23 @@ from repro_torch.core.spgemm import (
     resolve_plan,
     spgemm,
 )
+from repro_torch.core.utils import block_until_ready
 from repro_torch.kernels.segsum_reuse import segsum_reuse
-from repro_torch.runtime.validate import PlanMismatchError, SpgemmConfigError
+from repro_torch.obs import recorder
+from repro_torch.obs import trace as obs_trace
+from repro_torch.runtime import ladder
+from repro_torch.runtime.validate import (
+    PlanGuard,
+    PlanMismatchError,
+    SpgemmConfigError,
+    check_plan_compat,
+    resolve_mode,
+)
 from repro_torch.sparse.formats import CSR
 
 BACKENDS = ("auto", "xla", "pallas", "pallas_lp")
+# On the card a failed replay kernel steps to the other one.
+OTHER_KERNEL = {"pallas": "pallas_lp", "pallas_lp": "pallas"}
 
 # Dispatch telemetry: counts calls, so tests can assert that grouping issues
 # one batched replay per structure.
@@ -81,6 +106,64 @@ def _replay(plan: SpgemmPlan, a_values, b_values, backend: str):
     return numeric_reuse(plan, a_values, b_values)
 
 
+def replay_candidates(plan, a_values, b_values) -> dict:
+    """The eligible replay backends for these operands, as autotuner thunks.
+
+    The f32-accumulating kernels ("pallas", "pallas_lp") only when
+    ``f32_accumulation_ok`` admits the operand dtypes: measure mode must
+    never time (let alone pick) a kernel the dtype guard would refuse to
+    dispatch. "xla" on the CPU, as in the reference, and on the card only
+    where the dtype guard leaves no kernel.
+    """
+    names = ["pallas", "pallas_lp"] if f32_accumulation_ok(a_values.dtype,
+                                                           b_values.dtype) else []
+    if not (names and ladder.kernels_only(a_values.device)):
+        names.insert(0, "xla")
+    return {nm: (lambda nm=nm: _replay(plan, a_values, b_values, nm)) for nm in names}
+
+
+def replay_rungs(backend: str, on_card: bool) -> list[str]:
+    """The replay ladder's rungs from ``backend``: on the CPU a kernel steps
+    to "xla", as in the reference; on the card to the other kernel. "xla"
+    is its own last rung."""
+    if backend not in OTHER_KERNEL:
+        return [backend]
+    return [backend, OTHER_KERNEL[backend] if on_card else "xla"]
+
+
+def measured_replay_backend(plan, a_values, b_values, cache=None,
+                            cache_key: str | None = None) -> str:
+    """The measured-fastest replay backend for these operands, resolved in
+    order (each layer spares the next its work):
+
+      1. the plan-cache entry's sidecar meta (dtype-qualified: the
+         structure key leaves value dtypes out on purpose), when ``cache``
+         and ``cache_key`` are given;
+      2. the autotuner's structure-stats bucket table;
+      3. a first-sight micro-bench of ``replay_candidates`` on these
+         operands, recorded in the bucket table.
+
+    A winner found in 2 or 3 is written back to the plan-cache entry, so
+    later calls re-dispatch it with zero re-tuning.
+    """
+    meta_key = ("tuned_backend", str(a_values.dtype), str(b_values.dtype))
+    if cache is not None:
+        winner = cache.get_meta(cache_key, meta_key)
+        if winner is not None:
+            autotune.TUNE_COUNTS["plan_meta_hit"] += 1
+            return winner
+    m, k = (int(x) for x in plan.shape)
+    bkey = autotune.bucket_key(m, k, plan.seg_ids.shape[0], a_values.dtype,
+                               b_values.dtype, table="replay", device=a_values.device)
+    winner = autotune.lookup_measured(bkey)
+    if winner is None:
+        winner, _ = autotune.measure_and_record(
+            bkey, replay_candidates(plan, a_values, b_values))
+    if cache is not None:
+        cache.set_meta(cache_key, meta_key, winner)
+    return winner
+
+
 def _replay_batched(plan: SpgemmPlan, a_values, b_values):
     """The reference's vmapped ``numeric_reuse`` with the batch written out:
     either operand is (batch, n) or shared (n,)."""
@@ -95,18 +178,13 @@ def _replay_batched(plan: SpgemmPlan, a_values, b_values):
     return out[:, :nnz_cap]
 
 
-def _reject_later_slice_options(tune, validate, nan_guard, watchdog,
-                                on_kernel_failure) -> None:
-    _reject_spgemm_options(mesh=None, tune=tune, validate=validate, trace=None)
-    if nan_guard or watchdog is not None:
+def _check_tune(tune, backend: str) -> None:
+    autotune.validate_tune(tune)
+    if tune == "measure" and backend != "auto":
         raise SpgemmConfigError(
-            "nan_guard and watchdog come with the port's runtime/ slice "
-            "(ROADMAP Queue 1)")
-    if on_kernel_failure != "raise":
-        raise SpgemmConfigError(
-            f"on_kernel_failure={on_kernel_failure!r}: the port has no "
-            f"degradation ladder until its runtime/ slice, so a failed "
-            f"kernel always raises KernelFallbackError ('raise')")
+            f"tune='measure' requires backend='auto' (got "
+            f"backend={backend!r}): measure mode picks the backend "
+            f"empirically, an explicit pin contradicts it")
 
 
 class ReuseExecutor:
@@ -115,21 +193,45 @@ class ReuseExecutor:
     Construction is the only host-side work: every later ``apply`` /
     ``apply_batched`` replays the plan with zero structure hashing and zero
     cache probes.
+
+    ``tune="measure"`` defers the backend choice to the first ``apply``:
+    the autotuner's bucket table is consulted (a previous executor on a
+    same-bucket problem already paid the sweep), else the eligible replay
+    backends are timed once on the first real operands; every later
+    ``apply`` dispatches the pinned winner. ``kernel_source`` records the
+    provenance ("static", then "measured", or "fallback" after a ladder
+    step). Requires ``backend="auto"``. ``apply_batched`` stays on the plain
+    batched formulation regardless.
+
+    Robustness knobs (see the module docstring): ``validate``,
+    ``nan_guard``, ``watchdog``, ``on_kernel_failure``.
     """
 
     def __init__(self, plan: SpgemmPlan, *, backend: str = "auto",
                  tune: str | None = None, validate: str | None = "off",
                  nan_guard: bool = False, watchdog=None,
-                 on_kernel_failure: str = "raise"):
+                 on_kernel_failure: str = "fallback"):
         if plan is None:
             raise SpgemmConfigError(
                 "ReuseExecutor needs a SpgemmPlan; got None — build the plan "
                 "with spgemm(method='sparse')")
-        _reject_later_slice_options(tune, validate, nan_guard, watchdog,
-                                    on_kernel_failure)
+        _check_tune(tune, backend)
+        ladder.check_policy(on_kernel_failure)
         self.plan = plan
         self.backend = _resolve_backend(backend)
+        self.tune = tune
+        self.kernel_source = "static"
+        self._needs_measure = tune == "measure"
+        # the executor's default is a literal "off", not None: replay is the
+        # hot path, and $REPRO_VALIDATE must not change it behind a serving
+        # loop's back
+        self.validate_mode = resolve_mode(validate)
+        self.nan_guard = nan_guard
+        self.watchdog = watchdog
         self.on_kernel_failure = on_kernel_failure
+        self.nan_events: list[tuple] = []
+        # pin-time plan digest: one host read here buys O(1) per-replay checks
+        self._guard = PlanGuard(plan) if self.validate_mode != "off" else None
         self._skey: str | None = None  # set by from_matrices/pin
         self._pad_policy: str | None = None
         self._fm_cap: int | None = None
@@ -139,15 +241,16 @@ class ReuseExecutor:
                       plan_cache=None, backend: str = "auto",
                       tune: str | None = None, validate: str | None = "off",
                       nan_guard: bool = False, watchdog=None,
-                      on_kernel_failure: str = "raise") -> "ReuseExecutor":
+                      on_kernel_failure: str = "fallback") -> "ReuseExecutor":
         """Build (or fetch from the plan cache) the plan for ``a @ b`` and pin
         it: the one structure hash of the executor's life. The key is kept
         for ``check_compat``."""
-        _reject_later_slice_options(tune, validate, nan_guard, watchdog,
-                                    on_kernel_failure)
+        _check_tune(tune, backend)
         res = spgemm(a, b, method="sparse", pad_policy=pad_policy,
-                     plan_cache=plan_cache)
-        ex = cls(res.plan, backend=backend, on_kernel_failure=on_kernel_failure)
+                     plan_cache=plan_cache, validate=validate)
+        ex = cls(res.plan, backend=backend, tune=tune, validate=validate,
+                 nan_guard=nan_guard, watchdog=watchdog,
+                 on_kernel_failure=on_kernel_failure)
         ex._skey = res.stats["structure_key"]
         ex._pad_policy = res.stats["pad_policy"]
         ex._fm_cap = res.stats["fm_cap"]
@@ -162,21 +265,19 @@ class ReuseExecutor:
         from a bare plan. Costs one ``structure_key`` digest."""
         policy = self._pad_policy or DEFAULT_PAD_POLICY
         a, b, _, _, fm_cap = prepare_sparse_inputs(a, b, policy)
-        if self._skey is None:
-            raise PlanMismatchError(
-                "this executor has no pinned structure key (constructed from "
-                "a bare plan); build it with ReuseExecutor.pin/from_matrices "
-                "to enable the structure-key recheck")
-        if fm_cap != self._fm_cap:
+        if self._skey is not None and fm_cap != self._fm_cap:
             raise PlanMismatchError(
                 f"operand expansion bucket fm_cap={fm_cap} != the pinned "
                 f"plan's {self._fm_cap}")
-        key = structure_key(a, b, fm_cap, policy)
-        if key != self._skey:
-            raise PlanMismatchError(
-                f"operand structure key {key[:12]}... does not match the "
-                f"pinned plan's {self._skey[:12]}... — the plan would replay "
-                f"against a different sparsity structure")
+        check_plan_compat(self._skey, a, b, fm_cap, policy)
+
+    def _measure(self, a_values: torch.Tensor, b_values: torch.Tensor) -> None:
+        """First-apply backend measurement (tune="measure" only): the bucket
+        table first, else a sweep of the eligible backends on these
+        operands, recorded for the bucket. The winner is pinned."""
+        self.backend = measured_replay_backend(self.plan, a_values, b_values)
+        self.kernel_source = "measured"
+        self._needs_measure = False
 
     @property
     def shape(self) -> tuple:
@@ -196,19 +297,98 @@ class ReuseExecutor:
 
         ``donate`` takes the reference's values (False, True, "both", "a",
         "b") and is a no-op: eager PyTorch allocates the output anew and
-        never aliases an input into it.
+        never aliases an input into it. As in the reference it does not
+        combine with ``nan_guard``.
         """
         DISPATCH_COUNTS["apply"] += 1
+        if self._needs_measure:
+            self._measure(a_values, b_values)
         if donate not in _DONATE:
             raise SpgemmConfigError(
                 f"donate must be bool, 'a', 'b' or 'both'; got {donate!r}")
+        if donate and self.nan_guard:
+            raise SpgemmConfigError(
+                "nan_guard and donate are incompatible: the guard's rerun "
+                "reads the operand buffers after dispatch, which donation "
+                "invalidates")
+        if self._guard is not None:
+            self._guard.check_values(a_values, b_values, self.validate_mode)
+        out = self._dispatch(a_values, b_values)
+        if self.nan_guard:
+            out = self._nan_check(out, a_values, b_values)
+        return out
+
+    def _dispatch(self, a_values, b_values):
+        """One replay under the degradation ladder and the watchdog. With
+        tracing off this is the bare ladder; with it on, a
+        ``numeric.dispatch`` span and a flight-recorder event."""
         backend = self.backend
         if backend in ("pallas", "pallas_lp") and not f32_accumulation_ok(
                 a_values.dtype, b_values.dtype):
-            from repro_torch.core.telemetry import FALLBACK_COUNTS
+            from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
 
             FALLBACK_COUNTS["dtype:executor->xla"] += 1
-        return _replay(self.plan, a_values, b_values, backend)
+        if not obs_trace.enabled():
+            return self._run_ladder(a_values, b_values, backend)
+        t0 = time.perf_counter()
+        with obs_trace.span("numeric.dispatch", kernel=backend,
+                            site="executor") as sp:
+            out = self._run_ladder(a_values, b_values, backend, sp=sp)
+        recorder.record(
+            "dispatch", kernel=self.backend, structure_key=self._skey,
+            shapes=f"{tuple(a_values.shape)}x{tuple(b_values.shape)}",
+            duration_s=time.perf_counter() - t0,
+            verdict=("fallback" if sp.attrs.get("fallback") else "ok"),
+            trace_id=obs_trace.current_trace_id())
+        return out
+
+    def _run_ladder(self, a_values, b_values, backend, sp=None):
+        """The degradation ladder proper (``replay_rungs``). Typed errors (a
+        kernel library that cannot be built included) and watchdog verdicts
+        pass through."""
+
+        def stepped(step: str) -> None:
+            self.kernel_source = "fallback"
+            if sp is not None:
+                sp.set("fallback", step)
+
+        out, _ = ladder.walk(
+            replay_rungs(backend, ladder.kernels_only(a_values.device)),
+            lambda name: self._timed(a_values, b_values, name),
+            on_kernel_failure=self.on_kernel_failure, site="executor",
+            what="replay backend", on_step=stepped, structure_key=self._skey)
+        return out
+
+    def _timed(self, a_values, b_values, backend):
+        """Run one replay, under the watchdog's deadline when one is set: the
+        guarded step synchronises the card, so it times the finished result."""
+        if self.watchdog is None:
+            return _replay(self.plan, a_values, b_values, backend)
+        with self.watchdog.step(DISPATCH_COUNTS["apply"]
+                                + DISPATCH_COUNTS["apply_batched"]):
+            return block_until_ready(_replay(self.plan, a_values, b_values, backend))
+
+    def _nan_check(self, out, a_values, b_values):
+        """Opt-in output guard: on a non-finite output, rerun once and
+        classify — "recovered" (the rerun's output is finite: a kernel-side
+        fault, the rerun is returned) or "data" (the operands carry NaN/Inf:
+        flagged, the rerun is returned). The rerun is the plain replay on
+        the CPU; on the card a replay kernel's rerun is the other kernel."""
+        if not out.is_floating_point() or bool(torch.isfinite(out).all()):
+            return out
+        from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
+
+        FALLBACK_COUNTS["nan_guard:rerun"] += 1
+        rungs = replay_rungs(self.backend, ladder.kernels_only(a_values.device))
+        oracle = (numeric_reuse(self.plan, a_values, b_values) if rungs[-1] == "xla"
+                  else _replay(self.plan, a_values, b_values, rungs[-1]))
+        if bool(torch.isfinite(oracle).all()):
+            FALLBACK_COUNTS["nan_guard:recovered"] += 1
+            self.nan_events.append(("recovered", self.backend))
+            return oracle
+        FALLBACK_COUNTS["nan_guard:data"] += 1
+        self.nan_events.append(("data", self.backend))
+        return oracle
 
     def apply_batched(self, a_values: torch.Tensor,
                       b_values: torch.Tensor) -> torch.Tensor:
@@ -223,7 +403,17 @@ class ReuseExecutor:
             raise SpgemmConfigError(
                 "apply_batched needs at least one stacked (batch, nnz) operand; "
                 "use apply() for a single replay")
-        return _replay_batched(self.plan, a_values, b_values)
+        if self._guard is not None:
+            self._guard.check_values(a_values, b_values, self.validate_mode,
+                                     batched=True)
+        batch = a_values.shape[0] if a_values.ndim == 2 else b_values.shape[0]
+        with obs_trace.span("numeric.dispatch", kernel="xla", site="executor",
+                            batch=batch):
+            if self.watchdog is None:
+                return _replay_batched(self.plan, a_values, b_values)
+            with self.watchdog.step(DISPATCH_COUNTS["apply"]
+                                    + DISPATCH_COUNTS["apply_batched"]):
+                return block_until_ready(_replay_batched(self.plan, a_values, b_values))
 
     def to_csr(self, values: torch.Tensor) -> CSR:
         """Wrap one replay's values in the plan's C structure."""
@@ -240,8 +430,14 @@ def spgemm_grouped(pairs: Sequence[tuple[CSR, CSR]], *,
     Each (A, B) multiply is hashed once with ``structure_key``; multiplies
     that share a structure and operand value dtypes are stacked and replayed
     through one ``apply_batched``. Results come back in input order.
+
+    tune="measure": singleton groups dispatch the measured replay winner
+    (``measured_replay_backend``: the plan-cache entry's recorded winner,
+    else the bucket table, else a first-sight measurement, written back to
+    the entry), as ``spgemm(tune="measure")`` does. Batched groups keep the
+    plain batched replay. Requires backend="auto".
     """
-    _reject_spgemm_options(mesh=None, tune=tune, validate=None, trace=None)
+    _check_tune(tune, backend)
     policy = DEFAULT_PAD_POLICY if pad_policy is None else pad_policy
     pairs = list(pairs)
     if not pairs:
@@ -265,13 +461,18 @@ def spgemm_grouped(pairs: Sequence[tuple[CSR, CSR]], *,
         prepared.append((a, b, fm_cap))
 
     results: list[CSR | None] = [None] * len(prepared)
-    for (skey, _, _), idxs in groups.items():
+    for (skey, adt, bdt), idxs in groups.items():
         a0, b0, fm_cap = prepared[idxs[0]]
         plan, _, _ = resolve_plan(a0, b0, fm_cap, policy, cache, key=skey)
-        ex = ReuseExecutor(plan, backend=backend)
         if len(idxs) == 1:
+            if tune == "measure":
+                pinned = measured_replay_backend(plan, a0.values, b0.values, cache, skey)
+                ex = ReuseExecutor(plan, backend=pinned)
+            else:
+                ex = ReuseExecutor(plan, backend=backend)
             results[idxs[0]] = ex.to_csr(ex.apply(a0.values, b0.values))
             continue
+        ex = ReuseExecutor(plan, backend=backend)  # batched stays plain
         a_stack = torch.stack([prepared[i][0].values for i in idxs])
         b_stack = torch.stack([prepared[i][1].values for i in idxs])
         vals = ex.apply_batched(a_stack, b_stack)

@@ -3,11 +3,17 @@
 The paper's selection constants are kept verbatim:
   * CPUs/KNLs: KKDENSE when k < 250 000, KKMEM otherwise.
   * GPUs:      KKMEM when average row flops < 256, KKLP otherwise.
+  * ARS estimate for symbolic sizing: f_m / 8 ("every 8th multiplication
+    reduces to the same nonzero").
 
-Only the static thresholds are ported: the fitted and measured tables of the
-reference's autotuner arrive with the port's ``autotune`` slice, so every
-decision here records ``*_source == "static"``. Tie directions are part of
-the contract: ``avg_row_flops == cutoff`` selects 'flat_lp' and
+Threshold precedence (static < fitted < measured; see ``core/autotune.py``):
+the paper's constants, unless an active ``TunedThresholds`` table has a row
+for the operands' backend (``autotune.backend_key(a.device)``), in which
+case ``choose_kernel``/``choose_method`` use its cutoffs; ``tune="measure"``
+callers dispatch the measured winner instead. Each chooser records its
+provenance (``kernel_source``/``method_source`` in {"static", "fitted"}) in
+the stats it is passed. Tie directions are part of the contract:
+``avg_row_flops == cutoff`` selects 'flat_lp' and
 ``dense_bytes == DENSE_BYTES_BUDGET`` still selects 'dense'.
 """
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 
 DENSE_K_CUTOFF = 250_000  # paper §3.3
 AVG_ROW_FLOPS_CUTOFF = 256  # paper §3.3 (GPU variant selection)
+ARS_REDUCTION_GUESS = 8  # paper §3.3: every 8th multiply collides
 DENSE_BYTES_BUDGET = 1 << 30  # 1 GiB guard for the dense accumulator
 
 # Capacity padding policies for the static caps (fm_cap / nnz_cap). "pow2"
@@ -65,13 +72,17 @@ def choose_method(a, b, stats: dict) -> str:
     """Return 'dense' or 'sparse'. The dense accumulator is an (m, k) values
     array in the accumulation dtype plus an (m, k) int32 occupancy mask, so
     the memory guard scales with the promoted value dtype. ``stats`` is
-    written, not read."""
+    written, not read. The k cutoff comes from the fitted table when one
+    covers the operands' backend, else the paper's constant."""
+    from repro_torch.core import autotune  # cycle-free
+
     k = b.k
     val_itemsize = torch.promote_types(a.values.dtype, b.values.dtype).itemsize
     dense_bytes = a.m * k * (val_itemsize + 4)  # values + int32 occupancy
+    k_cutoff, source = autotune.dense_k_cutoff(getattr(a, "device", None))
     stats["dense_bytes"] = dense_bytes
-    stats["method_source"] = "static"
-    if k < DENSE_K_CUTOFF and dense_bytes <= DENSE_BYTES_BUDGET:
+    stats["method_source"] = source
+    if k < k_cutoff and dense_bytes <= DENSE_BYTES_BUDGET:
         return "dense"
     return "sparse"
 
@@ -79,8 +90,11 @@ def choose_method(a, b, stats: dict) -> str:
 def choose_kernel(a, b, stats: dict) -> str:
     """Return 'dense_acc' or 'flat_lp' — the paper's GPU rule on average row
     flops. ``stats`` must carry ``fm``; a missing ``fm`` raises ``KeyError``
-    rather than silently picking 'dense_acc'. The tie at the cutoff goes to
-    'flat_lp'."""
+    rather than silently picking 'dense_acc'. The cutoff comes from the
+    fitted table when one covers the operands' backend, else the paper's
+    256; the tie at the cutoff goes to 'flat_lp'."""
+    from repro_torch.core import autotune  # cycle-free
+
     if "fm" not in stats:
         raise KeyError(
             "choose_kernel requires stats['fm'] (total multiplications; see "
@@ -88,7 +102,13 @@ def choose_kernel(a, b, stats: dict) -> str:
             "'dense_acc'")
     fm = max(int(stats["fm"]), 1)
     avg_row_flops = fm / max(a.m, 1)
+    cutoff, source = autotune.avg_row_flops_cutoff(getattr(a, "device", None))
     stats["avg_row_flops"] = avg_row_flops
-    stats["kernel_source"] = "static"
-    return "dense_acc" if avg_row_flops < AVG_ROW_FLOPS_CUTOFF else "flat_lp"
+    stats["kernel_source"] = source
+    return "dense_acc" if avg_row_flops < cutoff else "flat_lp"
+
+
+def estimate_ars(fm: int) -> int:
+    """Average output row size estimate used before symbolic (paper §3.3)."""
+    return max(fm // ARS_REDUCTION_GUESS, 1)
 

@@ -32,9 +32,15 @@ or pads ``torch.nonzero``'s output to ``nnz_cap``.
 
 ``STAGE_COUNTS`` counts stage *calls*. It takes the place of the reference's
 ``TRACE_COUNTS``, which counts XLA retraces: eager PyTorch never retraces.
-The ``mesh=``, ``tune=``, ``trace=`` and ``validate=`` options come with
-later slices of the port (see ROADMAP) and raise ``SpgemmConfigError`` until
-then.
+
+``spgemm`` takes the reference's robustness and selection options:
+``validate=`` checks both operands with ``runtime.validate.check_csr``
+before any dispatch, ``trace=`` pins the ``obs.trace`` mode for the call
+(spans ``spgemm.prepare``, ``plan.build``, ``spgemm.symbolic`` and
+``numeric.dispatch`` at the reference's places), and ``tune="measure"``
+replays through the measured-fastest replay backend (``_measured_replay``).
+Only ``mesh=`` still raises ``SpgemmConfigError``: it comes with the port's
+dist/ slice.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ from repro_torch.core.meta import (DEFAULT_PAD_POLICY, choose_kernel,
 from repro_torch.core.plan_cache import default_plan_cache, structure_key
 from repro_torch.core.utils import popcount, segment_ends, segmented_scan
 from repro_torch.kernels.spgemm_lp import lp_reuse
+from repro_torch.obs.trace import span, trace_scope
 from repro_torch.runtime.validate import CapacityOverflowError, SpgemmConfigError
 from repro_torch.sparse.formats import CSR, ELL, csr_row_ids
 
@@ -483,32 +490,26 @@ def resolve_plan(a: CSR, b: CSR, fm_cap: int, policy: str, cache, key=None):
         plan = cache.get(key)
         if plan is not None:
             return plan, "hit", key
-    sx = expand_and_sort(a, b, fm_cap)
-    nnz_cap = round_capacity(int(sx.row_sizes.sum()), policy)
-    plan = plan_from_sorted(sx, b.k, nnz_cap)
-    del sx
+    with span("plan.build", structure_key=key, fm_cap=fm_cap) as sp:
+        sx = expand_and_sort(a, b, fm_cap)
+        nnz_cap = round_capacity(int(sx.row_sizes.sum()), policy)
+        sp.set("nnz_cap", nnz_cap)
+        plan = plan_from_sorted(sx, b.k, nnz_cap)
+        del sx
     if cache is None:
         return plan, "bypass", key
     cache.put(key, plan)
     return plan, "miss", key
 
 
-def _reject_later_slice_options(mesh, tune, validate, trace) -> None:
-    if mesh is not None:
-        raise SpgemmConfigError(
-            "mesh= comes with the port's dist/ slice (ROADMAP Queue 1); this "
-            "slice runs one device")
-    if tune is not None:
-        raise SpgemmConfigError(
-            "tune= comes with the port's autotune slice (ROADMAP Queue 1); "
-            "this slice uses the static paper thresholds")
-    if validate not in (None, "off"):
-        raise SpgemmConfigError(
-            "validate= other than 'off' comes with the port's runtime/ slice "
-            "(ROADMAP Queue 1)")
-    if trace not in (None, False, "off"):
-        raise SpgemmConfigError(
-            "trace= comes with the port's obs/ slice (ROADMAP Queue 1)")
+def _measured_replay(plan, a: CSR, b: CSR, cache, cache_key: str):
+    """tune="measure" replay: dispatch the measured-fastest replay backend
+    (``executor.measured_replay_backend``: plan-cache meta, then bucket,
+    then micro-bench)."""
+    from repro_torch.core.executor import _replay, measured_replay_backend
+
+    winner = measured_replay_backend(plan, a.values, b.values, cache, cache_key)
+    return _replay(plan, a.values, b.values, winner), winner
 
 
 def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
@@ -523,8 +524,8 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
     operands take the plain path and bump ``FALLBACK_COUNTS
     ["dtype:lp->xla"]``), "dense" (KKDENSE: ``symbolic`` and the dense
     (m, k) accumulator of ``numeric_dense_acc``, plain torch, ``plan=None``)
-    or "auto" (``choose_method``: dense when k < 250,000 and the accumulator
-    fits 1 GiB).
+    or "auto" (``choose_method``: dense when k < 250,000 — or the fitted
+    cutoff — and the accumulator fits 1 GiB).
 
     compress: only the dense method's symbolic phase reads it ("auto" = the
         paper's CF <= 0.85 rule, "always", or "never"); its stats (cf, cmrf,
@@ -534,21 +535,53 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
     plan_cache: None uses the module-level LRU; a PlanCache isolates; False
         disables caching for this call. On a structure hit the expansion and
         sort are skipped (stats["cache"] == "hit").
-    tune, mesh, validate (other than "off") and trace raise
-        ``SpgemmConfigError`` until the port's slice that brings them.
+    validate: "off" (default via None) | "host" | "device" — typed operand
+        validation (``runtime.validate.check_csr``) before any dispatch;
+        ``None`` defers to ``$REPRO_VALIDATE``. "off" adds no work.
+    tune: None or "measure" (sparse/auto-sparse only): the replay backend is
+        the measured winner (``_measured_replay``), ``stats["kernel_source"]
+        == "measured"`` and ``stats["replay_backend"]`` records it; the
+        dense method ignores tune, method="lp" rejects it.
+    trace: None (the ambient mode, ultimately ``$REPRO_TRACE``) | bool |
+        "off" | "on" | "xprof" — phase spans for this call (``obs.trace``).
+    mesh: raises ``SpgemmConfigError`` until the port's dist/ slice.
     """
-    _reject_later_slice_options(mesh, tune, validate, trace)
+    from repro_torch.core import autotune  # cycle-free
+    from repro_torch.runtime.validate import check_csr, resolve_mode
+
+    if trace is not None:
+        # pin the mode for the whole call, then run the body under it
+        with trace_scope(trace):
+            return spgemm(a, b, method=method, compress=compress,
+                          pad_policy=pad_policy, plan_cache=plan_cache,
+                          tune=tune, mesh=mesh, validate=validate, trace=None)
     policy = DEFAULT_PAD_POLICY if pad_policy is None else pad_policy
     if method not in ("auto", "dense", "sparse", "lp"):
         raise SpgemmConfigError(
             f"unknown method {method!r}; expected 'auto', 'dense', 'sparse' "
             f"or 'lp'")
-    stats: dict = {"pad_policy": policy, "validate": "off"}
+    autotune.validate_tune(tune)
+    vmode = resolve_mode(validate)
+    if vmode != "off":
+        check_csr(a, vmode, name="A")
+        check_csr(b, vmode, name="B")
+    if tune == "measure" and method == "lp":
+        raise SpgemmConfigError(
+            "tune='measure' does not compose with method='lp': 'lp' pins "
+            "the LP-hash kernel explicitly, while measure mode exists to "
+            "pick the replay backend empirically — use method='sparse' (or "
+            "'auto') with tune='measure'")
+    if mesh is not None:
+        raise SpgemmConfigError(
+            "mesh= comes with the port's dist/ slice (ROADMAP Queue 1); this "
+            "slice runs one device")
+    stats: dict = {"pad_policy": policy, "validate": vmode}
     if method == "auto":
         method = choose_method(a, b, stats)
     stats["method"] = method
     if method == "dense":
-        sizes, sym_stats = symbolic(a, b, compress=compress, pad_policy=policy)
+        with span("spgemm.symbolic", method="dense"):
+            sizes, sym_stats = symbolic(a, b, compress=compress, pad_policy=policy)
         stats.update(sym_stats)
         stats["kernel"] = choose_kernel(a, b, stats)  # advisory telemetry
         fm_cap = round_capacity(sym_stats["fm"], policy)
@@ -558,7 +591,8 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
         stats["nnz_c"] = nnz
         stats["nnz_cap"] = nnz_cap
         stats["cache"] = "bypass"
-        c = numeric_dense_acc(a, b, fm_cap, nnz_cap)
+        with span("numeric.dispatch", kernel="dense_acc", method="dense"):
+            c = numeric_dense_acc(a, b, fm_cap, nnz_cap)
         return SpgemmResult(c=c, plan=None, stats=stats)
 
     if plan_cache is None:
@@ -567,7 +601,8 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
         cache = None
     else:
         cache = plan_cache
-    a, b, fm, maxrf, fm_cap = prepare_sparse_inputs(a, b, policy)
+    with span("spgemm.prepare", pad_policy=policy):
+        a, b, fm, maxrf, fm_cap = prepare_sparse_inputs(a, b, policy)
     stats["fm"] = fm
     stats["maxrf"] = maxrf
     stats["fm_cap"] = fm_cap
@@ -576,14 +611,23 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
     plan, cache_state, skey = resolve_plan(a, b, fm_cap, policy, cache)
     stats["structure_key"] = skey
     if method == "lp":
-        values, stats["lp_backend"] = lp_replay_values(plan, a.values, b.values)
+        with span("numeric.dispatch", method="lp") as sp:
+            values, stats["lp_backend"] = lp_replay_values(plan, a.values, b.values)
+            sp.set("kernel", stats["lp_backend"])
         stats["replay_backend"] = stats["lp_backend"]
         if stats["lp_backend"] == "xla":
             from repro_torch.core.telemetry import FALLBACK_COUNTS
 
             FALLBACK_COUNTS["dtype:lp->xla"] += 1
+    elif tune == "measure":
+        with span("numeric.dispatch", method="measure") as sp:
+            values, winner = _measured_replay(plan, a, b, cache, skey)
+            sp.set("kernel", winner)
+        stats["replay_backend"] = winner
+        stats["kernel_source"] = "measured"  # overrides choose_kernel's
     else:
-        values = numeric_reuse(plan, a.values, b.values)
+        with span("numeric.dispatch", kernel="xla", method=method):
+            values = numeric_reuse(plan, a.values, b.values)
         stats["replay_backend"] = "xla"
     c = CSR(indptr=plan.indptr, indices=plan.indices, values=values,
             shape=(a.m, b.k))

@@ -73,3 +73,14 @@ def bit_of(col: torch.Tensor) -> torch.Tensor:
     31 is -2^31), computed without relying on an overflowing shift."""
     v = torch.ones_like(col, dtype=torch.int64) << (col.to(torch.int64) & 31)
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def block_until_ready(out):
+    """The reference's ``jax.block_until_ready``: wait until the card has
+    finished ``out`` (a tensor, or the first tensor of a tuple or list);
+    nothing to wait for on the CPU. Returns ``out``."""
+    first = next((x for x in out if isinstance(x, torch.Tensor)), None) if isinstance(
+        out, (tuple, list)) else out
+    if isinstance(first, torch.Tensor) and first.is_cuda:
+        torch.cuda.synchronize(first.device)
+    return out

@@ -5,8 +5,21 @@ interface, compiled for Hopper (``sm_90a``) at first use into
 ``build/repro_torch/`` at the root of the checkout. The file name carries a
 content hash of the sources (the ``.cu``, every ``.cuh`` beside it, and the
 flags), so a stale library is never loaded. ``build()`` starts one ``nvcc``
-per missing library, all at once, and waits for every one of them. A failed
-build raises ``KernelFallbackError``: nothing falls back.
+per missing library, all at once, and waits for every one of them.
+
+Two kinds of failure, kept apart for the degradation ladder of
+``kernels.ops.numeric_values`` and ``core.executor.ReuseExecutor``:
+
+* a library that cannot be built or loaded raises ``KernelFallbackError``,
+  a typed error. The ladder lets it through and never steps past it, so a
+  broken build can never pass for a working path (the reference's ladder
+  also absorbs lowering failures: a documented difference);
+* a launch that returns a CUDA error raises ``KernelLaunchError``, an
+  untyped ``RuntimeError`` outside the taxonomy (like
+  ``runtime.faults.InjectedFault``). The ladder treats it as a kernel
+  failure: it steps to the next rung on the same device, or, under
+  ``on_kernel_failure="raise"`` or when the rungs run out, raises
+  ``KernelFallbackError`` from it.
 """
 from __future__ import annotations
 
@@ -20,6 +33,13 @@ from pathlib import Path
 import torch
 
 from repro_torch.runtime.validate import KernelFallbackError
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error. Deliberately outside the typed
+    ``SpgemmError`` taxonomy: the degradation ladder handles it as a kernel
+    failure."""
+
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -89,7 +109,11 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
+        path = build((name,))[name]
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelFallbackError(f"cannot load {path}: {e}") from e
         _LIBS[name] = lib
     return lib
 
@@ -97,7 +121,7 @@ def load(name: str) -> ctypes.CDLL:
 def launch(name: str, argtypes, *args) -> None:
     """Call ``<name>_launch(*args)`` of ``csrc/<name>.cu``, whose C arguments
     are ``argtypes`` and which returns ``cudaGetLastError()``; a CUDA error
-    raises ``KernelFallbackError``: there is nothing to fall back to."""
+    raises ``KernelLaunchError``, which the degradation ladder catches."""
     lib = load(name)
     fn = getattr(lib, f"{name}_launch")
     err_str = getattr(lib, f"{name}_error_string")
@@ -108,7 +132,7 @@ def launch(name: str, argtypes, *args) -> None:
         err_str.restype = ctypes.c_char_p
     err = fn(*args)
     if err != 0:
-        raise KernelFallbackError(
+        raise KernelLaunchError(
             f"{name} kernel launch failed: CUDA error {err} ({err_str(err).decode()})")
 
 

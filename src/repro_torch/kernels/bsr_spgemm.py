@@ -40,6 +40,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.segsum_reuse import DTYPE_CODES
 from repro_torch.kernels.spgemm_symbolic import check_tensor
 from repro_torch.runtime.validate import SpgemmInputError
+from repro_torch.sparse.formats import BSR
 
 # kernel launches by ``bsr_spgemm_numeric`` (reset by callers that count)
 LAUNCHES = 0
@@ -59,10 +60,12 @@ _INT = ctypes.c_int
 _ARGTYPES = [_P, _INT, _I64, _P, _INT, _I64, _P, _P, _P, _I64, _I64, _P, _INT, _P]
 
 
-def plan_bsr_numeric(a_indptr, a_indices, b_indptr, b_indices):
+def plan_bsr_numeric(a_indptr, a_indices, b_indptr=None, b_indices=None):
     """Symbolic phase on the block graph.
 
-    Inputs: BSR structure tensors of A and B (integer, on one device).
+    Inputs: BSR structure tensors of A and B (integer, on one device), or
+    two ``sparse.BSR`` operands, ``plan_bsr_numeric(a, b)`` (A's block
+    columns must match B's block rows).
     Returns int32 tensors ``(c_indptr, c_indices, contrib_a, contrib_b,
     contrib_n)`` on that device, where ``contrib_*`` have shape
     ``(nnzb_C, T_max)`` and list, per C block, the contributing A and B
@@ -70,6 +73,10 @@ def plan_bsr_numeric(a_indptr, a_indices, b_indptr, b_indices):
     ascending, then B's); padded slots hold 0. ``T_max`` is 1 when C is
     empty.
     """
+    if isinstance(a_indptr, BSR):
+        a, b = a_indptr, a_indices
+        _check_bsr_pair(a, b)
+        a_indptr, a_indices, b_indptr, b_indices = a.indptr, a.indices, b.indptr, b.indices
     dev = a_indptr.device
     a_indptr, b_indptr = a_indptr.long(), b_indptr.long()
     mb = a_indptr.shape[0] - 1
@@ -98,6 +105,15 @@ def plan_bsr_numeric(a_indptr, a_indices, b_indptr, b_indices):
     c_indptr[1:] = torch.cumsum(torch.bincount(uniq // n_cols, minlength=mb), 0)
     return (c_indptr, (uniq % n_cols).to(torch.int32), contrib_a, contrib_b,
             counts.to(torch.int32))
+
+
+def _check_bsr_pair(a: BSR, b) -> None:
+    if not isinstance(b, BSR):
+        raise SpgemmInputError(f"A is a BSR, so B must be one too, got {type(b).__name__}")
+    if a.shape[1] != b.shape[0] or a.block_shape[1] != b.block_shape[0]:
+        raise SpgemmInputError(
+            f"A {a.shape} in blocks {a.block_shape} cannot multiply B {b.shape} in "
+            f"blocks {b.block_shape}")
 
 
 def check_bsr_args(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n) -> None:
@@ -167,11 +183,14 @@ def bsr_spgemm_plain(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n) -> tor
 
 def bsr_spgemm_numeric(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n) -> torch.Tensor:
     """Numeric phase. a_blocks: (nnzb_A, bs, bs); b_blocks: (nnzb_B, bs, bs),
-    bs 8 or 16, f32, f16 or bf16 (f32 accumulation); plan arrays from
-    ``plan_bsr_numeric``. Returns (nnzb_C, bs, bs) in ``a_blocks.dtype``.
-    CUDA tensors launch the kernel (or raise); CPU tensors run
-    ``bsr_spgemm_plain``."""
+    bs 8 or 16, f32, f16 or bf16 (f32 accumulation), or two ``sparse.BSR``
+    operands whose blocks are those; plan arrays from ``plan_bsr_numeric``.
+    Returns (nnzb_C, bs, bs) in A's block dtype. CUDA tensors launch the
+    kernel (or raise); CPU tensors run ``bsr_spgemm_plain``."""
     global LAUNCHES
+    if isinstance(a_blocks, BSR):
+        _check_bsr_pair(a_blocks, b_blocks)
+        a_blocks, b_blocks = a_blocks.blocks, b_blocks.blocks
     check_bsr_args(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n)
     if a_blocks.device.type == "cpu":
         return bsr_spgemm_plain(a_blocks, b_blocks, contrib_a, contrib_b, contrib_n)

@@ -13,10 +13,21 @@ grouped matmul) keep the reference's ``impl`` names: "auto" and "pallas"
 run the CUDA kernel for CUDA tensors and its plain version for CPU tensors,
 "xla" the plain version wherever the tensors live.
 
-What the reference has and this slice does not: ``tune="measure"`` (the
-port's autotune slice) and the degradation ladder of
-``on_kernel_failure="fallback"`` and its fault points (the runtime slice).
-A kernel that fails raises ``KernelFallbackError``; nothing falls back.
+``numeric_values`` runs the reference's selection and degradation ladder:
+``tune="measure"`` times the eligible kernels on the real operands and
+caches the winner per structure-stats bucket (``core.autotune``); with
+``on_kernel_failure="fallback"`` (the default) a kernel failure — a launch
+that returns a CUDA error (``_build.KernelLaunchError``) or an armed
+failpoint (``runtime.faults``) — steps to the next rung on the same device
+(``runtime.ladder``), counted in ``FALLBACK_COUNTS["fault:<kernel>-><next>"]``
+and recorded in the flight recorder. On the CPU the rungs are the
+reference's (resolved pick, then the static ``choose_kernel`` pick, then
+"xla"); on the card they are kernels only, K4 and K3 each the other's rung,
+and the plain "xla" path is neither a rung nor a measured candidate there
+(it runs only where the dtype guard or an explicit ``kernel="xla"`` sends
+the operands). Typed errors pass through untouched, among them the
+``KernelFallbackError`` of a kernel library that cannot be built or loaded:
+a broken build is never a rung.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from collections import Counter
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.compression import bitmask_rows, flops_stats
 from repro_torch.core.meta import choose_kernel, f32_accumulation_ok
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -32,12 +44,15 @@ from repro_torch.kernels.spgemm_lp import spgemm_lp_bucketed
 from repro_torch.kernels.spgemm_numeric import (spgemm_numeric_bucketed,
                                                 spgemm_numeric_ref)
 from repro_torch.kernels.spgemm_symbolic import spgemm_symbolic_bucketed
-from repro_torch.runtime.validate import (KernelFallbackError, SpgemmConfigError,
-                                          SpgemmError)
+from repro_torch.runtime import faults, ladder
+from repro_torch.runtime.validate import SpgemmConfigError
 from repro_torch.sparse.formats import CSR, csr_to_ell
 
 NUMERIC_KERNELS = ("auto", "dense_acc", "flat_lp", "xla")
 IMPLS = ("auto", "pallas", "xla")  # attention / expert_matmul
+
+# On the card a failed f32 kernel steps to the other one.
+OTHER_KERNEL = {"dense_acc": "flat_lp", "flat_lp": "dense_acc"}
 
 # Dispatch telemetry: resolved kernel name per numeric_values call.
 KERNEL_COUNTS: Counter = Counter()
@@ -51,11 +66,15 @@ def resolve_numeric_kernel(a: CSR, b: CSR, kernel: str = "auto",
                            fm: int | None = None) -> str:
     """Resolve ``kernel`` to a concrete numeric-phase implementation.
 
-    "auto" applies ``core.meta.choose_kernel`` (the static avg-row-flops
-    rule; the tie at 256 goes to "flat_lp") after the dtype guard: f64 and
-    integer operands resolve to "xla". An explicit kernel name with such
-    operands raises ``SpgemmConfigError``. ``fm``: the total multiplication
-    count, if the caller has it (saves a ``flops_stats`` pass and a sync).
+    "auto" applies ``core.meta.choose_kernel`` (the avg-row-flops rule,
+    static or fitted; the tie at the cutoff goes to "flat_lp") after the
+    dtype guard: f64 and integer operands resolve to "xla". When the
+    autotuner holds a measured winner for this problem's structure-stats
+    bucket (recorded by ``numeric_values(..., tune="measure")``), that
+    winner takes precedence: measured beats fitted beats static. An
+    explicit kernel name with f64/int operands raises
+    ``SpgemmConfigError``. ``fm``: the total multiplication count, if the
+    caller has it (saves a ``flops_stats`` pass and a sync).
     """
     if kernel not in NUMERIC_KERNELS:
         raise SpgemmConfigError(
@@ -72,7 +91,30 @@ def resolve_numeric_kernel(a: CSR, b: CSR, kernel: str = "auto",
         return "xla"
     if fm is None:
         fm = int(flops_stats(a, b.row_nnz())[0])
+    measured = autotune.lookup_measured(autotune.bucket_key(
+        a.m, b.k, fm, a.values.dtype, b.values.dtype, table="numeric",
+        device=a.device))
+    if measured is not None:
+        return measured
     return choose_kernel(a, b, {"fm": fm})
+
+
+def numeric_ladder(resolved: str, static_pick: str | None, on_card: bool) -> list[str]:
+    """The rungs of ``numeric_values``' degradation ladder, in order.
+
+    On the CPU, the reference's: the resolved pick, then the static
+    ``choose_kernel`` pick (auto modes pass it), then "xla", deduplicated.
+    On the card every rung is a kernel: a K4 or K3 pick has the other as
+    its one further rung; "xla" is a rung only when it is the pick itself
+    (the dtype guard, or an explicit ``kernel="xla"``).
+    """
+    if on_card:
+        return [resolved, OTHER_KERNEL[resolved]] if resolved in OTHER_KERNEL else [resolved]
+    rungs = [resolved]
+    for name in (static_pick, "xla"):
+        if name is not None and name not in rungs:
+            rungs.append(name)
+    return rungs
 
 
 def symbolic_rowsizes(a: CSR, b: CSR, *, pad_policy: str | None = None) -> torch.Tensor:
@@ -87,7 +129,7 @@ def symbolic_rowsizes(a: CSR, b: CSR, *, pad_policy: str | None = None) -> torch
 def numeric_values(a: CSR, b: CSR, c_idx: torch.Tensor, c_nnz: torch.Tensor, *,
                    pad_policy: str | None = None, kernel: str = "auto",
                    fm: int | None = None, tune: str | None = None,
-                   on_kernel_failure: str = "raise") -> torch.Tensor:
+                   on_kernel_failure: str = "fallback") -> torch.Tensor:
     """Kernel-backed numeric phase: ELL-layout values of C at the symbolic
     structure ``c_idx``/``c_nnz`` (the Reuse entry point). Widths bucketed.
 
@@ -97,50 +139,78 @@ def numeric_values(a: CSR, b: CSR, c_idx: torch.Tensor, c_nnz: torch.Tensor, *,
     exact for f64/int). Replay loops should pass a concrete ``kernel`` or a
     precomputed ``fm``.
 
-    tune: only None; "measure" comes with the port's autotune slice.
-    on_kernel_failure: only "raise" (a failure raises
-    ``KernelFallbackError``); "fallback" comes with the runtime slice.
-    """
-    if tune is not None:
-        raise SpgemmConfigError(
-            f"tune={tune!r} comes with the port's autotune slice (ROADMAP "
-            f"Queue 1); this slice uses the static paper thresholds")
-    if on_kernel_failure == "fallback":
-        raise SpgemmConfigError(
-            "on_kernel_failure='fallback': the port has no degradation ladder "
-            "until its runtime/ slice (ROADMAP Queue 1), so a failed kernel "
-            "always raises KernelFallbackError ('raise')")
-    if on_kernel_failure != "raise":
-        raise SpgemmConfigError(
-            f"on_kernel_failure must be 'fallback' or 'raise', got "
-            f"{on_kernel_failure!r}")
-    if kernel == "auto" and fm is None:
-        fm = int(flops_stats(a, b.row_nnz())[0])
-    resolved = resolve_numeric_kernel(a, b, kernel, fm=fm)
-    if kernel == "auto" and resolved == "xla":  # only the dtype guard gives "xla"
-        from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
+    tune="measure" (with kernel="auto" only) replaces the threshold rule by
+    a first-sight micro-bench: when ``f32_accumulation_ok`` holds,
+    "dense_acc" and "flat_lp" (and on the CPU "xla") are timed on these
+    operands, else "xla" alone; the winner runs and is recorded in the autotuner's bucket table — later
+    same-bucket calls (through here or ``resolve_numeric_kernel``) dispatch
+    it with zero re-tuning.
 
-        FALLBACK_COUNTS["dtype:numeric_auto->xla"] += 1
+    on_kernel_failure: "fallback" (default) walks the degradation ladder
+    (``numeric_ladder``) on a kernel failure of a rung (a CUDA error of a
+    launch, an armed ``kernel:<name>`` failpoint), recording each step as
+    ``FALLBACK_COUNTS["fault:<failed>-><next>"]`` and a flight-recorder
+    "fallback" event; "raise" turns the first failure into
+    ``KernelFallbackError``, as does running out of rungs. Other errors
+    (bad operands, a kernel library that cannot be built or loaded) pass
+    through untouched.
+    """
+    from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
+
+    autotune.validate_tune(tune)
+    if tune == "measure" and kernel != "auto":
+        raise SpgemmConfigError(
+            f"tune='measure' requires kernel='auto' (got kernel={kernel!r}):"
+            f" measure mode picks the kernel empirically, an explicit pin "
+            f"contradicts it")
+    ladder.check_policy(on_kernel_failure)
+    on_card = ladder.kernels_only(a.values.device)
+    f32_ok = f32_accumulation_ok(a.values.dtype, b.values.dtype)
     ea = csr_to_ell(a)
     eb = csr_to_ell(b)
-    try:
-        if resolved == "xla":
-            out = spgemm_numeric_ref(ea.indices, ea.values, ea.row_nnz, eb.indices,
-                                     eb.values, c_idx, c_nnz, k=b.k)
-        elif resolved == "flat_lp":
-            out = spgemm_lp_bucketed(ea.indices, ea.values, ea.row_nnz, eb.indices,
-                                     eb.values, eb.row_nnz, c_idx, c_nnz,
-                                     pad_policy=pad_policy, k=b.k)
-        else:
-            out = spgemm_numeric_bucketed(ea.indices, ea.values, ea.row_nnz,
-                                          eb.indices, eb.values, c_idx, c_nnz, k=b.k,
-                                          pad_policy=pad_policy, b_nnz=eb.row_nnz)
-    except SpgemmError:
-        raise  # typed errors (bad operands, a failed launch) pass as they are
-    except Exception as e:
-        raise KernelFallbackError(
-            f"numeric kernel {resolved!r} failed and on_kernel_failure='raise'") from e
-    KERNEL_COUNTS[resolved] += 1
+
+    def run(kname: str) -> torch.Tensor:
+        if kname == "xla":
+            return spgemm_numeric_ref(ea.indices, ea.values, ea.row_nnz, eb.indices,
+                                      eb.values, c_idx, c_nnz, k=b.k)
+        if kname == "flat_lp":
+            return spgemm_lp_bucketed(ea.indices, ea.values, ea.row_nnz, eb.indices,
+                                      eb.values, eb.row_nnz, c_idx, c_nnz,
+                                      pad_policy=pad_policy, k=b.k)
+        return spgemm_numeric_bucketed(ea.indices, ea.values, ea.row_nnz, eb.indices,
+                                       eb.values, c_idx, c_nnz, k=b.k,
+                                       pad_policy=pad_policy, b_nnz=eb.row_nnz)
+
+    def checked(kname: str) -> torch.Tensor:
+        faults.check(f"kernel:{kname}")
+        return run(kname)
+
+    # the auto paths need fm anyway (selection rule, bucket key, the
+    # ladder's static rung)
+    if kernel == "auto" and fm is None:
+        fm = int(flops_stats(a, b.row_nnz())[0])
+    if tune == "measure":
+        bkey = autotune.bucket_key(a.m, b.k, fm, a.values.dtype, b.values.dtype,
+                                   table="numeric", device=a.device)
+        resolved = autotune.lookup_measured(bkey)
+        if resolved is None:
+            # candidates: the dtype-eligible rows of the selection table; on
+            # the card the kernels only, unless the dtype guard leaves "xla"
+            names = (["xla"] if not (on_card and f32_ok) else []) + (
+                ["dense_acc", "flat_lp"] if f32_ok else [])
+            resolved, _ = autotune.measure_and_record(
+                bkey, {n: (lambda n=n: checked(n)) for n in names})
+    else:
+        resolved = resolve_numeric_kernel(a, b, kernel, fm=fm)
+        if kernel == "auto" and resolved == "xla" and not f32_ok:
+            FALLBACK_COUNTS["dtype:numeric_auto->xla"] += 1
+
+    static_pick = (choose_kernel(a, b, {"fm": fm})
+                   if kernel == "auto" or tune == "measure" else None)
+    out, ran = ladder.walk(numeric_ladder(resolved, static_pick, on_card), run,
+                           on_kernel_failure=on_kernel_failure, site="numeric_values",
+                           what="numeric kernel", span_name="numeric.kernel")
+    KERNEL_COUNTS[ran] += 1
     return out
 
 

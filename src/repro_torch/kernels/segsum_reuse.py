@@ -115,8 +115,10 @@ def launch_replay(lib_name: str, a_slot_s, b_slot_s, seg_ids, a_values,
                   b_values, out: torch.Tensor) -> None:
     """Launch ``<lib_name>_launch`` of ``csrc/<lib_name>.cu`` on the current
     stream, writing every slot of the f32 ``out`` (which needs no zeroing).
-    A CUDA error after the launch raises ``KernelFallbackError``: there is no
-    rung to fall back to."""
+    A CUDA error after the launch raises ``_build.KernelLaunchError``, which
+    the executor's degradation ladder turns into a step to the other replay
+    kernel (or into ``KernelFallbackError`` under
+    ``on_kernel_failure="raise"``)."""
     device = a_values.device
     fm = seg_ids.shape[0]
     with torch.cuda.device(device):

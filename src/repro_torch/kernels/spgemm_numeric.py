@@ -212,7 +212,8 @@ def launch_ell(lib_name: str, a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx,
     list read on the host), and where the kernel records rows that lost a
     product (``lost_count``, ``lost_rows``) or what sizes each row's tables
     (``size_counts``). A CUDA error after the launch raises
-    ``KernelFallbackError``: there is no rung to fall back to."""
+    ``_build.KernelLaunchError``, which the ladder of
+    ``ops.numeric_values`` turns into a step to its next rung."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 

@@ -5,7 +5,8 @@ carries a static capacity: ``indices``/``values`` hold ``nnz_cap >= nnz``
 slots and validity comes from ``indptr``, never from sentinel values. Index
 arrays are int32, so structure hashes and plan arrays match the reference
 byte for byte. ``ELL`` (with ``csr_to_ell``/``ell_to_csr``) feeds the
-numeric and symbolic kernels; BSR arrives with the kernel that reads it.
+numeric and symbolic kernels; ``BSR`` holds the block operands of the block
+numeric phase (``kernels.plan_bsr_numeric`` / ``bsr_spgemm_numeric``).
 """
 from __future__ import annotations
 
@@ -128,6 +129,54 @@ class CSR:
                     f"len(indices) == {mat.indices.shape[0]} != "
                     f"len(values) == {mat.values.shape[0]}")
         return mat
+
+
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Block CSR: CSR over a coarse (m/bm, k/bn) block graph with dense blocks.
+
+    indptr:  (mb+1,) int32 over block rows.
+    indices: (nnzb_cap,) int32 block-column ids.
+    blocks:  (nnzb_cap, bm, bn) dense blocks.
+    shape:   (m, k) python ints; block_shape: (bm, bn).
+
+    It unpacks as the ``(indptr, indices, blocks)`` triple that the
+    raw-tensor calls of ``kernels.bsr_spgemm`` take.
+    """
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    blocks: torch.Tensor
+    shape: tuple
+    block_shape: tuple
+
+    @property
+    def mb(self) -> int:
+        return self.shape[0] // self.block_shape[0]
+
+    @property
+    def kb(self) -> int:
+        return self.shape[1] // self.block_shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    def __iter__(self):
+        return iter((self.indptr, self.indices, self.blocks))
+
+    def to_dense(self) -> torch.Tensor:
+        """Densify (for oracles and tests; O(m*k) memory)."""
+        bm, bn = self.block_shape
+        nnzb_cap = self.indices.shape[0]
+        mask = torch.arange(nnzb_cap, device=self.device) < self.indptr[-1]
+        rows = torch.where(mask, csr_row_ids(self.indptr, nnzb_cap), 0).long()
+        cols = torch.where(mask, self.indices, 0).long()
+        blocks = torch.where(mask[:, None, None], self.blocks, 0)
+        out = torch.zeros(self.mb, self.kb, bm, bn, dtype=self.blocks.dtype,
+                          device=self.device)
+        out.index_put_((rows, cols), blocks, accumulate=True)
+        return out.permute(0, 2, 1, 3).reshape(self.shape)
 
 
 def csr_row_ids(indptr: torch.Tensor, nnz_cap: int) -> torch.Tensor:

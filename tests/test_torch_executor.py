@@ -225,10 +225,14 @@ def test_donate_is_accepted_and_changes_nothing():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"backend": "bogus"}, {"tune": "measure"}, {"validate": "host"},
-    {"nan_guard": True}, {"watchdog": object()}, {"on_kernel_failure": "fallback"},
+    {"backend": "bogus"}, {"tune": "bogus"}, {"validate": "bogus"},
+    {"tune": "measure", "backend": "pallas"}, {"tune": "measure", "backend": "xla"},
+    {"on_kernel_failure": "retry"},
 ])
 def test_later_slice_options_raise_config_errors(kwargs):
+    """Invalid values of the reference's options raise, as in the reference
+    (every valid value is accepted now that the runtime and autotune layers
+    are ported)."""
     ja, jb = PROBLEMS["random"]()
     ta, tb = _to_torch(ja), _to_torch(jb)
     plan = tsp.spgemm(ta, tb, method="sparse", plan_cache=False).plan
@@ -242,7 +246,8 @@ def test_executor_needs_a_plan():
     with pytest.raises(SpgemmConfigError):
         texec.ReuseExecutor(None)
     with pytest.raises(SpgemmConfigError):
-        texec.spgemm_grouped([], tune="measure")
+        texec.spgemm_grouped([], tune="bogus")
+    assert texec.spgemm_grouped([], tune="measure") == []
 
 
 def test_telemetry_snapshot_diff_and_reset():
@@ -254,7 +259,7 @@ def test_telemetry_snapshot_diff_and_reset():
     delta = ttelemetry.diff(before, ttelemetry.snapshot())
     assert delta["hash"] == {"structure_key": 1}
     assert delta["dispatch"] == {"apply": 1}
-    assert delta["stage"]["expand_and_sort"] == 1
+    assert delta["trace"]["expand_and_sort"] == 1
     assert "fallback" not in delta
     ttelemetry.reset_all()
     assert not any(ttelemetry.snapshot().values())

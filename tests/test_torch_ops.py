@@ -23,6 +23,7 @@ which runs on a card without JAX.
 """
 import ctypes
 import importlib
+import inspect
 import re
 
 import jax.numpy as jnp
@@ -38,7 +39,7 @@ from repro.kernels.spgemm_symbolic import spgemm_symbolic as j_symbolic
 from repro.kernels.spgemm_symbolic import spgemm_symbolic_bucketed as j_symbolic_bucketed
 from repro.sparse import CSR as JCSR
 from repro.sparse import generators as jgen
-from repro.sparse.oracle import gustavson_ell_structure
+from repro_torch.sparse.oracle import gustavson_ell_structure
 from repro_torch import convert
 from repro_torch.core import telemetry as ttelemetry
 from repro_torch.kernels import _build, ops
@@ -282,15 +283,19 @@ def test_numeric_values_counts_dispatches_and_the_dtype_guard():
 
 
 def test_numeric_values_has_no_ladder_and_no_tuner_yet():
+    """The ladder and the tuner are ported: their invalid options raise as in
+    the reference, and the reference's default is "fallback"."""
     ja, jb, ta, tb = _csr_pair(10, 12, 14, 2.0, 2.0, 3)
     c_idx, c_nnz = (_t(x) for x in gustavson_ell_structure(ja, jb))
-    with pytest.raises(SpgemmConfigError, match="runtime"):
-        ops.numeric_values(ta, tb, c_idx, c_nnz, on_kernel_failure="fallback")
     with pytest.raises(SpgemmConfigError):
         ops.numeric_values(ta, tb, c_idx, c_nnz, on_kernel_failure="retry")
-    with pytest.raises(SpgemmConfigError, match="autotune"):
-        ops.numeric_values(ta, tb, c_idx, c_nnz, tune="measure")
+    with pytest.raises(SpgemmConfigError):
+        ops.numeric_values(ta, tb, c_idx, c_nnz, tune="bogus")
+    with pytest.raises(SpgemmConfigError, match="kernel='auto'"):
+        ops.numeric_values(ta, tb, c_idx, c_nnz, tune="measure", kernel="xla")
     assert not ops.KERNEL_COUNTS
+    assert inspect.signature(ops.numeric_values).parameters[
+        "on_kernel_failure"].default == "fallback"
 
 
 def test_numeric_values_wraps_an_untyped_kernel_failure(monkeypatch):
@@ -298,12 +303,13 @@ def test_numeric_values_wraps_an_untyped_kernel_failure(monkeypatch):
     c_idx, c_nnz = (_t(x) for x in gustavson_ell_structure(ja, jb))
 
     def boom(*args, **kwargs):
-        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+        raise _build.KernelLaunchError("CUDA error: an illegal memory access was encountered")
 
     monkeypatch.setattr(ops, "spgemm_numeric_bucketed", boom)
     with pytest.raises(KernelFallbackError) as info:
-        ops.numeric_values(ta, tb, c_idx, c_nnz, kernel="dense_acc")
-    assert isinstance(info.value.__cause__, RuntimeError)
+        ops.numeric_values(ta, tb, c_idx, c_nnz, kernel="dense_acc",
+                           on_kernel_failure="raise")
+    assert isinstance(info.value.__cause__, _build.KernelLaunchError)
     assert not ops.KERNEL_COUNTS
 
 

@@ -291,10 +291,13 @@ def test_auto_method_and_later_slice_options_raise_config_errors():
                                rtol=1e-12, atol=1e-12)
     with pytest.raises(SpgemmConfigError):
         tsp.spgemm(a, a, method="bogus")
-    for kw in ({"mesh": object()}, {"tune": "measure"}, {"validate": "host"},
-               {"trace": "on"}):
+    # only mesh= still raises; invalid values of the other options raise as
+    # in the reference, and tune="measure" does not compose with method="lp"
+    for method, kw in (("sparse", {"mesh": object()}), ("sparse", {"tune": "bogus"}),
+                       ("sparse", {"validate": "bogus"}), ("sparse", {"trace": "bogus"}),
+                       ("lp", {"tune": "measure"})):
         with pytest.raises(SpgemmConfigError):
-            tsp.spgemm(a, a, method="sparse", **kw)
+            tsp.spgemm(a, a, method=method, **kw)
 
 
 @pytest.mark.parametrize("case", ["random", "galerkin_ap", "rmat8", "empty_rows", "zero_operand"])
