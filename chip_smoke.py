@@ -100,8 +100,33 @@ Phases, in order:
      calling check_csr never and adding nothing; (f) spgemm(trace="on") and a
      traced replay (spans, Chrome export under build/), "xprof" spans in
      torch.profiler, traced against untraced replay host time;
- 15. one JSON line of the kernels; the last line is the result.
+ 15. the serving tier (repro_torch.serve) at full data size, on the
+     multigrid A*P of phase 3 and the RMAT-16 A*A of phase 4, each request
+     with fresh seeded values: (a) 16 requests alternating the two at
+     max_batch 8 with backend "pallas", validate="host": every group one
+     batched K1 launch, nothing else launched, no plain stage, no fault/
+     dtype/nan_guard key, each response within F32_TOL of the plain replay
+     of its own values, one per structure against scipy; (b) the same
+     through K2 ("pallas_lp"); (c) singletons at max_batch 1, one single K1
+     launch each; (d) chaos at A*P with kernel:pallas armed, a fake clock
+     and breaker_threshold 2, traced: degraded singletons step to K2, the
+     open breaker short-circuits a singleton and a batched group to K2, the
+     probe under the failure reopens it, the probe after disarming closes
+     it, serve.dispatch spans say "pallas->pallas_lp" and nothing says xla
+     (Chrome export build/chip_smoke_serve_trace.json); (e) a fresh plan
+     cache warmed from (a)'s traffic log; (f) overload: a full queue, an
+     infeasible and an expired deadline, every request accounted for; (g)
+     the admission split, per-request latency, the batched launches' times
+     at batch 4 and 8 beside batch x the single launch and the plain
+     batched replay;
+ 16. one JSON line of the kernels (K1 and K2 with their batched launches'
+     times, launches and shape); the last line is the result.
 
+Phase 2 also holds each batched replay launch (K1, K2) against the
+executor's plain _replay_batched at F32_TOL: every edge plan with batch 3,
+A shared, B shared, rows as views at offsets 1-3 right after a NaN-filled
+tensor of the output's size is freed, and a stack of 1; K1's batched rows
+against its single launch bit for bit.
 Phase 2 also holds K6, K7 and K8 against their plain versions on synthetic
 inputs (K7 in f32, bf16, f16 and two mixed pairs, so both of its variants:
 "wgmma" for bf16 x bf16 and f16 x f16, "fma" for the others; K8 in f32,
@@ -120,7 +145,9 @@ drive the main path and read just after, and so is FALLBACK_COUNTS: with the
 degradation ladder on by default, each of those phases requires that no
 fault:* or nan_guard:* key (and no dtype:* key it does not expect) appears;
 so does every timed sweep that goes through an entry point (phases 5 and
-14), so that no kernel's time is another rung's.
+14), so that no kernel's time is another rung's. Phase 15 sets the counts to
+0 before each of its runs (a)-(f) and reads them after; the JSON line's
+batched_launches add up its runs.
 Any failed check raises, so the script exits
 non-zero and prints no result. It needs torch, numpy and scipy; it exits
 non-zero when no CUDA card is visible or when the repo's src/ is missing.
@@ -138,6 +165,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -435,6 +463,13 @@ def edge_plans(tile: int, g, dev="cuda") -> list:
     return out
 
 
+def plan_arrays(a_slot, b_slot, seg, nnz_cap: int):
+    """Raw plan arrays as the executor's plain replays read a plan (its
+    ``indices`` only for nnz_cap). Shared with tests/test_torch_kernels.py."""
+    return SimpleNamespace(a_slot_s=a_slot, b_slot_s=b_slot, seg_ids=seg,
+                           indices=torch.empty(nnz_cap, dtype=torch.int32, device=seg.device))
+
+
 def phase_kernels_vs_plain(seg_mod, lp_mod, seed: int) -> dict:
     worst = {"segsum_reuse": 0.0, "lp_reuse": 0.0}
     kernels = {"segsum_reuse": (seg_mod.segsum_reuse_arrays, seg_mod.segsum_reuse_plain),
@@ -489,6 +524,105 @@ def phase_kernels_vs_plain(seg_mod, lp_mod, seed: int) -> dict:
             log(f"   {name} (tile {tile}) {case}: fm {seg.shape[0]}, nnz_cap {nnz_cap}; "
                 f"max |kernel - plain| over f32, bf16, f16, bf16xf32 {max(errs):.3e}")
     torch.cuda.synchronize()
+    return worst
+
+
+# how phase 2 stacks the values of a batched launch: (case, rows, A stacked,
+# B stacked, element offset of the stacked rows in their buffer)
+BATCH_STACKS = (("batch3", 3, True, True, 0), ("a_shared", 3, False, True, 0),
+                ("b_shared", 3, True, False, 0), ("views_1", 3, True, True, 1),
+                ("views_2", 3, True, True, 2), ("views_3", 3, True, True, 3),
+                ("stack_of_1", 1, True, True, 0))
+
+
+def stacked_values(n, rows, stacked, offset, dtype, g):
+    """(rows, n) values as a view ``offset`` elements into a larger buffer,
+    or one shared (n,) row."""
+    if not stacked:
+        return random_values(n, dtype, g)
+    return random_values(offset + rows * n, dtype, g)[offset:].view(rows, n)
+
+
+def carries_in_fixed_order(seg, nnz_cap: int, tile: int) -> bool:
+    """Whether K1's adds come in a fixed order on this plan: no live segment
+    spans more than two tiles (tiles shifted by seg_ids' misalignment), so
+    no slot takes two carries, whose atomic adds replay_ends makes in no
+    fixed order."""
+    off = (seg.data_ptr() % 16) // 4
+    live = (seg >= 0) & (seg < nnz_cap)
+    tiles = (torch.arange(seg.shape[0], device=seg.device) + off) // tile
+    s, t = seg[live].long(), tiles[live]
+    if s.numel() == 0:
+        return True
+    first = torch.full((nnz_cap,), 2**62, dtype=torch.long, device=seg.device)
+    last = torch.full((nnz_cap,), -1, dtype=torch.long, device=seg.device)
+    first.scatter_reduce_(0, s, t, "amin")
+    last.scatter_reduce_(0, s, t, "amax")
+    return bool(((last - first) <= 1).all())
+
+
+def phase_batched_vs_plain(seg_mod, lp_mod, ex_mod, seed: int) -> dict:
+    """Each batched launch against the executor's plain ``_replay_batched``
+    at F32_TOL: every edge plan of each kernel in each stacking of
+    BATCH_STACKS (A shared, B shared, rows as views at offsets 1-3, a stack
+    of 1), f32 and bf16 x f32 values, each call right after a NaN-filled
+    tensor of the output's size is freed, and phase 2's 1,000,003-product
+    plan at batch 3. K1's batched rows must equal its single launch on the
+    row's values bit for bit where its adds come in a fixed order
+    (``carries_in_fixed_order``) and its single launch repeats itself bit
+    for bit (checked here); the count of equal rows is logged either way."""
+    kernels = {"segsum_reuse": (seg_mod.segsum_reuse_batched_arrays, seg_mod.segsum_reuse_arrays),
+               "lp_reuse": (lp_mod.lp_reuse_batched_arrays, lp_mod.lp_reuse_arrays)}
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    worst = {f"batched_{name}": 0.0 for name in kernels}
+    bitwise = {"rows": 0, "equal": 0, "fixed_rows": 0, "single_repeats": True}
+    for name, (batched, single) in kernels.items():
+        plans = [(case, a_slot, b_slot, seg, cap, na, nb) for case, a_slot, b_slot, seg, cap, na, nb
+                 in edge_plans(REPLAY_TILES[name], g)]
+        big = synthetic_plan(1_000_003, 300_007, 200_000, 150_000, 777, 20_000, seed)
+        plans.append(("synthetic_1M", *big, 300_007, 200_000, 150_000))
+        for case, a_slot, b_slot, seg, cap, na, nb in plans:
+            plan = plan_arrays(a_slot, b_slot, seg, cap)
+            stacks = BATCH_STACKS if case != "synthetic_1M" else BATCH_STACKS[:1]
+            errs = []
+            for label, rows, a_st, b_st, off in stacks:
+                for bdt in (torch.float32, torch.bfloat16):
+                    a = stacked_values(na, rows, a_st, off, torch.float32, g)
+                    b = stacked_values(nb, rows, b_st, off, bdt, g)
+                    want = ex_mod._replay_batched(plan, a, b)
+                    scale = ex_mod._replay_batched(plan, a.abs(), b.float().abs())
+                    junk = torch.full((rows, cap), float("nan"), device="cuda")
+                    del junk  # the caching allocator hands its block to the output
+                    got = batched(a_slot, b_slot, seg, a, b, nnz_cap=cap)
+                    require(got.shape == (rows, cap) and got.dtype == torch.float32,
+                            f"batched {name} {case} {label}: output {got.shape} {got.dtype}")
+                    errs.append(tolerance_check(f"batched {name} {case} {label}", got, want,
+                                                scale, F32_TOL))
+                    if name != "segsum_reuse":
+                        continue
+                    fixed = carries_in_fixed_order(seg, cap, REPLAY_TILES[name])
+                    for i in range(rows):
+                        x, y = (a[i] if a.ndim == 2 else a), (b[i] if b.ndim == 2 else b)
+                        one = single(a_slot, b_slot, seg, x, y, nnz_cap=cap)
+                        again = single(a_slot, b_slot, seg, x, y, nnz_cap=cap)
+                        repeats = torch.equal(one, again)
+                        bitwise["single_repeats"] &= repeats
+                        bitwise["rows"] += 1
+                        bitwise["fixed_rows"] += fixed
+                        bitwise["equal"] += torch.equal(got[i], one)
+                        require(torch.equal(got[i], one) or not (fixed and repeats),
+                                f"batched segsum_reuse {case} {label} row {i}: not bitwise "
+                                f"the single launch")
+            worst[f"batched_{name}"] = max(worst[f"batched_{name}"], *errs)
+            log(f"   batched {name} {case}: fm {seg.shape[0]}, nnz_cap {cap}, stackings "
+                f"{[s[0] for s in stacks]}; max |batched - _replay_batched| over f32, "
+                f"bf16 B {max(errs):.3e}")
+    log(f"   K1 batched rows bitwise equal to its single launch: {bitwise['equal']} of "
+        f"{bitwise['rows']} rows ({bitwise['fixed_rows']} rows of plans whose adds come in "
+        f"a fixed order, held to it); single launch repeats itself bit for bit: "
+        f"{bitwise['single_repeats']}")
+    torch.cuda.synchronize()
+    worst["k1_rows_bitwise"] = bitwise
     return worst
 
 
@@ -2332,6 +2466,418 @@ def phase_tune_ladder(rt, km, seed: int, ops_times: dict, root: Path, grid=2048,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the serving tier (serve/) at full data size: SparseService over
+# pinned plans, every request served by a replay kernel (K1/K2, single and
+# batched), the breaker routing K1 <-> K2, warming and overload
+# ---------------------------------------------------------------------------
+
+SERVE_LABELS = ("multigrid A*P", "power-law A*A")
+
+
+def serve_launches(km) -> dict:
+    return {"segsum_reuse": km.seg.LAUNCHES, "lp_reuse": km.lp.LAUNCHES,
+            "segsum_reuse_batched": km.seg.BATCHED_LAUNCHES,
+            "lp_reuse_batched": km.lp.BATCHED_LAUNCHES}
+
+
+def reset_serve_counts(rt, km) -> None:
+    """Launch counts and every telemetry counter to 0."""
+    km.seg.LAUNCHES = km.lp.LAUNCHES = km.seg.BATCHED_LAUNCHES = km.lp.BATCHED_LAUNCHES = 0
+    rt.telemetry.reset_all()
+
+
+def serve_request(structs, label, g):
+    """(label, A, B, A's values, B's values): fresh seeded values of A on the
+    structure (RMAT A*A squares the one matrix)."""
+    a, b = structs[label]
+    x = torch.randn(a.nnz_cap, generator=g, device=a.values.device)
+    av = with_values(a, x)
+    if b is None:
+        return label, av, av, x, x
+    return label, av, b, x, b.values
+
+
+def serve_plan(svc, resp):
+    """The pinned plan whose structure the response carries."""
+    for ex in svc._executors.values():
+        if ex.plan.indptr is resp.value.indptr:
+            return ex.plan
+    require(False, f"request {resp.request_id}: its structure is no pinned plan's")
+
+
+def check_responses(km, name, svc, sent, resps, backend, group_size) -> float:
+    """Every response ok, served by ``backend`` in groups of ``group_size``,
+    not degraded, and within F32_TOL of the plain replay of its own values."""
+    err = 0.0
+    for (label, _, _, x, y), r in zip(sent, resps):
+        require(r.ok, f"{name}: request {r.request_id} ({label}): {r.error!r}")
+        require((r.backend, r.group_size, r.degraded) == (backend, group_size, False),
+                f"{name}: request {r.request_id} served as {r.backend}, group "
+                f"{r.group_size}, degraded {r.degraded}")
+        pl = serve_plan(svc, r)
+        args = (pl.a_slot_s, pl.b_slot_s, pl.seg_ids)
+        cap = pl.indices.shape[0]
+        want = km.seg.segsum_reuse_plain(*args, x, y, cap)
+        scale = km.seg.segsum_reuse_plain(*args, x.abs(), y.abs(), cap)
+        err = max(err, tolerance_check(f"{name} request {r.request_id}", r.value.values,
+                                       want, scale, F32_TOL))
+    return err
+
+
+def serve_traffic(rt, km, structs, g, name, count, **svc_kw):
+    """``count`` requests alternating the structures, then drain(): the
+    service, the requests, the responses, the launches and stage-count
+    deltas of the run, the host seconds of admission and of the drain, and
+    the device memory the queue held."""
+    svc = rt.SparseService(**svc_kw)
+    sent = [serve_request(structs, SERVE_LABELS[i % 2], g) for i in range(count)]
+    torch.cuda.synchronize()
+    reset_serve_counts(rt, km)
+    stages0 = dict(rt.stage_counts)
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    resps = [svc.submit(a, b) for _, a, b, _, _ in sent]
+    t1 = time.perf_counter()
+    held = torch.cuda.memory_allocated() - mem0
+    svc.drain()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = serve_launches(km)
+    stages = {k: v - stages0.get(k, 0) for k, v in rt.stage_counts.items()
+              if v != stages0.get(k, 0)}
+    log(f"   {name}: {count} requests, {svc.counters['group_dispatches']} group dispatches "
+        f"in {svc.counters['steps']} steps; launches {launches}; stages {stages}; admission "
+        f"{t1 - t0:.3f} s, drain {t2 - t1:.3f} s; the queue held {held / 2**30:.3f} GiB "
+        f"({held / count / 2**20:.1f} MiB a request)")
+    return svc, sent, resps, launches, stages, (t1 - t0, t2 - t1)
+
+
+def serve_steady(rt, km, structs, g, backend, cache, out) -> None:
+    """(a)/(b) 16 requests alternating the two structures at max_batch 8,
+    validate="host": every group batched, one batched launch of the
+    backend's kernel a group (none of any other), no plain stage, no
+    fault/dtype/nan_guard key; values against the plain replay, one
+    response per structure against scipy in float64."""
+    kernel = REPLAY_KERNEL[backend]
+    name = f"steady load, backend {backend!r}"
+    svc, sent, resps, launches, stages, (t_admit, t_drain) = serve_traffic(
+        rt, km, structs, g, name, 16, backend=backend, max_batch=8, plan_cache=cache)
+    groups = svc.counters["group_dispatches"]
+    require(groups == 4, f"{name}: {groups} group dispatches, not 4")
+    want = {k: (groups if k == f"{kernel}_batched" else 0) for k in launches}
+    require(launches == want, f"{name}: launches {launches}, not {want}")
+    for key in ("executor_apply_batched", "numeric_reuse", "executor_apply"):
+        require(key not in stages, f"{name}: stage {key} ran {stages.get(key)} times")
+    check_fallbacks(rt, name)
+    err = check_responses(km, name, svc, sent, resps, backend, 4)
+    if backend == "pallas":
+        for label in SERVE_LABELS:
+            i = SERVE_LABELS.index(label)
+            _, a, b, _, _ = sent[i]
+            xs, ys = to_scipy(a), to_scipy(b)
+            check_against_scipy(f"{name}, request {i} ({label})", resps[i].value, xs @ ys,
+                                abs(xs) @ abs(ys))
+    lat = svc.latency_percentiles()
+    st = svc.stats()
+    log(f"   {name}: max |response - plain| {err:.3e}; request latency p50 {lat['p50']:.4f} s, "
+        f"p99 {lat['p99']:.4f} s (host clock, admission to completion); step p50 "
+        f"{st['step_latency']['p50']:.4f} s; {16 / (t_admit + t_drain):.2f} requests/s "
+        f"(admission + drain); plan cache {st['plan_cache']}")
+    out[backend] = {"launches": launches[f"{kernel}_batched"], "worst": err,
+                    "p50_s": lat["p50"], "p99_s": lat["p99"],
+                    "step_p50_s": st["step_latency"]["p50"], "admit_s": t_admit,
+                    "drain_s": t_drain, "rps": 16 / (t_admit + t_drain)}
+    if backend == "pallas":
+        out["log"] = svc.traffic_log
+
+
+def serve_singletons(rt, km, structs, g, cache, out) -> None:
+    """(c) max_batch 1, four requests a structure: each a group of one,
+    one single K1 launch each."""
+    name = "singleton traffic, backend 'pallas'"
+    svc, sent, resps, launches, stages, _ = serve_traffic(
+        rt, km, structs, g, name, 8, backend="pallas", max_batch=1, plan_cache=cache)
+    want = {k: (8 if k == "segsum_reuse" else 0) for k in launches}
+    require(launches == want, f"{name}: launches {launches}, not {want}")
+    require("numeric_reuse" not in stages, f"{name}: the plain replay ran")
+    check_fallbacks(rt, name)
+    err = check_responses(km, name, svc, sent, resps, "pallas", 1)
+    log(f"   {name}: max |response - plain| {err:.3e}")
+    out["singletons"] = {"launches": launches["segsum_reuse"], "worst": err}
+
+
+def serve_chaos(rt, km, structs, g, cache, root: Path, out) -> None:
+    """(d) multigrid A*P under an armed kernel:pallas, a fake clock and
+    breaker_threshold 2, traced: two degraded singletons (fault:pallas->
+    pallas_lp each, K1 never launched), the open breaker short-circuits a
+    singleton and a batched group to K2, the probe under the failure
+    reopens it, the probe after disarming runs K1 and closes it; values
+    within F32_TOL of K2 (or K1) run directly; spans say
+    fallback="pallas->pallas_lp" and nothing says xla."""
+    tel, faults, tr = rt.telemetry, rt.faults, rt.trace
+    label = SERVE_LABELS[0]
+    clock = FakeClock()
+    tr.reset_tracing()
+    tr.set_tracing("on")
+    svc = rt.SparseService(backend="pallas", max_batch=4, plan_cache=cache, clock=clock,
+                           breaker_threshold=2, breaker_cooldown_s=5.0,
+                           sleep=lambda _: None)
+    reset_serve_counts(rt, km)
+    runs = []  # (what, requests, responses, launches after, expected backend)
+
+    def serve(n, what, backend, degraded):
+        sent = [serve_request(structs, label, g) for _ in range(n)]
+        before = serve_launches(km)
+        resps = [svc.submit(a, b) for _, a, b, _, _ in sent]
+        svc.step()
+        torch.cuda.synchronize()
+        after = serve_launches(km)
+        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        for r in resps:
+            require(r.ok, f"chaos {what}: {r.error!r}")
+            require((r.backend, r.group_size, r.degraded) == (backend, n, degraded),
+                    f"chaos {what}: served by {r.backend}, group {r.group_size}, degraded "
+                    f"{r.degraded}")
+        fb = dict(tel.FALLBACK_COUNTS)
+        log(f"   chaos {what}: backend {resps[0].backend}, degraded {degraded}, launches "
+            f"{moved}, breaker {svc._breakers['pallas'].state}, FALLBACK_COUNTS {fb}")
+        runs.append((what, sent, resps))
+        return moved
+
+    with faults.failpoint("kernel:pallas"):
+        for i in range(2):
+            moved = serve(1, f"singleton {i} (kernel:pallas armed)", "pallas", True)
+            require(moved == {"lp_reuse": 1}, f"chaos singleton {i}: launches {moved}")
+            require(dict(tel.FALLBACK_COUNTS) == {"fault:pallas->pallas_lp": i + 1},
+                    f"chaos: FALLBACK_COUNTS {dict(tel.FALLBACK_COUNTS)}")
+        require(svc._breakers["pallas"].state == "open", "the breaker did not open")
+        moved = serve(1, "singleton under the open breaker", "pallas_lp", False)
+        require(moved == {"lp_reuse": 1}, f"chaos short circuit: launches {moved}")
+        moved = serve(3, "batched group under the open breaker", "pallas_lp", False)
+        require(moved == {"lp_reuse_batched": 1}, f"chaos batched short circuit: {moved}")
+        require(dict(tel.FALLBACK_COUNTS) == {"fault:pallas->pallas_lp": 2},
+                "an open breaker added a fault key")
+        clock.advance(5.0)
+        moved = serve(1, "probe under the failure", "pallas", True)
+        require(moved == {"lp_reuse": 1}, f"chaos failed probe: launches {moved}")
+        require(svc._breakers["pallas"].state == "open", "the failed probe did not reopen")
+    clock.advance(5.0)
+    moved = serve(1, "probe after disarming", "pallas", False)
+    require(moved == {"segsum_reuse": 1}, f"chaos closing probe: launches {moved}")
+    require(svc._breakers["pallas"].state == "closed", "the probe did not close the breaker")
+    bc = dict(tel.BREAKER_COUNTS)
+    require(bc.get("pallas:open") == 1 and bc.get("pallas:reopen") == 1
+            and bc.get("pallas:close") == 1 and bc.get("pallas:half_open") == 2
+            and bc.get("pallas:short_circuit", 0) >= 1, f"BREAKER_COUNTS {bc}")
+    require(dict(tel.FALLBACK_COUNTS) == {"fault:pallas->pallas_lp": 3},
+            f"FALLBACK_COUNTS {dict(tel.FALLBACK_COUNTS)}")
+    # values: each response against the kernel that served it, run directly
+    err = 0.0
+    direct = {}
+    for what, sent, resps in runs:
+        for (_, a, b, _, _), r in zip(sent, resps):
+            kernel = "pallas" if r.backend == "pallas" and not r.degraded else "pallas_lp"
+            pl = serve_plan(svc, r)
+            ex = direct.setdefault(kernel, rt.ReuseExecutor(pl, backend=kernel))
+            want = ex.apply(a.values, b.values)
+            scale = km.seg.segsum_reuse_plain(pl.a_slot_s, pl.b_slot_s, pl.seg_ids,
+                                              a.values.abs(), b.values.abs(),
+                                              pl.indices.shape[0])
+            err = max(err, tolerance_check(f"chaos {what}", r.value.values, want, scale,
+                                           F32_TOL))
+    events = tr.events()
+    path = root / "build" / "chip_smoke_serve_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tr.export_chrome_trace(str(path))
+    dispatch = [(e["args"].get("group"), e["args"].get("kernel"), e["args"].get("fallback"))
+                for e in events if e["name"] == "serve.dispatch"]
+    require([d[2] for d in dispatch] == ["pallas->pallas_lp", "pallas->pallas_lp", None,
+                                         None, "pallas->pallas_lp", None],
+            f"serve.dispatch spans {dispatch}")
+    require("xla" not in json.dumps(events), "a span or attribute says xla")
+    tr.reset_tracing()
+    log(f"   chaos: BREAKER_COUNTS {bc}; serve.dispatch spans (group, kernel, fallback) "
+        f"{dispatch}; no span or attribute says xla; Chrome export "
+        f"{path.relative_to(root)} ({len(events)} events); max |response - kernel run "
+        f"directly| {err:.3e}")
+    out["chaos"] = {"worst": err, "breaker": bc}
+
+
+class FakeClock:
+    """A clock the caller moves (breaker cooldowns, deadlines)."""
+
+    def __init__(self, now=0.0):
+        self.now = now
+
+    def __call__(self):
+        return self.now
+
+    def advance(self, dt):
+        self.now += dt
+
+
+def serve_warming(rt, km, structs, g, out) -> None:
+    """(e) a fresh service and plan cache warmed from (a)'s traffic log:
+    built 2; the first request of each structure hits the cache and builds
+    no plan; a second warm() reports hits 2."""
+    cache = rt.PlanCache(capacity=8, name="serve_warm")
+    svc = rt.SparseService(backend="pallas", max_batch=1, plan_cache=cache)
+    reset_serve_counts(rt, km)
+    stats = svc.warm(out["log"])
+    require(stats == {"built": 2, "hits": 0, "failed": 0, "evictions": 0}, f"warm: {stats}")
+    misses, built0 = cache.stats()["misses"], rt.stage_counts.get("plan_from_sorted", 0)
+    sent = [serve_request(structs, label, g) for label in SERVE_LABELS]
+    resps = [svc.submit(a, b) for _, a, b, _, _ in sent]
+    svc.drain()
+    torch.cuda.synchronize()
+    require(all(r.ok for r in resps), "warmed requests failed")
+    require(cache.stats()["misses"] == misses, f"warmed requests missed: {cache.stats()}")
+    require(rt.stage_counts.get("plan_from_sorted", 0) == built0,
+            "a warmed request built a plan")
+    again = svc.warm(out["log"])
+    require(again["hits"] == 2 and again["built"] == 0, f"second warm: {again}")
+    log(f"   warming from (a)'s log: {stats}; the first requests hit (misses stay "
+        f"{misses}, no plan_from_sorted); second warm {again}; EVICT_COUNTS "
+        f"{dict(rt.telemetry.EVICT_COUNTS)}")
+    out["warm"] = (stats, again)
+
+
+def accounted(name, svc) -> dict:
+    """submitted == completed + failed + shed: no request dropped silently."""
+    c = svc.counters
+    shed = c["shed_queue_full"] + c["shed_deadline_infeasible"] + c["shed_deadline_expired"]
+    require(c["submitted"] == c["completed"] + c["failed"] + shed,
+            f"{name}: counters {c}: a request went unaccounted")
+    return c
+
+
+def serve_overload(rt, km, structs, g) -> None:
+    """(f) max_queue 4 and 6 submits: 2 AdmissionRejected; then, on a second
+    service, a deadline the set step_hint_s makes infeasible, rejected at
+    admission, and a deadline that expires in the queue, DeadlineExceeded;
+    submitted == completed + failed + shed on both. On RMAT-16 A*A, whose
+    admission is cheap."""
+    label = SERVE_LABELS[1]
+    svc = rt.SparseService(backend="pallas", max_queue=4, max_batch=8)
+    reset_serve_counts(rt, km)
+    reqs = [serve_request(structs, label, g) for _ in range(6)]
+    first = [svc.submit(a, b) for _, a, b, _, _ in reqs]
+    kinds = [type(r.error).__name__ if r.done else "queued" for r in first]
+    require(kinds == ["queued"] * 4 + ["AdmissionRejected"] * 2, f"queue full: {kinds}")
+    svc.drain()
+    torch.cuda.synchronize()
+    require(all(r.ok and r.group_size == 4 for r in first[:4]), "admitted requests failed")
+    moved = {k: v for k, v in serve_launches(km).items() if v}
+    require(moved == {"segsum_reuse_batched": 1}, f"queue full: launches {moved}")
+    full = accounted("queue full", svc)
+    clock = FakeClock()
+    svc = rt.SparseService(backend="pallas", max_batch=8, clock=clock)
+    svc.step_hint_s = 1.0  # one tick estimated at 1 s
+    _, a, b, _, _ = reqs[0]
+    infeasible = svc.submit(a, b, deadline_s=0.5)
+    require(isinstance(infeasible.error, rt.AdmissionRejected)
+            and "infeasible" in str(infeasible.error), f"infeasible: {infeasible.error!r}")
+    expiring = svc.submit(a, b, deadline_s=5.0)
+    require(not expiring.done, f"the expiring request was not admitted: {expiring.error!r}")
+    clock.advance(6.0)
+    svc.step()
+    require(isinstance(expiring.error, rt.DeadlineExceeded), f"expired: {expiring.error!r}")
+    late = accounted("deadlines", svc)
+    log(f"   overload: max_queue 4, 6 submits: {kinds}, counters {full}; infeasible "
+        f"deadline -> {type(infeasible.error).__name__}; expired in the queue -> "
+        f"{type(expiring.error).__name__}; counters {late}")
+
+
+def serve_times(rt, km, structs, g, cache, out, smi) -> None:
+    """(g) the admission split on one request a structure (check_csr host,
+    prepare_sparse_inputs, structure_key; host clock, median of 3) and the
+    batched launches' device times at batch 4 and 8 (CUDA events, median of
+    7) beside batch x the single launch and the plain _replay_batched at
+    batch 4, per structure and kernel."""
+    from repro_torch.core.plan_cache import structure_key
+    from repro_torch.core.spgemm import prepare_sparse_inputs
+
+    times = {}
+    for label in SERVE_LABELS:
+        _, a, b, x, y = serve_request(structs, label, g)
+        split = {
+            "check_csr host (A, B)": wall_ms(lambda: (rt.check_csr(a, "host", name="A"),
+                                                      rt.check_csr(b, "host", name="B")),
+                                             reps=3),
+            "prepare_sparse_inputs": wall_ms(lambda: prepare_sparse_inputs(a, b, "pow2"),
+                                             reps=3),
+        }
+        pa, pb, _, _, fm_cap = prepare_sparse_inputs(a, b, "pow2")
+        split["structure_key"] = wall_ms(lambda: structure_key(pa, pb, fm_cap, "pow2"), reps=3)
+        log(f"   {label}: admission split (ms, host clock, median of 3; {smi}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        plan = rt.spgemm(a, b, method="sparse", plan_cache=cache).plan
+        args = (plan.a_slot_s, plan.b_slot_s, plan.seg_ids)
+        cap = plan.indices.shape[0]
+        fm_live = int((plan.seg_ids < cap).sum())
+        row = {"admission_ms": split}
+        for kernel, mod in (("segsum_reuse", km.seg), ("lp_reuse", km.lp)):
+            single = getattr(mod, f"{kernel}_arrays")
+            batched = getattr(mod, f"{kernel}_batched_arrays")
+            t_single = time_ms(lambda: single(*args, x, y, nnz_cap=cap))
+            k_row = {"single_ms": t_single}
+            for batch in (4, 8):
+                xs = torch.randn(batch, x.shape[0], generator=g, device=x.device)
+                ys = xs if y is x else y
+                k_row[f"batch{batch}_ms"] = time_ms(lambda: batched(*args, xs, ys, nnz_cap=cap))
+                nb = 0 if y is x else y.shape[0]
+                k_row[f"batch{batch}_bound_ms"] = (
+                    12 * fm_live + batch * 4 * (x.shape[0] + nb + cap)) / HBM_BYTES_PER_S * 1e3
+                if batch == 4:
+                    k_row["plain_batch4_ms"] = time_ms(
+                        lambda: rt.replay_batched(plan, xs, ys), reps=3)
+                del xs, ys
+                torch.cuda.empty_cache()
+            row[kernel] = k_row
+            log(f"   {label} {kernel}: batched launch batch 4 {k_row['batch4_ms']:.3f} ms, "
+                f"batch 8 {k_row['batch8_ms']:.3f} ms (bound, plan read once: "
+                f"{k_row['batch4_bound_ms']:.3f} / {k_row['batch8_bound_ms']:.3f} ms); "
+                f"4 x single {4 * t_single:.3f} ms, 8 x single {8 * t_single:.3f} ms; plain "
+                f"_replay_batched batch 4 {k_row['plain_batch4_ms']:.3f} ms (CUDA events; "
+                f"{smi})")
+        times[label] = row
+        del plan
+        torch.cuda.empty_cache()
+    out["times"] = times
+
+
+def phase_serve(rt, km, seed: int, root: Path, smi: str, grid=2048, rmat_scale=16,
+                dev="cuda") -> dict:
+    """Phase 15 (a)-(g) on phase 3's multigrid A*P and phase 4's RMAT-16 A*A."""
+    out: dict = {}
+    g = torch.Generator(device=dev).manual_seed(seed + 70)
+    _, a, p = rt.galerkin_triple(grid, grid, agg_size=4, device=dev)
+    rm = rt.rmat_csr(rmat_scale, 8, seed=0, device=dev)
+    structs = {SERVE_LABELS[0]: (a, p), SERVE_LABELS[1]: (rm, None)}
+    log(f"   structures: {SERVE_LABELS[0]} A {a.shape} nnz {int(a.indptr[-1])}, P "
+        f"{p.shape}; {SERVE_LABELS[1]} {rm.shape} nnz {int(rm.indptr[-1])}")
+    cache = rt.PlanCache(capacity=8, name="serve_smoke")
+    launches = {k: 0 for k in serve_launches(km)}
+    # each run sets the counts to 0 first; its launches are added up after it
+    for run in (lambda: serve_steady(rt, km, structs, g, "pallas", cache, out),
+                lambda: serve_steady(rt, km, structs, g, "pallas_lp", cache, out),
+                lambda: serve_singletons(rt, km, structs, g, cache, out),
+                lambda: serve_chaos(rt, km, structs, g, cache, root, out),
+                lambda: serve_warming(rt, km, structs, g, out),
+                lambda: serve_overload(rt, km, structs, g)):
+        run()
+        launches = {k: v + serve_launches(km)[k] for k, v in launches.items()}
+    log(f"   launches of phase 15's runs (a)-(f): {launches}")
+    out["launches"] = launches
+    del out["log"]
+    torch.cuda.empty_cache()
+    serve_times(rt, km, structs, g, cache, out, smi)
+    rt.telemetry.reset_all()
+    rt.faults.reset_failpoints()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2350,11 +2896,14 @@ def main(argv=None) -> int:
     import repro_torch.configs as rt_configs
     import repro_torch.kernels as kernels_api
     from repro_torch.core import autotune, executor, telemetry
+    from repro_torch.core.spgemm import STAGE_COUNTS
+    from repro_torch.serve import SparseService
     from repro_torch.kernels import _build, ops, segsum_reuse, spgemm_lp
     from repro_torch.kernels import spgemm_numeric, spgemm_symbolic
     from repro_torch.obs import recorder, trace
     from repro_torch.runtime import faults
-    from repro_torch.runtime.validate import KernelFallbackError
+    from repro_torch.runtime.validate import (AdmissionRejected, DeadlineExceeded,
+                                              KernelFallbackError, check_csr)
 
     class rt:  # the port's public entry points used below
         spgemm = staticmethod(rt_core.spgemm)
@@ -2374,6 +2923,10 @@ def main(argv=None) -> int:
     rt.telemetry, rt.autotune, rt.faults, rt.recorder, rt.trace = (
         telemetry, autotune, faults, recorder, trace)
     rt.KernelFallbackError = KernelFallbackError
+    # the serving tier
+    rt.SparseService, rt.stage_counts = SparseService, STAGE_COUNTS
+    rt.AdmissionRejected, rt.DeadlineExceeded = AdmissionRejected, DeadlineExceeded
+    rt.check_csr, rt.replay_batched = staticmethod(check_csr), staticmethod(executor._replay_batched)
 
     class km:  # the kernels' modules: wrappers, plain versions, launch counts
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
@@ -2390,11 +2943,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     with Phase("phase 1: device and build"):
-        phase_device(_build)
+        smi = phase_device(_build)
         log(f"   allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
             f"{torch.backends.cudnn.allow_tf32} (f32 products in full f32)")
     with Phase("phase 2: kernels vs plain on synthetic plans and ELL operands"):
         synth_worst = phase_kernels_vs_plain(seg_mod, lp_mod, args.seed)
+        synth_worst.update(phase_batched_vs_plain(seg_mod, lp_mod, executor, args.seed))
         synth_worst.update(phase_ell_kernels_vs_plain(rt, km, args.seed))
         synth_worst.update(phase_new_kernels_vs_plain(km, args.seed))
     if args.kernels_only:
@@ -2443,23 +2997,35 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with Phase("phase 14: autotune, validation, the ladder and tracing on the card"):
         phase_tune_ladder(rt, km, args.seed, ops_times, Path(__file__).resolve().parent)
+    torch.cuda.empty_cache()
+    with Phase("phase 15: the serving tier (SparseService) through K1 and K2"):
+        serve = phase_serve(rt, km, args.seed, Path(__file__).resolve().parent, smi)
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
+    serve_worst = max(serve[k]["worst"] for k in ("pallas", "pallas_lp", "singletons", "chaos"))
     kernels = [
         {"name": "segsum_reuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segsum_reuse.cu",
          "replaces": "src/repro/kernels/segsum_reuse.py:107",
          "launches": mg_launches["segsum_reuse"],
-         "max_abs_err": max(mg_worst, synth_worst["segsum_reuse"]),
+         "max_abs_err": max(mg_worst, synth_worst["segsum_reuse"],
+                            synth_worst["batched_segsum_reuse"], serve_worst),
          "ms": k1["segsum_reuse"], "plain_ms": k1["plain"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": None, "shape": "multigrid AP"},
+         "bound_by": k1["bound_by"], "library_ms": None, "shape": "multigrid AP",
+         "batched_ms": serve["times"]["multigrid A*P"]["segsum_reuse"]["batch8_ms"],
+         "batched_launches": serve["launches"]["segsum_reuse_batched"],
+         "batched_shape": "multigrid A*P, batch 8"},
         {"name": "lp_reuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lp_reuse.cu",
          "replaces": "src/repro/kernels/spgemm_lp.py:302",
          "launches": pw["powerlaw_launches"]["lp_reuse"],
-         "max_abs_err": max(pw["powerlaw_worst"], synth_worst["lp_reuse"]),
+         "max_abs_err": max(pw["powerlaw_worst"], synth_worst["lp_reuse"],
+                            synth_worst["batched_lp_reuse"], serve_worst),
          "ms": k2["lp_reuse"], "plain_ms": k2["plain"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None, "shape": "power-law A*A"},
+         "bound_by": k2["bound_by"], "library_ms": None, "shape": "power-law A*A",
+         "batched_ms": serve["times"]["power-law A*A"]["lp_reuse"]["batch8_ms"],
+         "batched_launches": serve["launches"]["lp_reuse_batched"],
+         "batched_shape": "power-law A*A, batch 8"},
     ]
     replaces = {"spgemm_lp": "src/repro/kernels/spgemm_lp.py:164",
                 "spgemm_numeric": "src/repro/kernels/spgemm_numeric.py:82",

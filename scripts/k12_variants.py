@@ -6,11 +6,14 @@ sources, in turns, on one CUDA card.
     python3 scripts/k12_variants.py --parent-rev REV  # in a git checkout
 
 DIR holds an earlier commit's kernels/csrc/segsum_reuse.cu, lp_reuse.cu and
-replay_common.cuh; --parent-rev fills build/k12_parent/ from ``git show
+replay_common.cuh, and replay_tile.cuh where that commit has one;
+--parent-rev fills build/k12_parent/ from ``git show
 REV:src/repro_torch/kernels/csrc/<file>``. The script compiles those sources
-under library names the port never loads (the parent's C interface: no
-workspace, an output zeroed by the caller, which the parent's wrappers did
-with torch.zeros), beside the port's own build. At multigrid 2048^2 A*P
+under library names the port never loads, beside the port's own build, and
+calls them through the parent's C interface: with replay_tile.cuh, the
+port's single launch (a workspace of <kernel>_workspace_bytes, an output
+that needs no fill); without it, the older one (no workspace, an output
+zeroed by the caller, which those commits' wrappers did with torch.zeros). At multigrid 2048^2 A*P
 (galerkin_triple(2048, 2048, 4), the plan of ReuseExecutor.from_matrices,
 K1's shape on the main path) and RMAT-16 A*A (rmat_csr(16, 8), K2's), with
 f32 values, it times (CUDA events, median of 7) each kernel in turns parent,
@@ -37,6 +40,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PARENT_FILES = ("segsum_reuse.cu", "lp_reuse.cu", "replay_common.cuh")
+OPTIONAL_FILES = ("replay_tile.cuh",)  # from the commit that added the workspace
 KERNELS = ("segsum_reuse", "lp_reuse")
 ORDER = ["parent", "port", "port", "parent"]
 # the parent's C interface (kernels/segsum_reuse.py's _ARGTYPES before the workspace)
@@ -46,10 +50,12 @@ PARENT_ARGS = [_P, _P, _P, _P, _INT, _I64, _P, _INT, _I64, _P, _I64, _I64, _P]
 
 def fill_parent(rev: str, dest: Path) -> None:
     dest.mkdir(parents=True, exist_ok=True)
-    for name in PARENT_FILES:
-        text = subprocess.run(["git", "show", f"{rev}:src/repro_torch/kernels/csrc/{name}"],
-                              cwd=ROOT, capture_output=True, text=True, check=True).stdout
-        (dest / name).write_text(text)
+    for name in PARENT_FILES + OPTIONAL_FILES:
+        got = subprocess.run(["git", "show", f"{rev}:src/repro_torch/kernels/csrc/{name}"],
+                             cwd=ROOT, capture_output=True, text=True,
+                             check=name not in OPTIONAL_FILES)
+        if got.returncode == 0:
+            (dest / name).write_text(got.stdout)
 
 
 def compile_parent(_build, parent_dir: Path) -> dict:
@@ -93,16 +99,26 @@ def compile_parent(_build, parent_dir: Path) -> dict:
 
 
 def call_parent(seg_mod, lib, kernel: str, a_slot, b_slot, seg, a, b, nnz_cap):
-    """One replay through the parent's library (its C interface: a zeroed
-    output, no workspace)."""
+    """One replay through the parent's library, in its C interface: with a
+    workspace (``<kernel>_workspace_bytes`` exported) an unfilled output,
+    else a zeroed output and no workspace."""
     fn = getattr(lib, f"{kernel}_launch")
-    fn.argtypes, fn.restype = PARENT_ARGS, ctypes.c_int
     codes = seg_mod.DTYPE_CODES
     stream = torch.cuda.current_stream().cuda_stream
-    out = torch.zeros(nnz_cap, dtype=torch.float32, device="cuda")
-    err = fn(a_slot.data_ptr(), b_slot.data_ptr(), seg.data_ptr(), a.data_ptr(),
-             codes[a.dtype], a.shape[0], b.data_ptr(), codes[b.dtype], b.shape[0],
-             out.data_ptr(), seg.shape[0], nnz_cap, stream)
+    args = [a_slot.data_ptr(), b_slot.data_ptr(), seg.data_ptr(), a.data_ptr(),
+            codes[a.dtype], a.shape[0], b.data_ptr(), codes[b.dtype], b.shape[0]]
+    if hasattr(lib, f"{kernel}_workspace_bytes"):
+        size = getattr(lib, f"{kernel}_workspace_bytes")
+        size.argtypes, size.restype = [_I64], _I64
+        work = torch.empty(size(seg.shape[0]), dtype=torch.uint8, device="cuda")
+        out = torch.empty(nnz_cap, dtype=torch.float32, device="cuda")
+        fn.argtypes, fn.restype = seg_mod._ARGTYPES, ctypes.c_int
+        err = fn(*args, out.data_ptr(), seg.shape[0], nnz_cap, work.data_ptr(),
+                 work.shape[0], stream)
+    else:
+        out = torch.zeros(nnz_cap, dtype=torch.float32, device="cuda")
+        fn.argtypes, fn.restype = PARENT_ARGS, ctypes.c_int
+        err = fn(*args, out.data_ptr(), seg.shape[0], nnz_cap, stream)
     if err:
         raise RuntimeError(f"{kernel}: CUDA error {err}")
     return out

@@ -16,6 +16,9 @@ ports ``repro/core/spgemm.py``, and so on):
              injection, retry and the watchdog;
   obs      — phase spans with Chrome export, latency histograms and the
              flight recorder;
+  serve    — the SpGEMM serving tier: bounded admission, deadlines, grouped
+             dispatch over pinned plans, the circuit breaker, plan-cache
+             warming;
   configs  — the model configurations whose widths the attention and MoE
              kernels run at; ``convert`` carries the reference's arrays
              across.
@@ -27,4 +30,4 @@ down the degradation ladder to another kernel on the same device, never to
 the plain version or the CPU; a kernel that cannot be built raises.
 """
 
-__all__ = ["configs", "convert", "core", "kernels", "obs", "runtime", "sparse"]
+__all__ = ["configs", "convert", "core", "kernels", "obs", "runtime", "serve", "sparse"]

@@ -5,8 +5,10 @@ replays it on new operand values:
 
   * ``apply(a_values, b_values)`` runs one replay through the pinned
     backend;
-  * ``apply_batched`` replays stacked values ``(batch, nnz)`` with the batch
-    dimension written out (batched gathers, then ``index_add_`` along dim 1);
+  * ``apply_batched`` replays stacked values ``(batch, nnz)`` in one
+    dispatch: on the card with "pallas" or "pallas_lp", one batched launch
+    of that kernel; elsewhere the plain formulation with the batch dimension
+    written out (batched gathers, then ``index_add_`` along dim 1);
   * ``spgemm_grouped`` groups a mixed batch by structure and replays each
     group once.
 
@@ -15,7 +17,9 @@ each runs here): "xla" is the plain torch ``numeric_reuse`` and what "auto"
 resolves to, "pallas" the CUDA ``segsum_reuse`` kernel, "pallas_lp" the CUDA
 ``lp_reuse`` kernel. The kernels accumulate in f32, so f64/int operands take
 the plain path and bump ``FALLBACK_COUNTS["dtype:executor->xla"]``. Batched
-replay always runs the plain path, as in the reference.
+replay runs the plain path on the CPU, as in the reference (whose batched
+replay is always its vmapped XLA formulation); on the card a kernel backend
+runs its batched kernel, under the same ladder as ``apply``.
 
 The reference's selection and robustness options, with its defaults:
 ``tune="measure"`` times the eligible replay backends on the first
@@ -51,7 +55,6 @@ from repro_torch.core.plan_cache import default_plan_cache, structure_key
 from repro_torch.core.spgemm import (
     SpgemmPlan,
     _note_stage,
-    gather_clamped,
     lp_replay_values,
     numeric_reuse,
     prepare_sparse_inputs,
@@ -59,7 +62,9 @@ from repro_torch.core.spgemm import (
     spgemm,
 )
 from repro_torch.core.utils import block_until_ready
-from repro_torch.kernels.segsum_reuse import segsum_reuse
+from repro_torch.kernels.segsum_reuse import (replay_batched_plain, segsum_reuse,
+                                              segsum_reuse_batched)
+from repro_torch.kernels.spgemm_lp import lp_reuse_batched
 from repro_torch.obs import recorder
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import ladder
@@ -166,16 +171,20 @@ def measured_replay_backend(plan, a_values, b_values, cache=None,
 
 def _replay_batched(plan: SpgemmPlan, a_values, b_values):
     """The reference's vmapped ``numeric_reuse`` with the batch written out:
-    either operand is (batch, n) or shared (n,)."""
+    either operand is (batch, n) or shared (n,); sums in
+    ``promote_types(a, b)``. The plain version of both batched kernels (for
+    operands whose promoted type is f32 the same function)."""
     _note_stage("executor_apply_batched")
-    acc_dtype = torch.promote_types(a_values.dtype, b_values.dtype)
-    prod = (gather_clamped(a_values, plan.a_slot_s).to(acc_dtype)
-            * gather_clamped(b_values, plan.b_slot_s).to(acc_dtype))
-    nnz_cap = plan.indices.shape[0]
-    out = torch.zeros(prod.shape[0], nnz_cap + 1, dtype=acc_dtype,
-                      device=prod.device)
-    out.index_add_(1, plan.seg_ids, prod)
-    return out[:, :nnz_cap]
+    return replay_batched_plain(plan.a_slot_s, plan.b_slot_s, plan.seg_ids, a_values,
+                                b_values, plan.indices.shape[0],
+                                acc_dtype=torch.promote_types(a_values.dtype, b_values.dtype))
+
+
+def _replay_batched_kernel(plan: SpgemmPlan, a_values, b_values, backend: str):
+    """One batched launch of the replay kernel ``backend`` names."""
+    if backend == "pallas":
+        return segsum_reuse_batched(plan, a_values, b_values)
+    return lp_reuse_batched(plan, a_values, b_values)
 
 
 def _check_tune(tune, backend: str) -> None:
@@ -200,8 +209,9 @@ class ReuseExecutor:
     backends are timed once on the first real operands; every later
     ``apply`` dispatches the pinned winner. ``kernel_source`` records the
     provenance ("static", then "measured", or "fallback" after a ladder
-    step). Requires ``backend="auto"``. ``apply_batched`` stays on the plain
-    batched formulation regardless.
+    step, which ``last_step`` names, e.g. "pallas->pallas_lp"). Requires
+    ``backend="auto"``. ``apply_batched`` takes the pinned backend as it
+    stands: "auto" and "xla" the plain batched formulation.
 
     Robustness knobs (see the module docstring): ``validate``,
     ``nan_guard``, ``watchdog``, ``on_kernel_failure``.
@@ -221,6 +231,7 @@ class ReuseExecutor:
         self.backend = _resolve_backend(backend)
         self.tune = tune
         self.kernel_source = "static"
+        self.last_step: str | None = None  # the ladder's last "<failed>-><next>"
         self._needs_measure = tune == "measure"
         # the executor's default is a literal "off", not None: replay is the
         # hot path, and $REPRO_VALIDATE must not change it behind a serving
@@ -342,31 +353,34 @@ class ReuseExecutor:
             trace_id=obs_trace.current_trace_id())
         return out
 
-    def _run_ladder(self, a_values, b_values, backend, sp=None):
-        """The degradation ladder proper (``replay_rungs``). Typed errors (a
+    def _run_ladder(self, a_values, b_values, backend, sp=None, batched=False):
+        """The degradation ladder proper (``replay_rungs``), each rung one
+        replay (one batched launch for ``apply_batched``). Typed errors (a
         kernel library that cannot be built included) and watchdog verdicts
         pass through."""
+        replay = _replay_batched_kernel if batched else _replay
 
         def stepped(step: str) -> None:
             self.kernel_source = "fallback"
+            self.last_step = step
             if sp is not None:
                 sp.set("fallback", step)
 
         out, _ = ladder.walk(
             replay_rungs(backend, ladder.kernels_only(a_values.device)),
-            lambda name: self._timed(a_values, b_values, name),
+            lambda name: self._timed(lambda: replay(self.plan, a_values, b_values, name)),
             on_kernel_failure=self.on_kernel_failure, site="executor",
             what="replay backend", on_step=stepped, structure_key=self._skey)
         return out
 
-    def _timed(self, a_values, b_values, backend):
-        """Run one replay, under the watchdog's deadline when one is set: the
+    def _timed(self, run):
+        """``run()``, under the watchdog's deadline when one is set: the
         guarded step synchronises the card, so it times the finished result."""
         if self.watchdog is None:
-            return _replay(self.plan, a_values, b_values, backend)
+            return run()
         with self.watchdog.step(DISPATCH_COUNTS["apply"]
                                 + DISPATCH_COUNTS["apply_batched"]):
-            return block_until_ready(_replay(self.plan, a_values, b_values, backend))
+            return block_until_ready(run())
 
     def _nan_check(self, out, a_values, b_values):
         """Opt-in output guard: on a non-finite output, rerun once and
@@ -392,11 +406,16 @@ class ReuseExecutor:
 
     def apply_batched(self, a_values: torch.Tensor,
                       b_values: torch.Tensor) -> torch.Tensor:
-        """Replay over stacked values: (batch, nnz_cap).
+        """Replay over stacked values in one dispatch: (batch, nnz_cap).
 
         Either operand may be stacked ``(batch, operand_nnz_cap)`` or shared
-        ``(operand_nnz_cap,)``; at least one must be stacked. Always the
-        plain path.
+        ``(operand_nnz_cap,)``; at least one must be stacked. On the card,
+        with backend "pallas" or "pallas_lp" and operands the dtype guard
+        admits, one batched launch of that kernel under the degradation
+        ladder (K1 <-> K2, ``fault:<k>-><other>``); f64/int operands there
+        take the plain path and bump ``dtype:executor->xla``. Everywhere
+        else (CPU tensors, "xla") the plain batched formulation, as in the
+        reference.
         """
         DISPATCH_COUNTS["apply_batched"] += 1
         if a_values.ndim != 2 and b_values.ndim != 2:
@@ -407,13 +426,18 @@ class ReuseExecutor:
             self._guard.check_values(a_values, b_values, self.validate_mode,
                                      batched=True)
         batch = a_values.shape[0] if a_values.ndim == 2 else b_values.shape[0]
-        with obs_trace.span("numeric.dispatch", kernel="xla", site="executor",
-                            batch=batch):
-            if self.watchdog is None:
-                return _replay_batched(self.plan, a_values, b_values)
-            with self.watchdog.step(DISPATCH_COUNTS["apply"]
-                                    + DISPATCH_COUNTS["apply_batched"]):
-                return block_until_ready(_replay_batched(self.plan, a_values, b_values))
+        kernel = self.backend in OTHER_KERNEL and ladder.kernels_only(a_values.device)
+        if kernel and not f32_accumulation_ok(a_values.dtype, b_values.dtype):
+            from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
+
+            FALLBACK_COUNTS["dtype:executor->xla"] += 1
+            kernel = False
+        backend = self.backend if kernel else "xla"
+        with obs_trace.span("numeric.dispatch", kernel=backend, site="executor",
+                            batch=batch) as sp:
+            if backend == "xla":
+                return self._timed(lambda: _replay_batched(self.plan, a_values, b_values))
+            return self._run_ladder(a_values, b_values, backend, sp=sp, batched=True)
 
     def to_csr(self, values: torch.Tensor) -> CSR:
         """Wrap one replay's values in the plan's C structure."""
@@ -434,8 +458,9 @@ def spgemm_grouped(pairs: Sequence[tuple[CSR, CSR]], *,
     tune="measure": singleton groups dispatch the measured replay winner
     (``measured_replay_backend``: the plan-cache entry's recorded winner,
     else the bucket table, else a first-sight measurement, written back to
-    the entry), as ``spgemm(tune="measure")`` does. Batched groups keep the
-    plain batched replay. Requires backend="auto".
+    the entry), as ``spgemm(tune="measure")`` does. Batched groups replay
+    through ``apply_batched`` with the caller's ``backend``: on the card a
+    kernel backend is one batched launch a group. Requires backend="auto".
     """
     _check_tune(tune, backend)
     policy = DEFAULT_PAD_POLICY if pad_policy is None else pad_policy
@@ -472,7 +497,7 @@ def spgemm_grouped(pairs: Sequence[tuple[CSR, CSR]], *,
                 ex = ReuseExecutor(plan, backend=backend)
             results[idxs[0]] = ex.to_csr(ex.apply(a0.values, b0.values))
             continue
-        ex = ReuseExecutor(plan, backend=backend)  # batched stays plain
+        ex = ReuseExecutor(plan, backend=backend)
         a_stack = torch.stack([prepared[i][0].values for i in idxs])
         b_stack = torch.stack([prepared[i][1].values for i in idxs])
         vals = ex.apply_batched(a_stack, b_stack)

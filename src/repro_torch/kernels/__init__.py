@@ -7,8 +7,10 @@ the tables of what each name runs here.
 
 Kernels (``csrc/``, built by ``_build``):
   segsum_reuse    — K1, replay of a pinned plan: tiles of consecutive products,
-                    a segmented scan, each segment stored once
+                    a segmented scan, each segment stored once; its batched
+                    launch replays a stack of value rows, a row of tiles each
   lp_reuse        — K2, the same replay through a shared-memory LP hash table
+                    (and its batched launch likewise)
   spgemm_symbolic — K5, C's row sizes: OR of B's bitmask rows + popcount
   spgemm_numeric  — K4, numeric phase through a dense row in shared memory
   spgemm_lp       — K3, numeric phase through the two-level LP hash tables
@@ -41,9 +43,9 @@ __all__ = ["BACKEND_NAMES", "NUMERIC_KERNEL_NAMES", "bsr_spgemm_numeric",
 
 # backend string (the reference's) -> what it runs in the port
 BACKEND_NAMES = {
-    "xla": "plain torch core.spgemm.numeric_reuse",
-    "pallas": "CUDA kernel segsum_reuse (kernels/csrc/segsum_reuse.cu)",
-    "pallas_lp": "CUDA kernel lp_reuse (kernels/csrc/lp_reuse.cu)",
+    "xla": "plain torch core.spgemm.numeric_reuse (batched: executor._replay_batched)",
+    "pallas": "CUDA kernel segsum_reuse (kernels/csrc/segsum_reuse.cu), single and batched",
+    "pallas_lp": "CUDA kernel lp_reuse (kernels/csrc/lp_reuse.cu), single and batched",
 }
 
 # numeric_values kernel name (the reference's) -> what it runs in the port

@@ -10,10 +10,11 @@ per missing library, all at once, and waits for every one of them.
 Two kinds of failure, kept apart for the degradation ladder of
 ``kernels.ops.numeric_values`` and ``core.executor.ReuseExecutor``:
 
-* a library that cannot be built or loaded raises ``KernelFallbackError``,
-  a typed error. The ladder lets it through and never steps past it, so a
-  broken build can never pass for a working path (the reference's ladder
-  also absorbs lowering failures: a documented difference);
+* a library that cannot be built or loaded raises ``KernelBuildError``, a
+  typed ``KernelFallbackError``. The ladder lets it through and never steps
+  past it, so a broken build can never pass for a working path (the
+  reference's ladder also absorbs lowering failures: a documented
+  difference), and the serving tier never retries it;
 * a launch that returns a CUDA error raises ``KernelLaunchError``, an
   untyped ``RuntimeError`` outside the taxonomy (like
   ``runtime.faults.InjectedFault``). The ladder treats it as a kernel
@@ -33,6 +34,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.runtime.validate import KernelFallbackError
+
+
+class KernelBuildError(KernelFallbackError):
+    """A kernel library could not be built or loaded: deterministic, so it is
+    neither a rung of the ladder nor worth a retry."""
 
 
 class KernelLaunchError(RuntimeError):
@@ -62,7 +68,7 @@ def nvcc_path() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise KernelFallbackError(
+    raise KernelBuildError(
         "nvcc not found (neither on PATH nor at /usr/local/cuda/bin/nvcc): "
         "the CUDA kernels of repro_torch are built from source at first use")
 
@@ -101,7 +107,7 @@ def build(names=SOURCES) -> dict[str, Path]:
         else:
             os.replace(tmp, paths[name])  # atomic: readers never see half a file
     if failed:
-        raise KernelFallbackError("\n".join(failed))
+        raise KernelBuildError("\n".join(failed))
     return paths
 
 
@@ -113,17 +119,17 @@ def load(name: str) -> ctypes.CDLL:
         try:
             lib = ctypes.CDLL(str(path))
         except OSError as e:
-            raise KernelFallbackError(f"cannot load {path}: {e}") from e
+            raise KernelBuildError(f"cannot load {path}: {e}") from e
         _LIBS[name] = lib
     return lib
 
 
-def launch(name: str, argtypes, *args) -> None:
-    """Call ``<name>_launch(*args)`` of ``csrc/<name>.cu``, whose C arguments
+def launch(name: str, argtypes, *args, entry: str = "launch") -> None:
+    """Call ``<name>_<entry>(*args)`` of ``csrc/<name>.cu``, whose C arguments
     are ``argtypes`` and which returns ``cudaGetLastError()``; a CUDA error
     raises ``KernelLaunchError``, which the degradation ladder catches."""
     lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{name}_{entry}")
     err_str = getattr(lib, f"{name}_error_string")
     if fn.argtypes is None:
         fn.argtypes = argtypes

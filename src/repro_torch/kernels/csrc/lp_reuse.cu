@@ -183,6 +183,20 @@ struct LpReuse {
   }
 };
 
+// a stack of value rows over one plan: grid (tiles, rows)
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(kThreads)
+    lp_reuse_batched_kernel(const replay::BatchArgs p) {
+  replay::run_tile_batched<LpTile<TA, TB>>(p);
+}
+
+template <typename TA, typename TB>
+struct LpReuseBatched {
+  static void launch(const replay::BatchArgs& p) {
+    replay::launch_tiles_batched(lp_reuse_batched_kernel<TA, TB>, kSmem, p);
+  }
+};
+
 }  // namespace
 
-REPLAY_C_API(lp_reuse, LpReuse, kTile)
+REPLAY_C_API(lp_reuse, LpReuse, LpReuseBatched, kTile)

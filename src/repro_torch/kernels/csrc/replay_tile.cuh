@@ -40,6 +40,16 @@
 // (A fill of the output first with atomics at tile edges, a single pass with
 // decoupled look-back, and a persistent grid were measured slower or level:
 // PERF.md.)
+//
+// The batched launch replays one plan over a stack of value rows at once:
+// grid (tiles, batch), row b reading a + b * a_row_bytes and b + b *
+// b_row_bytes (a row stride of 0 shares that operand across rows) and writing
+// out[b] of a (batch, nnz_cap) output, with its own carries. The bounds
+// depend on seg_ids alone: block (0, 0) finds them once for every row. Each
+// row runs the single launch's tile code on its own TileArgs, so its adds
+// come in the same order as a single launch on that row's values; each row
+// reads the plan again. The single launch keeps its own kernels and
+// arguments, untouched by the batched ones.
 #pragma once
 
 #include <climits>
@@ -54,10 +64,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Bytes of workspace a launch over fm products in tiles of TileSize needs: the
-// two bounds (8 bytes), then a carry of 8 bytes a tile. Tiles are shifted by
-// seg_ids' misalignment, so one more.
+// two bounds (8 bytes), then a carry of 8 bytes a tile, for each of batch rows.
+// Tiles are shifted by seg_ids' misalignment, so one more.
 template <int TileSize>
-constexpr int64_t workspace_bytes(int64_t fm) { return 8 + 8 * (fm / TileSize + 2); }
+constexpr int64_t workspace_bytes(int64_t fm, int64_t batch = 1) {
+  return 8 + 8 * (fm / TileSize + 2) * batch;
+}
+
+constexpr int kMaxBatch = 65535;  // rows of a batched launch: gridDim.y
 
 struct TileArgs {
   const int32_t* a_slot;
@@ -75,6 +89,15 @@ struct TileArgs {
   int* bounds;      // [first live id, last live id + 1], written by the search
   int2* carries;    // (segment or -1, f32 bits) a tile
   cudaStream_t stream;
+};
+
+// A batched launch: row 0's arguments, with a, b, out and carries at row 0,
+// and the rows' strides.
+struct BatchArgs {
+  TileArgs r;
+  int64_t a_row_bytes;  // bytes between rows of a (0: one row shared by all)
+  int64_t b_row_bytes;  // likewise b
+  int batch;
 };
 
 // Segment ids canonical: -1 below 0, nnz_cap at or past it (both dropped).
@@ -271,15 +294,15 @@ __device__ __forceinline__ void run_tile(const TileArgs& r) {
 }
 
 // Places tiles of TileSize products (shifted by seg_ids' misalignment) and
-// the workspace's parts in r; false when work is too small for them.
+// the workspace's parts in r, for batch rows; false when work is too small.
 template <int TileSize>
-inline bool place_tiles(TileArgs& r, void* work, int64_t work_bytes) {
+inline bool place_tiles(TileArgs& r, void* work, int64_t work_bytes, int64_t batch = 1) {
   r.off = static_cast<int>((reinterpret_cast<uintptr_t>(r.seg_ids) & 15) / 4);
   r.n_tiles = (r.fm + r.off + TileSize - 1) / TileSize;
   char* w = static_cast<char*>(work);
   r.bounds = reinterpret_cast<int*>(w);
   r.carries = reinterpret_cast<int2*>(w + 8);
-  return work != nullptr && work_bytes >= 8 + 8 * r.n_tiles;
+  return work != nullptr && work_bytes >= 8 + 8 * r.n_tiles * batch;
 }
 
 // The launch: the main kernel (smem bytes of dynamic shared memory), one
@@ -294,19 +317,88 @@ void launch_tiles(Kernel kernel, size_t smem, const TileArgs& r) {
   replay_ends<<<4 * sm_count(), kThreads, 0, r.stream>>>(r);
 }
 
+// ---- the batched launch -------------------------------------------------
+
+// Row blockIdx.y's arguments: its operands, output and carries.
+__device__ __forceinline__ TileArgs row_args(const BatchArgs& p) {
+  const int64_t b = blockIdx.y;
+  TileArgs row = p.r;
+  row.a = static_cast<const char*>(p.r.a) + b * p.a_row_bytes;
+  row.b = static_cast<const char*>(p.r.b) + b * p.b_row_bytes;
+  row.out = p.r.out + b * p.r.nnz_cap;
+  row.carries = p.r.carries + b * p.r.n_tiles;
+  return row;
+}
+
+// replay_ends for row blockIdx.y.
+__global__ void __launch_bounds__(kThreads) replay_ends_batched(const BatchArgs p) {
+  const TileArgs& r = p.r;
+  const int64_t row = blockIdx.y;
+  float* out = r.out + row * r.nnz_cap;
+  const int2* carries = r.carries + row * r.n_tiles;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (int64_t t = i0; t < r.n_tiles; t += stride) {
+    const int2 c = carries[t];
+    if (c.x >= 0) atomicAdd(out + c.x, __int_as_float(c.y));
+  }
+  const int head_end = r.bounds[0], tail_begin = r.bounds[1];
+  for (int64_t s = i0; s < head_end; s += stride) out[s] = 0.f;
+  for (int64_t s = tail_begin + i0; s < r.nnz_cap; s += stride) out[s] = 0.f;
+}
+
+// The batched kernel's block: Body::tile on its tile of its row; block (0, 0)
+// then also runs the search, whose bounds every row shares.
+template <typename Body>
+__device__ __forceinline__ void run_tile_batched(const BatchArgs& p) {
+  Body::tile(row_args(p), blockIdx.x);
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    __syncthreads();
+    find_bounds(p.r);
+  }
+}
+
+// The batched launch: a row of tile blocks per row of values, then
+// replay_ends_batched. Errors reach cudaGetLastError().
+template <typename Kernel>
+void launch_tiles_batched(Kernel kernel, size_t smem, const BatchArgs& p) {
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const unsigned rows = static_cast<unsigned>(p.batch);
+  const unsigned ends = (4 * sm_count() + rows - 1) / rows;
+  kernel<<<dim3(static_cast<unsigned>(p.r.n_tiles), rows), kThreads, smem, p.r.stream>>>(p);
+  replay_ends_batched<<<dim3(ends, rows), kThreads, 0, p.r.stream>>>(p);
+}
+
+// Bytes of a value of dtype code c (0 for an unknown code, which dispatch
+// refuses).
+inline int64_t value_bytes(int c) { return c == kF32 ? 4 : (c == kF16 || c == kBF16 ? 2 : 0); }
+
 }  // namespace replay
 
 // The C interface of each replay library, with the kernel's name as prefix
-// (TILE: the kernel's products a tile):
+// (KERNEL and BATCHED: the launchers of the single and the batched kernel;
+// TILE: the kernel's products a tile):
 //   int <name>_launch(a_slot, b_slot, seg_ids, a, a_code, na, b, b_code, nb,
 //                     out, fm, nnz_cap, work, work_bytes, stream)
 //       -> a CUDA error code (0: launched; cudaErrorInvalidValue for nnz_cap
 //          outside [0, INT_MAX] or too small a workspace); out needs no
 //          zeroing, work holds at least <name>_workspace_bytes(fm) bytes
+//   int <name>_launch_batched(a_slot, b_slot, seg_ids, a, a_code, na,
+//                             a_stride, b, b_code, nb, b_stride, out, fm,
+//                             nnz_cap, batch, work, work_bytes, stream)
+//       -> the same, over batch rows (1 to 65,535, else
+//          cudaErrorInvalidValue): row i of a starts a_stride values after
+//          row i - 1 (0: one row shared by all), likewise b; out is
+//          (batch, nnz_cap) f32, work holds at least
+//          <name>_workspace_bytes_batched(fm, batch) bytes
 //   int64_t <name>_workspace_bytes(int64_t fm)
+//   int64_t <name>_workspace_bytes_batched(int64_t fm, int64_t batch)
 //   int64_t <name>_tile_products()
 //   const char* <name>_error_string(int code)
-#define REPLAY_C_API(NAME, KERNEL, TILE)                                               \
+#define REPLAY_C_API(NAME, KERNEL, BATCHED, TILE)                                      \
   extern "C" int NAME##_launch(const int32_t* a_slot, const int32_t* b_slot,           \
                                const int32_t* seg_ids, const void* a, int a_code,      \
                                int64_t na, const void* b, int b_code, int64_t nb,      \
@@ -332,8 +424,39 @@ void launch_tiles(Kernel kernel, size_t smem, const TileArgs& r) {
     }                                                                                  \
     return replay::dispatch<KERNEL>(a_code, b_code, r);                                \
   }                                                                                    \
+  extern "C" int NAME##_launch_batched(                                                 \
+      const int32_t* a_slot, const int32_t* b_slot, const int32_t* seg_ids,            \
+      const void* a, int a_code, int64_t na, int64_t a_stride, const void* b,          \
+      int b_code, int64_t nb, int64_t b_stride, float* out, int64_t fm,                \
+      int64_t nnz_cap, int64_t batch, void* work, int64_t work_bytes, void* stream) {  \
+    if (nnz_cap < 0 || nnz_cap > INT_MAX || batch < 1 || batch > replay::kMaxBatch) {  \
+      return static_cast<int>(cudaErrorInvalidValue);                                  \
+    }                                                                                  \
+    replay::BatchArgs p{};                                                             \
+    p.r.a_slot = a_slot;                                                               \
+    p.r.b_slot = b_slot;                                                               \
+    p.r.seg_ids = seg_ids;                                                             \
+    p.r.a = a;                                                                         \
+    p.r.na = na;                                                                       \
+    p.r.b = b;                                                                         \
+    p.r.nb = nb;                                                                       \
+    p.r.out = out;                                                                     \
+    p.r.fm = fm;                                                                       \
+    p.r.nnz_cap = static_cast<int>(nnz_cap);                                           \
+    p.r.stream = static_cast<cudaStream_t>(stream);                                    \
+    p.a_row_bytes = a_stride * replay::value_bytes(a_code);                            \
+    p.b_row_bytes = b_stride * replay::value_bytes(b_code);                            \
+    p.batch = static_cast<int>(batch);                                                 \
+    if (!replay::place_tiles<TILE>(p.r, work, work_bytes, batch)) {                    \
+      return static_cast<int>(cudaErrorInvalidValue);                                  \
+    }                                                                                  \
+    return replay::dispatch<BATCHED>(a_code, b_code, p);                               \
+  }                                                                                    \
   extern "C" int64_t NAME##_workspace_bytes(int64_t fm) {                              \
     return replay::workspace_bytes<TILE>(fm);                                          \
+  }                                                                                    \
+  extern "C" int64_t NAME##_workspace_bytes_batched(int64_t fm, int64_t batch) {       \
+    return replay::workspace_bytes<TILE>(fm, batch);                                   \
   }                                                                                    \
   extern "C" int64_t NAME##_tile_products() { return TILE; }                           \
   extern "C" const char* NAME##_error_string(int code) {                               \

@@ -168,6 +168,20 @@ struct SegsumReuse {
   }
 };
 
+// a stack of value rows over one plan: grid (tiles, rows)
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(kThreads)
+    segsum_reuse_batched_kernel(const replay::BatchArgs p) {
+  replay::run_tile_batched<SegsumTile<TA, TB>>(p);
+}
+
+template <typename TA, typename TB>
+struct SegsumReuseBatched {
+  static void launch(const replay::BatchArgs& p) {
+    replay::launch_tiles_batched(segsum_reuse_batched_kernel<TA, TB>, 0, p);
+  }
+};
+
 }  // namespace
 
-REPLAY_C_API(segsum_reuse, SegsumReuse, kTile)
+REPLAY_C_API(segsum_reuse, SegsumReuse, SegsumReuseBatched, kTile)

@@ -209,7 +209,7 @@ def numeric_values(a: CSR, b: CSR, c_idx: torch.Tensor, c_nnz: torch.Tensor, *,
                    if kernel == "auto" or tune == "measure" else None)
     out, ran = ladder.walk(numeric_ladder(resolved, static_pick, on_card), run,
                            on_kernel_failure=on_kernel_failure, site="numeric_values",
-                           what="numeric kernel", span_name="numeric.kernel")
+                           what="numeric kernel", kernel_span=True)
     KERNEL_COUNTS[ran] += 1
     return out
 

@@ -31,14 +31,16 @@ the flush writes each segment once and the slots no product reaches 0, with
 the carries and ends of K1 (``csrc/replay_tile.cuh``), so the output needs
 no fill. Same contract as K1: ``C[seg_ids[t]] += A[a_slot_s[t]] *
 B[b_slot_s[t]]``, f32 accumulation cast to ``promote_types(a, b)``, ids
-outside ``[0, nnz_cap)`` dropped, seg_ids sorted; bytes-bound as K1.
+outside ``[0, nnz_cap)`` dropped, seg_ids sorted; bytes-bound as K1. Like
+K1 it has a batched launch over stacked values, ``lp_reuse_batched_arrays``.
 
 Beside the kernels: ``spgemm_lp_plain`` (which sums each key's products in
 the order of the insert stream, so on the CPU it is bitwise the reference's
 ``ref.spgemm_lp_ref``) and ``lp_reuse_plain`` (the same function as
-``segsum_reuse_plain``, since the table only reorders the adds), which the
-wrappers run for CPU tensors only; ``NUMERIC_LAUNCHES`` (K3) and
-``LAUNCHES`` (K2) count kernel launches.
+``segsum_reuse_plain``, since the table only reorders the adds) and
+``lp_reuse_batched_plain``, which the wrappers run for CPU tensors only;
+``NUMERIC_LAUNCHES`` (K3), ``LAUNCHES`` and ``BATCHED_LAUNCHES`` (K2) count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -46,15 +48,17 @@ import functools
 
 import torch
 
-from repro_torch.kernels.segsum_reuse import (check_replay_args, launch_replay, replay_out,
-                                              replay_plain)
+from repro_torch.kernels.segsum_reuse import (check_replay_args, launch_replay,
+                                              replay_batched_plain, replay_out,
+                                              replay_plain, run_batched)
 from repro_torch.kernels.spgemm_numeric import (_pad_width, check_ell_args,
                                                 ell_numeric_plain, launch_ell)
 from repro_torch.runtime.validate import SpgemmConfigError, SpgemmInputError
 
-# kernel launches by ``lp_reuse_arrays`` (K2) and ``spgemm_lp`` (K3); reset
-# by callers that count
+# kernel launches by ``lp_reuse_arrays`` (K2), ``lp_reuse_batched_arrays``
+# (K2's batched launch) and ``spgemm_lp`` (K3); reset by callers that count
 LAUNCHES = 0
+BATCHED_LAUNCHES = 0
 NUMERIC_LAUNCHES = 0
 
 LP_TILE = 128  # products per block; the table holds 2 * LP_TILE slots
@@ -347,3 +351,35 @@ def lp_reuse(plan, a_values, b_values) -> torch.Tensor:
     f32 accumulation: f64/int operands belong on the plain path."""
     return lp_reuse_arrays(plan.a_slot_s, plan.b_slot_s, plan.seg_ids,
                            a_values, b_values, nnz_cap=plan.indices.shape[0])
+
+
+def lp_reuse_batched_plain(a_slot_s, b_slot_s, seg_ids, a_values, b_values,
+                           nnz_cap: int) -> torch.Tensor:
+    """``lp_reuse_batched_arrays`` in plain torch (``replay_batched_plain``)."""
+    return replay_batched_plain(a_slot_s, b_slot_s, seg_ids, a_values, b_values, nnz_cap)
+
+
+def lp_reuse_batched_arrays(a_slot_s, b_slot_s, seg_ids, a_values, b_values, *,
+                            nnz_cap: int) -> torch.Tensor:
+    """One LP-table launch over stacked values: (batch, nnz_cap) C values,
+    with the operand contract of ``segsum_reuse_batched_arrays``. CUDA
+    tensors launch the kernel (or raise); CPU tensors run
+    ``lp_reuse_batched_plain``."""
+    global BATCHED_LAUNCHES
+    check_replay_args(a_slot_s, b_slot_s, seg_ids, a_values, b_values, nnz_cap,
+                      batched=True)
+    if a_values.device.type == "cpu":
+        return lp_reuse_batched_plain(a_slot_s, b_slot_s, seg_ids, a_values, b_values,
+                                      nnz_cap)
+    launched, out = run_batched("lp_reuse", a_slot_s, b_slot_s, seg_ids, a_values,
+                                b_values, nnz_cap)
+    BATCHED_LAUNCHES += launched
+    return out
+
+
+def lp_reuse_batched(plan, a_values, b_values) -> torch.Tensor:
+    """Replay a ``SpgemmPlan`` over stacked values with K2's batched launch
+    (``ReuseExecutor.apply_batched`` with ``backend="pallas_lp"`` on the
+    card)."""
+    return lp_reuse_batched_arrays(plan.a_slot_s, plan.b_slot_s, plan.seg_ids,
+                                   a_values, b_values, nnz_cap=plan.indices.shape[0])

@@ -53,13 +53,13 @@ def _is_kernel_failure(e: BaseException) -> bool:
 
 def walk(rungs: Sequence[str], run: Callable[[str], torch.Tensor], *,
          on_kernel_failure: str, site: str, what: str,
-         span_name: str | None = None, on_step: Callable[[str], None] | None = None,
+         kernel_span: bool = False, on_step: Callable[[str], None] | None = None,
          **attrs) -> tuple[torch.Tensor, str]:
     """Run ``run(rungs[0])``, stepping down ``rungs`` on kernel failures;
     returns the output and the rung that gave it.
 
     ``faults.check(f"kernel:<rung>")`` precedes each rung, inside a
-    ``span_name`` span when one is given. ``what`` names the rung kind in
+    ``numeric.kernel`` span when ``kernel_span`` is set. ``what`` names the rung kind in
     the error message; ``site`` and ``attrs`` go to the recorder;
     ``on_step(step)`` sees each "<failed>-><next>" step.
     """
@@ -67,7 +67,7 @@ def walk(rungs: Sequence[str], run: Callable[[str], torch.Tensor], *,
 
     for i, name in enumerate(rungs):
         try:
-            with (obs_trace.span(span_name, kernel=name, rung=i) if span_name
+            with (obs_trace.span("numeric.kernel", kernel=name, rung=i) if kernel_span
                   else contextlib.nullcontext()):
                 faults.check(f"kernel:{name}")
                 return run(name), name
@@ -83,7 +83,7 @@ def walk(rungs: Sequence[str], run: Callable[[str], torch.Tensor], *,
                                     trace_id=obs_trace.current_trace_id(), **attrs)
                 raise err from e
             step = f"{name}->{rungs[i + 1]}"
-            FALLBACK_COUNTS[f"fault:{step}"] += 1
+            FALLBACK_COUNTS[f"fault:{name}->{rungs[i + 1]}"] += 1
             recorder.record("fallback", kernel=name, fallback=step, verdict="fallback",
                             site=site, trace_id=obs_trace.current_trace_id(), **attrs)
             if on_step is not None:

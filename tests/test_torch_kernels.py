@@ -229,21 +229,23 @@ def test_build_names_libraries_by_content_and_raises_without_nvcc(monkeypatch, t
 
 
 def test_c_interfaces_match_the_ctypes_signature():
-    """Every replay library exports <name>_launch with the argument list the
-    wrapper declares (its workspace included), <name>_workspace_bytes,
+    """Every replay library exports <name>_launch and <name>_launch_batched
+    with the argument lists the wrappers declare (workspaces included),
+    <name>_workspace_bytes, <name>_workspace_bytes_batched,
     <name>_tile_products and <name>_error_string; every source targets sm_90a
     (the ELL kernels' interface: tests/test_torch_ops.py)."""
     common = (_build.CSRC_DIR / "replay_tile.cuh").read_text()
-    api = common[common.index("#define REPLAY_C_API"):]
-    params = re.search(r"NAME##_launch\((.*?)\)\s*\{", api.replace("\\\n", ""),
-                       re.S).group(1)
+    api = common[common.index("#define REPLAY_C_API"):].replace("\\\n", "")
     c_types = {"ptr": ctypes.c_void_p, "int64_t": ctypes.c_int64, "int": ctypes.c_int}
-    declared = ["ptr" if "*" in p else p.split()[0] for p in params.split(",")]
-    assert [c_types[t] for t in declared] == k1._ARGTYPES
-    assert "NAME##_workspace_bytes(int64_t fm)" in api.replace("\\\n", "")
-    assert "NAME##_tile_products()" in api.replace("\\\n", "")
+    for entry, argtypes in (("launch", k1._ARGTYPES), ("launch_batched", k1._ARGTYPES_BATCHED)):
+        params = re.search(rf"NAME##_{entry}\((.*?)\)\s*\{{", api, re.S).group(1)
+        declared = ["ptr" if "*" in p else p.split()[0] for p in params.split(",")]
+        assert [c_types[t] for t in declared] == argtypes, entry
+    assert "NAME##_workspace_bytes(int64_t fm)" in api
+    assert "NAME##_workspace_bytes_batched(int64_t fm, int64_t batch)" in api
+    assert "NAME##_tile_products()" in api
     for name in WRAPPERS:
-        assert re.search(rf"REPLAY_C_API\({name}, \w+, kTile\)",
+        assert re.search(rf"REPLAY_C_API\({name}, \w+, \w+Batched, kTile\)",
                          (_build.CSRC_DIR / f"{name}.cu").read_text())
     for name in _build.SOURCES:
         assert "sm_90a" in (_build.CSRC_DIR / f"{name}.cu").read_text()
@@ -325,6 +327,118 @@ def test_kernel_writes_every_slot_of_edge_plans_on_the_card(cuda, name, case):
         tol = 1e-4 if want.dtype == torch.float32 else 8e-3
         assert bool(((got.double() - want.double()).abs()
                      <= tol * scale.double() + 1e-6).all())
+
+
+# the batched launches: (module, batched entry, single entry)
+BATCHED = {
+    "segsum_reuse": (k1, k1.segsum_reuse_batched_arrays, k1.segsum_reuse_arrays),
+    "lp_reuse": (k2, k2.lp_reuse_batched_arrays, k2.lp_reuse_arrays),
+}
+# how the values are stacked: (rows, A stacked, B stacked, element offset of
+# the stacked rows in their buffer)
+STACKS = {"batch3": (3, True, True, 0), "a_shared": (3, False, True, 1),
+          "b_shared": (3, True, False, 2), "views_3": (3, True, True, 3),
+          "stack_of_1": (1, True, True, 0)}
+
+
+def _stacked(n, rows, stacked, offset, g, dev, dtype=torch.float32):
+    """(rows, n) values as a view at ``offset`` elements into a larger
+    buffer, or one shared (n,) row."""
+    if not stacked:
+        return torch.randn(n, generator=g, device=dev).to(dtype)
+    buf = torch.randn(offset + rows * n, generator=g, device=dev).to(dtype)
+    return buf[offset:].view(rows, n)
+
+
+def _row(v, i):
+    return v[i] if v.ndim == 2 else v
+
+
+@pytest.mark.parametrize("name", sorted(BATCHED))
+@pytest.mark.parametrize("case", range(len(cs.EDGE_CASES)), ids=cs.EDGE_CASES)
+def test_batched_edge_plans_match_float64(name, case):
+    """On the CPU the batched entry points take every edge plan in every
+    stacking (shared operands, rows at offsets, a stack of one), launch
+    nothing, and each row agrees with the float64 oracle."""
+    mod, batched, _ = BATCHED[name]
+    g = torch.Generator().manual_seed(3)
+    _, a_slot, b_slot, seg, nnz_cap, na, nb = cs.edge_plans(cs.REPLAY_TILES[name], g,
+                                                            dev="cpu")[case]
+    plan = [x.numpy() for x in (a_slot, b_slot, seg)]
+    for rows, a_st, b_st, off in STACKS.values():
+        a = _stacked(na, rows, a_st, off, g, "cpu")
+        b = _stacked(nb, rows, b_st, off, g, "cpu")
+        launches = mod.BATCHED_LAUNCHES
+        got = batched(a_slot, b_slot, seg, a, b, nnz_cap=nnz_cap)
+        assert mod.BATCHED_LAUNCHES == launches
+        assert got.shape == (rows, nnz_cap) and got.dtype == torch.float32
+        for i in range(rows):
+            want, scale = _oracle_clamped(*plan, _row(a, i).double().numpy(),
+                                          _row(b, i).double().numpy(), nnz_cap)
+            assert np.all(np.abs(got[i].double().numpy() - want) <= 1e-5 * scale + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BATCHED))
+@pytest.mark.parametrize("case", range(len(cs.EDGE_CASES)), ids=cs.EDGE_CASES)
+def test_batched_launch_matches_replay_batched_on_the_card(cuda, name, case):
+    """One batched launch per stacking of each edge plan, right after a
+    NaN-filled tensor of the output's size is freed, within F32_TOL of the
+    executor's plain ``_replay_batched``; K1's rows equal its single launch
+    bit for bit (a row's adds do not depend on the batch)."""
+    from repro_torch.core import executor as texec
+
+    mod, batched, single = BATCHED[name]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    _, a_slot, b_slot, seg, nnz_cap, na, nb = cs.edge_plans(cs.REPLAY_TILES[name], g,
+                                                            dev="cuda")[case]
+    plan = cs.plan_arrays(a_slot, b_slot, seg, nnz_cap)
+    for rows, a_st, b_st, off in STACKS.values():
+        for bdt in (torch.float32, torch.bfloat16):
+            a = _stacked(na, rows, a_st, off, g, cuda)
+            b = _stacked(nb, rows, b_st, off, g, cuda, bdt)
+            want = texec._replay_batched(plan, a, b)
+            scale = texec._replay_batched(plan, a.abs(), b.float().abs())
+            junk = torch.full((rows, nnz_cap), float("nan"), device=cuda)
+            del junk
+            launches = mod.BATCHED_LAUNCHES
+            got = batched(a_slot, b_slot, seg, a, b, nnz_cap=nnz_cap)
+            torch.cuda.synchronize()
+            assert mod.BATCHED_LAUNCHES == launches + 1
+            assert got.shape == (rows, nnz_cap) and got.dtype == torch.float32
+            assert bool(torch.isfinite(got).all())
+            assert bool(((got.double() - want.double()).abs()
+                         <= 1e-4 * scale.double() + 1e-6).all())
+            if name == "segsum_reuse":
+                for i in range(rows):
+                    assert torch.equal(got[i], single(a_slot, b_slot, seg, _row(a, i),
+                                                      _row(b, i), nnz_cap=nnz_cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "pallas_lp"])
+def test_apply_batched_is_one_batched_launch_on_the_card(cuda, backend):
+    """``ReuseExecutor.apply_batched`` with a kernel backend on the card: one
+    batched launch of that kernel, no plain stage, values within F32_TOL of
+    ``_replay_batched``."""
+    from repro_torch.core import executor as texec
+    from repro_torch.core.spgemm import STAGE_COUNTS
+    from repro_torch.sparse import generators
+
+    a = generators.random_csr(300, 200, 6.0, 1, device=cuda)
+    b = generators.random_csr(200, 250, 6.0, 2, device=cuda)
+    ex = texec.ReuseExecutor.from_matrices(a, b, backend=backend, plan_cache=False)
+    mod = k1 if backend == "pallas" else k2
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a_rows = torch.randn(5, a.nnz_cap, generator=g, device=cuda)
+    STAGE_COUNTS.clear()
+    launches = mod.BATCHED_LAUNCHES
+    got = ex.apply_batched(a_rows, b.values)
+    torch.cuda.synchronize()
+    assert mod.BATCHED_LAUNCHES == launches + 1 and not STAGE_COUNTS
+    want = texec._replay_batched(ex.plan, a_rows, b.values)
+    scale = texec._replay_batched(ex.plan, a_rows.abs(), b.values.abs())
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
 
 
 @pytest.mark.cuda
