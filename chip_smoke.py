@@ -119,8 +119,26 @@ Phases, in order:
      the admission split, per-request latency, the batched launches' times
      at batch 4 and 8 beside batch x the single launch and the plain
      batched replay;
- 16. one JSON line of the kernels (K1 and K2 with their batched launches'
-     times, launches and shape); the last line is the result.
+ 16. the sharded SpGEMM (repro_torch.dist) on the single-process mesh, every
+     shard on the card: (a) multigrid 2048^2 A*P at S = 8, 3 and 1, both B
+     placements: one hash at pin, K1 launched once a live shard per apply
+     and no plain stage, C's structure after merge bitwise the single-device
+     plan's, values within F32_TOL of the single-device plain and K1
+     replays, the replay timed around the whole apply; (b) RMAT-16 A*A at S =
+     8 and 1, the same, with each shard's live products and the stacked
+     plan's bytes beside the single-device plan's; (c) apply_batched at batch
+     4, S = 8: one batched K1 launch a shard, rows within F32_TOL of apply;
+     (d) spgemm(mesh=) and distributed_spgemm at 512^2 A*P against the
+     single-device spgemm, then a dist-cache hit; (e) the process-group
+     backing on NCCL at world size 1 (file:// rendezvous under build/), S = 8
+     local shards: (a)'s replay bitwise the single-process one, then
+     compressed_psum and an all_gather through NCCL; (f) pipeline_forward at
+     4 stages against the serial loop; (g) the pin split, the peak memory of
+     each pin and replay, a torch.profiler run of each replicated replay
+     (the device's busy time and idle share), K1's launches;
+ 17. one JSON line of the kernels (K1 and K2 with their batched launches'
+     times, launches and shape, K1 with its sharded launches); the last
+     line is the result.
 
 Phase 2 also holds each batched replay launch (K1, K2) against the
 executor's plain _replay_batched at F32_TOL: every edge plan with batch 3,
@@ -147,7 +165,8 @@ fault:* or nan_guard:* key (and no dtype:* key it does not expect) appears;
 so does every timed sweep that goes through an entry point (phases 5 and
 14), so that no kernel's time is another rung's. Phase 15 sets the counts to
 0 before each of its runs (a)-(f) and reads them after; the JSON line's
-batched_launches add up its runs.
+batched_launches add up its runs. Phase 16 does the same around each counted
+replay, timed sweep and fresh multiply; its sharded_launches add them up.
 Any failed check raises, so the script exits
 non-zero and prints no result. It needs torch, numpy and scipy; it exits
 non-zero when no CUDA card is visible or when the repo's src/ is missing.
@@ -809,13 +828,53 @@ def phase_times(rt, seg_mod, lp_mod, seed: int, mg: dict, pw: dict) -> dict:
     return times
 
 
+def profile_run(label: str, fn, steps: int = 3) -> tuple:
+    """``fn`` under torch.profiler: a warm-up step that the profiler traces
+    and drops (CUPTI loses the first kernels of a window), then ``steps``
+    recorded ones. Per step: the synchronised host interval, the device's
+    busy time (kernels and copies) and its idle share, logged with the top
+    device and host rows (counts per step). Returns (host ms, device busy
+    ms, device rows as (ms, count, name)), per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    # device-side events only (kernels, copies): an aten op's row repeats
+    # the device time of the kernels it launched, and a step's row spans it
+    rows = [(e.self_device_time_total / steps / 1e3, e.count / steps, e.key)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+    rows.sort(reverse=True)
+    dev_us = sum(r[0] for r in rows) * 1e3
+    log(f"   {label}: host {wall_us / 1e3:.3f} ms, device busy {dev_us / 1e3:.3f} ms, "
+        f"idle share {1 - dev_us / wall_us:.3f} (torch.profiler, mean of {steps} steps)")
+    for ms, count, key in rows[:8]:
+        log(f"      {ms:9.3f} ms  x{count:<4g} {key[:90]}")
+    host = sorted(((e.self_cpu_time_total / steps, e.count / steps, e.key)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CPU
+                   and not e.key.startswith("ProfilerStep")), reverse=True)
+    for us, count, key in host[:4]:
+        log(f"      {us / 1e3:9.3f} ms  x{count:<4g} host: {key[:84]}")
+    return wall_us / 1e3, dev_us / 1e3, rows
+
+
 def phase_profile(rt, mg: dict, pw: dict) -> None:
     """Where the time goes: device time by kernel under torch.profiler for a
     fresh multiply and a replay of each path, and the device's idle share
     of the synchronised host interval."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     a, p, rm = mg["a"], mg["p"], pw["rmat"]
     runs = {
         "fresh AP spgemm(sparse)": lambda: rt.spgemm(a, p, method="sparse", plan_cache=False),
@@ -824,27 +883,7 @@ def phase_profile(rt, mg: dict, pw: dict) -> None:
         "replay A*A (pallas_lp)": lambda: pw["rmat_ex"].apply(rm.values, rm.values),
     }
     for label, fn in runs.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # device-side events only (kernels, copies): an aten op's row repeats
-        # the device time of the kernels it launched
-        rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
-        rows.sort(reverse=True)
-        dev_us = sum(r[0] for r in rows)
-        log(f"   {label}: host {wall_us / 1e3:.3f} ms, device busy {dev_us / 1e3:.3f} ms, "
-            f"idle share {1 - dev_us / wall_us:.3f} (profiled run)")
-        for us, count, key in rows[:8]:
-            log(f"      {us / 1e3:9.3f} ms  x{count:<3d} {key[:90]}")
-        host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()
-                       if e.device_type == DeviceType.CPU), reverse=True)
-        for us, count, key in host[:4]:
-            log(f"      {us / 1e3:9.3f} ms  x{count:<3d} host: {key[:84]}")
+        profile_run(label, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -2878,6 +2917,370 @@ def phase_serve(rt, km, seed: int, root: Path, smi: str, grid=2048, rmat_scale=1
     return out
 
 
+DIST_SHARDS = 8
+DIST_LABELS = ("multigrid A*P", "power-law A*A")
+
+
+def dist_counts_zero(rt, km) -> None:
+    """Set every count the sharded path is judged by to 0."""
+    km.seg.LAUNCHES = km.seg.BATCHED_LAUNCHES = km.lp.LAUNCHES = 0
+    rt.stage_counts.clear()
+    rt.hash_counts.clear()
+    km.telemetry.FALLBACK_COUNTS.clear()
+
+
+def dist_single(rt, km, a, b, av, bv) -> dict:
+    """The single-device references of a sharded replay: the plan, its
+    plain replay (and the |products| replay that scales the tolerance) and
+    its K1 replay, on the live slots."""
+    plan = rt.spgemm(a, b, method="sparse", plan_cache=False).plan
+    n = int(plan.indptr[-1])
+    return {"plan": plan, "n": n,
+            "plain": rt.numeric_reuse(plan, av, bv)[:n],
+            "scale": rt.numeric_reuse(plan, av.abs(), bv.abs())[:n],
+            "k1": km.seg.segsum_reuse(plan, av, bv)[:n]}
+
+
+def dist_check(rt, km, name, ex, single, av, bv, out) -> torch.Tensor:
+    """One counted sharded replay: K1 launched once a live shard and no plain
+    stage, no structure hash; C's structure after ``merge`` bitwise the
+    single-device plan's, values within F32_TOL of the single-device plain
+    and K1 replays. Returns the merged values."""
+    live = sum(ex.live_shards)
+    dist_counts_zero(rt, km)
+    v = ex.apply(av, bv)
+    torch.cuda.synchronize()
+    launches = km.seg.LAUNCHES
+    require(launches == live, f"{name}: K1 launched {launches} times, not once a live "
+                              f"shard ({live} of {ex.num_shards})")
+    require(rt.stage_counts["numeric_reuse"] == 0, f"{name}: the plain replay ran")
+    require(sum(rt.hash_counts.values()) == 0, f"{name}: a replay hashed the structure")
+    check_fallbacks(rt, name)
+    out["launches"] = out.get("launches", 0) + launches
+    c = ex.merge(v)
+    p, n = single["plan"], single["n"]
+    require(torch.equal(c.indptr, p.indptr) and torch.equal(c.indices[:n], p.indices[:n]),
+            f"{name}: merged structure differs from the single-device plan's")
+    got = ex.merge_values(v)
+    require(torch.equal(got, c.values[:n].to(got.device)), f"{name}: merge_values != merge")
+    worst = max(tolerance_check(f"{name} vs single plain", got, single["plain"],
+                                single["scale"], F32_TOL),
+                tolerance_check(f"{name} vs single K1", got, single["k1"], single["scale"],
+                                F32_TOL))
+    out["worst"] = max(out.get("worst", 0.0), worst)
+    log(f"   {name}: {launches} K1 launches (live shards {live}/{ex.num_shards}), "
+        f"structure bitwise the single-device plan's, max |sharded - single| {worst:.3e}")
+    return got
+
+
+def dist_timed(rt, km, name, ex, av, bv, out) -> float:
+    """Median of 7 CUDA-event times around the whole ``apply``; the launches
+    of the 8 calls must be 8 x the live shards, and no plain stage moves."""
+    live = sum(ex.live_shards)
+    dist_counts_zero(rt, km)
+    t = time_ms(lambda: ex.apply(av, bv))
+    torch.cuda.synchronize()
+    require(km.seg.LAUNCHES == 8 * live,
+            f"{name}: {km.seg.LAUNCHES} K1 launches in 8 timed replays, not {8 * live}")
+    require(rt.stage_counts["numeric_reuse"] == 0 and not rt.hash_counts,
+            f"{name}: a timed replay ran the plain stage or hashed")
+    out["launches"] = out.get("launches", 0) + km.seg.LAUNCHES
+    return t
+
+
+def dist_profiled(rt, km, name, ex, av, bv, out):
+    """The device's busy time in a sharded replay (``profile_run``: a
+    warm-up, a dropped step, 3 recorded ones), each K1 launch counted.
+    None where the trace lost a K1 launch (CUPTI drops events now and then
+    in the chip's sandbox): a busy time short of a kernel is not used."""
+    live = sum(ex.live_shards)
+    dist_counts_zero(rt, km)
+    _, busy_ms, rows = profile_run(f"{name} (profiled)", lambda: ex.apply(av, bv))
+    require(km.seg.LAUNCHES == 5 * live and rt.stage_counts["numeric_reuse"] == 0,
+            f"{name}: {km.seg.LAUNCHES} K1 launches in the profiled replays")
+    out["launches"] = out.get("launches", 0) + km.seg.LAUNCHES
+    traced = sum(count for _, count, key in rows if "segsum_reuse_kernel" in key)
+    if traced != live:
+        log(f"   {name}: the trace holds {traced:g} of {live} K1 launches a step; its busy "
+            f"time is not used")
+        return None
+    return busy_ms
+
+
+def dist_pin(rt, a, b, mesh, placement, name):
+    """Pin a sharded executor (fresh plan cache): one hash, and its peak
+    device memory above what was allocated before."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rt.hash_counts.clear()
+    t0 = time.perf_counter()
+    ex = rt.ShardedReuseExecutor.from_matrices(a, b, mesh, b_placement=placement,
+                                               plan_cache=rt.PlanCache(name="dist_smoke"))
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t0
+    require(sum(rt.hash_counts.values()) == 1, f"{name}: pin hashed "
+                                              f"{dict(rt.hash_counts)}, not once")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return ex, pin_s, peak
+
+
+def dist_pin_split(rt, a, b, mesh) -> dict:
+    """The pin of S = 8, replicated, step by step (host clock, synchronised):
+    prepare_sparse_inputs, the structure hash, the host partition (rows,
+    value maps, fm_cap), the sharded expand+sort and the per-shard plans."""
+    import dataclasses
+
+    from repro_torch.core import distributed as dist_core
+    from repro_torch.core.meta import round_capacity
+    from repro_torch.core.plan_cache import structure_key
+    from repro_torch.core.spgemm import SortedExpansion, plan_from_sorted, prepare_sparse_inputs
+    from repro_torch.dist.plan import dist_expand_and_sort
+
+    split = {}
+
+    def step(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        split[key] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    pa, pb, _, _, fm_cap = step("prepare_sparse_inputs", lambda: prepare_sparse_inputs(
+        a, b, "pow2"))
+    step("structure_key", lambda: structure_key(pa, pb, fm_cap, "pow2"))
+    num = mesh.shape["data"]
+
+    def partition():
+        a_sh = dist_core.partition_rows(pa, num)
+        dist_core.partition_value_map(pa, num)
+        return a_sh, dist_core.shard_fm_cap(a_sh, pb)
+
+    a_sh, shard_fm = step("host partition", partition)
+    sx = step("sharded expand+sort", lambda: dist_expand_and_sort(a_sh, pb, mesh, "data",
+                                                                  shard_fm))
+    nnz_cap = round_capacity(int(sx.row_sizes.sum(1).max()))
+    names = [f.name for f in dataclasses.fields(SortedExpansion)]
+    step("plans", lambda: [plan_from_sorted(SortedExpansion(**{k: getattr(sx, k)[i]
+                                                              for k in names}),
+                                            pb.k, nnz_cap) for i in range(num)])
+    return split
+
+
+def phase_dist_cell(rt, km, label, a, b, av, bv, shard_counts, out, smi, t_single=None):
+    """(a)/(b): one cell at each shard count and placement."""
+    single = dist_single(rt, km, a, b, av, bv)
+    s_plan = single["plan"]
+    cell = {"single_plan_bytes": rt.plan_nbytes(s_plan), "runs": {}}
+    log(f"   {label}: single-device plan fm_cap {s_plan.seg_ids.shape[0]}, nnz_cap "
+        f"{s_plan.indices.shape[0]}, nnz(C) {single['n']}, {cell['single_plan_bytes']} bytes")
+    for shards in shard_counts:
+        mesh = rt.compat.make_mesh((shards,), ("data",), device=a.device)
+        for placement in ("replicated", "allgather"):
+            name = f"{label} S={shards} {placement}"
+            ex, pin_s, pin_peak = dist_pin(rt, a, b, mesh, placement, name)
+            live_products = (ex.plan.seg_ids < ex.nnz_cap).sum(1).tolist()
+            run = {"pin_s": pin_s, "pin_peak_gib": pin_peak,
+                   "plan_bytes": rt.plan_nbytes(ex.plan), "live_products": live_products,
+                   "fm_cap": ex.plan.fm_cap, "nnz_cap": ex.nnz_cap}
+            log(f"   {name}: pin {pin_s:.3f} s (peak {pin_peak:.3f} GiB above the operands); "
+                f"stacked plan fm_cap {ex.plan.fm_cap} x {shards}, nnz_cap {ex.nnz_cap}, "
+                f"{run['plan_bytes']} bytes ({run['plan_bytes'] / cell['single_plan_bytes']:.2f}"
+                f"x the single-device plan); live products per shard {live_products}")
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            dist_check(rt, km, name, ex, single, av, bv, out)
+            run["apply_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            run["ms"] = dist_timed(rt, km, name, ex, av, bv, out)
+            log(f"   {name}: replay {run['ms']:.3f} ms (CUDA events around apply, median "
+                f"of 7; {smi}); peak {run['apply_peak_gib']:.3f} GiB above the plan"
+                + (f"; phase 5's single-device K1 {t_single:.3f} ms" if t_single else ""))
+            if placement == "replicated":
+                run["busy_ms"] = dist_profiled(rt, km, name, ex, av, bv, out)
+                if run["busy_ms"] is not None:
+                    log(f"   {name}: device busy {run['busy_ms']:.3f} ms of the "
+                        f"{run['ms']:.3f} ms replay, idle share "
+                        f"{1 - run['busy_ms'] / run['ms']:.3f}")
+            cell["runs"][f"S={shards} {placement}"] = run
+            if shards == DIST_SHARDS and placement == "replicated":
+                cell["ex"] = ex
+            del ex
+            torch.cuda.empty_cache()
+    cell["single"] = single
+    return cell
+
+
+def phase_dist_batched(rt, km, ex, single, av, bv, g, out) -> None:
+    """(c) apply_batched at batch 4: one batched K1 launch a live shard, each
+    row within F32_TOL of apply on that row."""
+    live = sum(ex.live_shards)
+    a_stack = torch.randn(4, av.shape[0], generator=g, device=av.device)
+    dist_counts_zero(rt, km)
+    got = ex.apply_batched(a_stack, bv)
+    torch.cuda.synchronize()
+    require(km.seg.BATCHED_LAUNCHES == live and km.seg.LAUNCHES == 0,
+            f"apply_batched: {km.seg.BATCHED_LAUNCHES} batched launches and "
+            f"{km.seg.LAUNCHES} single ones, not {live} and 0")
+    require(rt.stage_counts["numeric_reuse"] == 0, "apply_batched ran the plain stage")
+    out["batched_launches"] = km.seg.BATCHED_LAUNCHES
+    worst = 0.0
+    for i in range(4):
+        row = ex.apply(a_stack[i], bv)
+        scale = ex.apply(a_stack[i].abs(), bv.abs())
+        worst = max(worst, tolerance_check(f"batched row {i}", got[i], row, scale, F32_TOL))
+    out["worst"] = max(out["worst"], worst)
+    out["batched_ms"] = time_ms(lambda: ex.apply_batched(a_stack, bv))
+    log(f"   (c) apply_batched batch 4 at S={ex.num_shards}: {live} batched K1 launches, rows "
+        f"within F32_TOL of apply (max |diff| {worst:.3e}); {out['batched_ms']:.3f} ms "
+        f"(CUDA events, median of 7)")
+
+
+def phase_dist_fresh(rt, km, small_grid, dev, out) -> None:
+    """(d) spgemm(mesh=...) and distributed_spgemm against the single-device
+    spgemm at the 512^2 A*P; then a repeat that hits the dist cache."""
+    _, a, p = rt.galerkin_triple(small_grid, small_grid, agg_size=4, device=dev)
+    mesh = rt.compat.make_mesh((DIST_SHARDS,), ("data",), device=dev)
+    want = rt.spgemm(a, p, method="sparse", plan_cache=False).c
+    n = int(want.indptr[-1])
+    scale = rt.spgemm(with_values(a, a.values.abs()), with_values(p, p.values.abs()),
+                      method="sparse", plan_cache=False).c.values[:n]
+    cache = rt.PlanCache(name="dist_fresh_smoke")
+    dist_counts_zero(rt, km)
+    res = rt.spgemm(a, p, mesh=mesh, plan_cache=cache)
+    fresh = rt.distributed_spgemm(a, p, mesh)
+    again = rt.spgemm(a, p, mesh=mesh, plan_cache=cache)
+    torch.cuda.synchronize()
+    require(res.stats["cache"] == "miss" and again.stats["cache"] == "hit",
+            f"(d) dist cache states {res.stats['cache']}, {again.stats['cache']}")
+    require(km.seg.LAUNCHES == 2 * DIST_SHARDS, f"(d) {km.seg.LAUNCHES} K1 launches for two "
+                                                f"sharded spgemm calls of {DIST_SHARDS} shards")
+    out["launches"] = out.get("launches", 0) + km.seg.LAUNCHES
+    for name, c in (("spgemm(mesh=)", res.c), ("distributed_spgemm", fresh),
+                    ("spgemm(mesh=) cache hit", again.c)):
+        require(torch.equal(c.indptr, want.indptr) and torch.equal(c.indices[:n],
+                                                                    want.indices[:n]),
+                f"(d) {name}: structure differs from the single-device spgemm")
+        out["worst"] = max(out["worst"], tolerance_check(
+            f"(d) {name}", c.values[:n], want.values[:n], scale, F32_TOL))
+    log(f"   (d) {small_grid}^2 A*P: spgemm(mesh=) {res.stats['cache']} then "
+        f"{again.stats['cache']}, distributed_spgemm: structure bitwise, values within "
+        f"F32_TOL of the single-device spgemm; K1 launches {km.seg.LAUNCHES}")
+
+
+def phase_dist_nccl(rt, km, a, p, av, pv, ref_values, root: Path, dev, out) -> None:
+    """(e) the process-group backing: world size 1 (NCCL on the card), S = 8
+    local shards; (a)'s replay bitwise the single-process one, then
+    compressed_psum and one all_gather through the group."""
+    import os
+
+    import torch.distributed as tdist
+
+    rendezvous = root / "build" / "chip_smoke_rendezvous"
+    rendezvous.parent.mkdir(parents=True, exist_ok=True)
+    rendezvous.unlink(missing_ok=True)
+    backend = "nccl" if dev == "cuda" else "gloo"
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: loopback only
+    tdist.init_process_group(backend, init_method=f"file://{rendezvous}", rank=0,
+                             world_size=1)
+    try:
+        mesh = rt.compat.make_mesh((DIST_SHARDS,), ("data",))
+        require(mesh.group is not None and mesh.S_loc == DIST_SHARDS,
+                f"(e) process-group mesh: {mesh}")
+        for placement, want in ref_values.items():
+            ex = rt.ShardedReuseExecutor.from_matrices(
+                a, p, mesh, b_placement=placement, plan_cache=rt.PlanCache(name="dist_pg"))
+            dist_counts_zero(rt, km)
+            got = ex.merge_values(ex.apply(av, pv))
+            torch.cuda.synchronize()
+            require(km.seg.LAUNCHES == sum(ex.live_shards), f"(e) {placement}: "
+                                                            f"{km.seg.LAUNCHES} K1 launches")
+            out["launches"] = out.get("launches", 0) + km.seg.LAUNCHES
+            fixed = all(carries_in_fixed_order(ex.plan.seg_ids[i], ex.nnz_cap,
+                                               REPLAY_TILES["segsum_reuse"])
+                        for i in range(ex.plan.num_shards))
+            require(fixed, f"(e) {placement}: a slot takes two carries, K1's order not fixed")
+            require(torch.equal(got, want), f"(e) {placement}: the {backend} process-group "
+                                            f"replay differs from the single-process one")
+            del ex
+        g = torch.Generator(device=dev).manual_seed(99)
+        x = torch.randn(DIST_SHARDS, 4096, generator=g, device=dev)
+        single = rt.compat.Mesh((DIST_SHARDS,), ("data",), dev)
+        require(torch.equal(rt.compressed_psum(x, mesh), rt.compressed_psum(x, single)),
+                "(e) compressed_psum through the group differs from the single process")
+        require(torch.equal(mesh.all_gather(x), x), "(e) all_gather through the group")
+        log(f"   (e) {backend} world size 1, {DIST_SHARDS} local shards: both placements "
+            f"bitwise the single-process replay; compressed_psum and all_gather through "
+            f"{backend} equal the single-process backing")
+    finally:
+        tdist.destroy_process_group()
+        rendezvous.unlink(missing_ok=True)
+
+
+def phase_dist_pipeline(rt, dev) -> float:
+    """(f) pipeline_forward at 4 stages on one card against the serial loop
+    (the reference test's rtol 1e-4 / atol 1e-5)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    ws = torch.randn(4, 256, 256, generator=g, device=dev) * 0.05
+    x = torch.randn(8, 32, 256, generator=g, device=dev)
+
+    def layer(w, h):
+        return torch.tanh(h @ w)
+
+    want = x
+    for i in range(4):
+        want = layer(ws[i], want)
+    got = rt.pipeline_forward(layer, ws, x, rt.compat.make_mesh((4,), ("pipe",), device=dev),
+                              axis="pipe")
+    err = float((got - want).abs().max())
+    require(bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5)),
+            f"(f) pipeline_forward vs the serial loop: max |diff| {err:.3e}")
+    log(f"   (f) pipeline_forward, 4 stages on one card: max |diff| vs serial {err:.3e}")
+    return err
+
+
+def phase_dist(rt, km, seed: int, root: Path, smi: str, k1_ms: dict, grid=2048,
+               small_grid=512, rmat_scale=16, dev="cuda") -> dict:
+    """Phase 16 (a)-(g): the sharded SpGEMM on the card."""
+    out: dict = {}
+    g = torch.Generator(device=dev).manual_seed(seed + 80)
+    _, a, p = rt.galerkin_triple(grid, grid, agg_size=4, device=dev)
+    av = torch.randn(a.nnz_cap, generator=g, device=dev)
+    split = dist_pin_split(rt, a, p, rt.compat.make_mesh((DIST_SHARDS,), ("data",), device=dev))
+    log(f"   pin split, {DIST_LABELS[0]} S={DIST_SHARDS} replicated (ms, host clock, "
+        f"synchronised; {smi}): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    out["pin_split"] = split
+    cells = {}
+    cells[DIST_LABELS[0]] = phase_dist_cell(rt, km, DIST_LABELS[0], a, p, av, p.values,
+                                            (DIST_SHARDS, 3, 1), out, smi,
+                                            t_single=k1_ms.get(DIST_LABELS[0]))
+    ap = cells[DIST_LABELS[0]]
+    phase_dist_batched(rt, km, ap.pop("ex"), ap["single"], av, p.values, g, out)
+    ref_values = {}
+    for placement in ("replicated", "allgather"):
+        ex = rt.ShardedReuseExecutor.from_matrices(a, p, rt.compat.make_mesh(
+            (DIST_SHARDS,), ("data",), device=dev), b_placement=placement, plan_cache=False)
+        ref_values[placement] = ex.merge_values(ex.apply(av, p.values))
+        del ex
+    del ap["single"]
+    torch.cuda.empty_cache()
+    rm = rt.rmat_csr(rmat_scale, 8, seed=0, device=dev)
+    rv = torch.randn(rm.nnz_cap, generator=g, device=dev)
+    cells[DIST_LABELS[1]] = phase_dist_cell(rt, km, DIST_LABELS[1], rm, rm, rv, rv,
+                                            (DIST_SHARDS, 1), out, smi,
+                                            t_single=k1_ms.get(DIST_LABELS[1]))
+    cells[DIST_LABELS[1]].pop("ex")
+    del cells[DIST_LABELS[1]]["single"], rm, rv
+    torch.cuda.empty_cache()
+    phase_dist_fresh(rt, km, small_grid, dev, out)
+    phase_dist_nccl(rt, km, a, p, av, p.values, ref_values, root, dev, out)
+    out["pipeline_err"] = phase_dist_pipeline(rt, dev)
+    out["cells"] = cells
+    log(f"   (g) K1 launches of phase 16: {out['launches']} single, "
+        f"{out['batched_launches']} batched; max |sharded - single| {out['worst']:.3e}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2898,6 +3301,8 @@ def main(argv=None) -> int:
     from repro_torch.core import autotune, executor, telemetry
     from repro_torch.core.spgemm import STAGE_COUNTS
     from repro_torch.serve import SparseService
+    import repro_torch.compat as rt_compat
+    import repro_torch.dist as rt_dist
     from repro_torch.kernels import _build, ops, segsum_reuse, spgemm_lp
     from repro_torch.kernels import spgemm_numeric, spgemm_symbolic
     from repro_torch.obs import recorder, trace
@@ -2927,6 +3332,12 @@ def main(argv=None) -> int:
     rt.SparseService, rt.stage_counts = SparseService, STAGE_COUNTS
     rt.AdmissionRejected, rt.DeadlineExceeded = AdmissionRejected, DeadlineExceeded
     rt.check_csr, rt.replay_batched = staticmethod(check_csr), staticmethod(executor._replay_batched)
+    # the sharded path
+    rt.compat, rt.ShardedReuseExecutor = rt_compat, rt_dist.ShardedReuseExecutor
+    rt.distributed_spgemm = staticmethod(rt_core.distributed_spgemm)
+    rt.compressed_psum = staticmethod(rt_dist.compressed_psum)
+    rt.pipeline_forward = staticmethod(rt_dist.pipeline_forward)
+    rt.plan_nbytes, rt.hash_counts = staticmethod(rt_core.plan_nbytes), rt_core.HASH_COUNTS
 
     class km:  # the kernels' modules: wrappers, plain versions, launch counts
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
@@ -3000,6 +3411,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with Phase("phase 15: the serving tier (SparseService) through K1 and K2"):
         serve = phase_serve(rt, km, args.seed, Path(__file__).resolve().parent, smi)
+    torch.cuda.empty_cache()
+    with Phase("phase 16: the sharded SpGEMM (repro_torch.dist) through K1 a shard"):
+        dist = phase_dist(rt, km, args.seed, Path(__file__).resolve().parent, smi,
+                          {DIST_LABELS[0]: times["multigrid AP"]["segsum_reuse"],
+                           DIST_LABELS[1]: times["power-law A*A"]["segsum_reuse"]})
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     serve_worst = max(serve[k]["worst"] for k in ("pallas", "pallas_lp", "singletons", "chaos"))
@@ -3009,12 +3425,16 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/segsum_reuse.py:107",
          "launches": mg_launches["segsum_reuse"],
          "max_abs_err": max(mg_worst, synth_worst["segsum_reuse"],
-                            synth_worst["batched_segsum_reuse"], serve_worst),
+                            synth_worst["batched_segsum_reuse"], serve_worst, dist["worst"]),
          "ms": k1["segsum_reuse"], "plain_ms": k1["plain"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None, "shape": "multigrid AP",
          "batched_ms": serve["times"]["multigrid A*P"]["segsum_reuse"]["batch8_ms"],
          "batched_launches": serve["launches"]["segsum_reuse_batched"],
-         "batched_shape": "multigrid A*P, batch 8"},
+         "batched_shape": "multigrid A*P, batch 8",
+         "sharded_launches": dist["launches"],
+         "sharded_batched_launches": dist["batched_launches"],
+         "sharded_ms": dist["cells"][DIST_LABELS[0]]["runs"][f"S={DIST_SHARDS} replicated"]["ms"],
+         "sharded_shape": f"multigrid A*P, S={DIST_SHARDS} replicated (whole apply)"},
         {"name": "lp_reuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lp_reuse.cu",
          "replaces": "src/repro/kernels/spgemm_lp.py:302",

@@ -19,6 +19,12 @@ ports ``repro/core/spgemm.py``, and so on):
   serve    — the SpGEMM serving tier: bounded admission, deadlines, grouped
              dispatch over pinned plans, the circuit breaker, plan-cache
              warming;
+  dist     — the sharded two-phase SpGEMM: stacked per-shard plans pinned
+             once and replayed a shard at a time (K1 on the card), the
+             mesh-aware plan cache, compressed collectives, pipeline
+             parallelism;
+  compat   — the mesh those run on: every shard on one device, or shards
+             split over a ``torch.distributed`` process group;
   configs  — the model configurations whose widths the attention and MoE
              kernels run at; ``convert`` carries the reference's arrays
              across.
@@ -30,4 +36,5 @@ down the degradation ladder to another kernel on the same device, never to
 the plain version or the CPU; a kernel that cannot be built raises.
 """
 
-__all__ = ["configs", "convert", "core", "kernels", "obs", "runtime", "serve", "sparse"]
+__all__ = ["compat", "configs", "convert", "core", "dist", "kernels", "obs", "runtime", "serve",
+           "sparse"]

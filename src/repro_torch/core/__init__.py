@@ -12,6 +12,9 @@ Public API:
     fit_thresholds  — per-backend crossover fit from accumulator timing rows
                       (static < fitted < measured; see core.autotune)
     TunedThresholds — the fitted table; activate with set_tuned_thresholds
+    distributed_spgemm — 1-D row-wise SpGEMM over a mesh (from scratch; the
+                      pinned sharded path is repro_torch.dist)
+    size_pool       — the paper's §3.1.2 memory-pool sizing
 """
 from repro_torch.core.accumulators import MAX_OCCUPANCY, accumulate_row
 from repro_torch.core.autotune import (
@@ -32,12 +35,32 @@ from repro_torch.core.compression import (
     compression_decision,
     flops_stats,
 )
+from repro_torch.core.distributed import (
+    ShardedCSR,
+    allgather_value_perm,
+    concat_csr_shards,
+    dist_numeric,
+    dist_symbolic,
+    distributed_spgemm,
+    merge_shards,
+    partition_rows,
+    partition_value_map,
+    row_block_bounds,
+    shard_cap,
+    shard_fm_cap,
+)
 from repro_torch.core.executor import (
     BACKENDS,
     DISPATCH_COUNTS,
     ReuseExecutor,
     reset_dispatch_counts,
     spgemm_grouped,
+)
+from repro_torch.core.memory_pool import (
+    PoolConfig,
+    acquire_release_sim,
+    chunk_for_step,
+    size_pool,
 )
 from repro_torch.core.meta import (
     ARS_REDUCTION_GUESS,
@@ -99,20 +122,29 @@ __all__ = [
     "MAX_OCCUPANCY",
     "PAD_POLICIES",
     "PlanCache",
+    "PoolConfig",
     "ReuseExecutor",
     "STAGE_COUNTS",
+    "ShardedCSR",
     "SortedExpansion",
     "SpgemmPlan",
     "SpgemmResult",
     "TUNE_COUNTS",
     "TunedThresholds",
     "accumulate_row",
+    "acquire_release_sim",
+    "allgather_value_perm",
     "bitmask_rows",
     "choose_kernel",
     "choose_method",
+    "chunk_for_step",
     "compress_matrix",
     "compression_decision",
+    "concat_csr_shards",
     "default_plan_cache",
+    "dist_numeric",
+    "dist_symbolic",
+    "distributed_spgemm",
     "estimate_ars",
     "expand_and_sort",
     "expand_products",
@@ -123,10 +155,13 @@ __all__ = [
     "host_fm_cap",
     "load_thresholds",
     "lp_replay_values",
+    "merge_shards",
     "numeric_dense_acc",
     "numeric_fresh",
     "numeric_lp",
     "numeric_reuse",
+    "partition_rows",
+    "partition_value_map",
     "plan_from_sorted",
     "plan_nbytes",
     "prepare_sparse_inputs",
@@ -136,7 +171,11 @@ __all__ = [
     "reset_tune_counts",
     "resolve_plan",
     "round_capacity",
+    "row_block_bounds",
     "set_tuned_thresholds",
+    "shard_cap",
+    "shard_fm_cap",
+    "size_pool",
     "spgemm",
     "spgemm_grouped",
     "structure_key",

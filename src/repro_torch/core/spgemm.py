@@ -39,8 +39,9 @@ before any dispatch, ``trace=`` pins the ``obs.trace`` mode for the call
 (spans ``spgemm.prepare``, ``plan.build``, ``spgemm.symbolic`` and
 ``numeric.dispatch`` at the reference's places), and ``tune="measure"``
 replays through the measured-fastest replay backend (``_measured_replay``).
-Only ``mesh=`` still raises ``SpgemmConfigError``: it comes with the port's
-dist/ slice.
+``mesh=`` runs the multiply sharded over a ``repro_torch.compat`` mesh
+through ``repro_torch.dist.sharded_spgemm`` (on the card each shard's
+replay is a K1 launch).
 """
 from __future__ import annotations
 
@@ -515,7 +516,8 @@ def _measured_replay(plan, a: CSR, b: CSR, cache, cache_key: str):
 
 def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
            pad_policy: str | None = None, plan_cache=None,
-           tune: str | None = None, mesh=None,
+           tune: str | None = None, mesh=None, mesh_axis: str = "data",
+           b_placement: str = "replicated",
            validate: str | None = None,
            trace: str | bool | None = None) -> SpgemmResult:
     """Full two-phase SpGEMM with the KKSPGEMM meta-algorithm's method choice.
@@ -545,7 +547,11 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
         dense method ignores tune, method="lp" rejects it.
     trace: None (the ambient mode, ultimately ``$REPRO_TRACE``) | bool |
         "off" | "on" | "xprof" — phase spans for this call (``obs.trace``).
-    mesh: raises ``SpgemmConfigError`` until the port's dist/ slice.
+    mesh: a ``repro_torch.compat.Mesh``, or None for one device. With a
+        mesh, A's rows are 1-D partitioned over ``mesh_axis``, the sharded
+        plan comes from the mesh-aware cache (``repro_torch.dist``) and is
+        replayed once a shard; ``b_placement`` picks "replicated" or
+        "allgather". Sparse method only; ``tune=`` is not supported.
     """
     from repro_torch.core import autotune  # cycle-free
     from repro_torch.runtime.validate import check_csr, resolve_mode
@@ -555,7 +561,8 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
         with trace_scope(trace):
             return spgemm(a, b, method=method, compress=compress,
                           pad_policy=pad_policy, plan_cache=plan_cache,
-                          tune=tune, mesh=mesh, validate=validate, trace=None)
+                          tune=tune, mesh=mesh, mesh_axis=mesh_axis,
+                          b_placement=b_placement, validate=validate, trace=None)
     policy = DEFAULT_PAD_POLICY if pad_policy is None else pad_policy
     if method not in ("auto", "dense", "sparse", "lp"):
         raise SpgemmConfigError(
@@ -573,9 +580,29 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
             "pick the replay backend empirically — use method='sparse' (or "
             "'auto') with tune='measure'")
     if mesh is not None:
-        raise SpgemmConfigError(
-            "mesh= comes with the port's dist/ slice (ROADMAP Queue 1); this "
-            "slice runs one device")
+        from repro_torch.compat import Mesh  # cycle-free
+
+        if not isinstance(mesh, Mesh):
+            raise SpgemmConfigError(
+                f"mesh must be a repro_torch.compat.Mesh (compat.make_mesh), got "
+                f"{type(mesh).__name__}")
+        if tune is not None:
+            raise SpgemmConfigError(
+                "tune= does not support mesh= yet: the sharded replay has one "
+                "path a shard (K1 on the card, the plain replay on the CPU), so "
+                "there are no per-shard candidates to measure")
+        if method == "dense":
+            raise SpgemmConfigError(
+                "mesh= requires the sparse method: KKDENSE has no "
+                "product->slot map, so it cannot pin a sharded plan")
+        if method == "lp":
+            raise SpgemmConfigError(
+                "mesh= does not support method='lp' yet: the sharded replay "
+                "runs the segment sum (K1) only; use method='sparse' on a mesh")
+        from repro_torch.dist import sharded_spgemm  # cycle-free late import
+
+        return sharded_spgemm(a, b, mesh, axis=mesh_axis, b_placement=b_placement,
+                              pad_policy=policy, plan_cache=plan_cache)
     stats: dict = {"pad_policy": policy, "validate": vmode}
     if method == "auto":
         method = choose_method(a, b, stats)

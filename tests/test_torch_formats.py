@@ -216,10 +216,10 @@ def test_estimate_ars_matches_the_reference():
 
 
 def test_the_port_exports_the_references_public_names():
-    """Every name of ``repro.runtime`` and ``repro.obs``, and every autotune,
-    meta and telemetry name of ``repro.core`` (the distributed/memory-pool
-    names come with the dist/ slice; TRACE_COUNTS is STAGE_COUNTS)."""
-    for pkg in ("runtime", "obs"):
+    """Every name of ``repro.runtime``, ``repro.obs`` and ``repro.dist``,
+    and every autotune, meta, telemetry, distributed and memory-pool name of
+    ``repro.core`` (TRACE_COUNTS is STAGE_COUNTS)."""
+    for pkg in ("runtime", "obs", "dist"):
         ref = importlib.import_module(f"repro.{pkg}")
         port = importlib.import_module(f"repro_torch.{pkg}")
         assert set(ref.__all__) <= set(port.__all__), set(ref.__all__) - set(port.__all__)
@@ -228,11 +228,12 @@ def test_the_port_exports_the_references_public_names():
     tcore = importlib.import_module("repro_torch.core")
     wanted = {name for name in jcore.__all__
               if getattr(getattr(jcore, name), "__module__", "repro.core.meta").rsplit(".", 1)[-1]
-              in ("autotune", "meta", "telemetry")}
+              in ("autotune", "meta", "telemetry", "distributed", "memory_pool")}
     wanted |= {name for name in jcore.__all__ if name in vars(jmeta)}
-    assert "fit_thresholds" in wanted and "estimate_ars" in wanted
+    assert {"fit_thresholds", "estimate_ars", "ShardedCSR", "partition_rows",
+            "distributed_spgemm", "PoolConfig", "size_pool"} <= wanted
     assert wanted <= set(tcore.__all__), wanted - set(tcore.__all__)
-    for mod in ("autotune", "telemetry", "meta"):
+    for mod in ("autotune", "telemetry", "meta", "distributed", "memory_pool"):
         ref = importlib.import_module(f"repro.core.{mod}")
         port = importlib.import_module(f"repro_torch.core.{mod}")
         public = {n for n, v in vars(ref).items() if not n.startswith("_")

@@ -23,6 +23,7 @@ from repro.core.plan_cache import PlanCache as JPlanCache
 from repro.core.plan_cache import structure_key as j_structure_key
 from repro.sparse import CSR as JCSR
 from repro.sparse import generators as jgen
+from repro_torch import compat as tcompat
 from repro_torch.core import meta as tmeta
 from repro_torch.core import telemetry as ttelemetry
 from repro_torch.core.compression import flops_stats as t_flops_stats
@@ -291,11 +292,14 @@ def test_auto_method_and_later_slice_options_raise_config_errors():
                                rtol=1e-12, atol=1e-12)
     with pytest.raises(SpgemmConfigError):
         tsp.spgemm(a, a, method="bogus")
-    # only mesh= still raises; invalid values of the other options raise as
-    # in the reference, and tune="measure" does not compose with method="lp"
+    # a mesh that is not a compat.Mesh raises, and so do the reference's three
+    # mesh= guards; invalid values of the other options raise as in the
+    # reference, and tune="measure" does not compose with method="lp"
+    mesh = tcompat.make_mesh((2,), ("data",), device="cpu")
     for method, kw in (("sparse", {"mesh": object()}), ("sparse", {"tune": "bogus"}),
                        ("sparse", {"validate": "bogus"}), ("sparse", {"trace": "bogus"}),
-                       ("lp", {"tune": "measure"})):
+                       ("lp", {"tune": "measure"}), ("sparse", {"mesh": mesh, "tune": "measure"}),
+                       ("dense", {"mesh": mesh}), ("lp", {"mesh": mesh})):
         with pytest.raises(SpgemmConfigError):
             tsp.spgemm(a, a, method=method, **kw)
 
