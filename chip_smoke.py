@@ -136,7 +136,29 @@ Phases, in order:
      4 stages against the serial loop; (g) the pin split, the peak memory of
      each pin and replay, a torch.profiler run of each replicated replay
      (the device's busy time and idle share), K1's launches;
- 17. one JSON line of the kernels (K1 and K2 with their batched launches'
+ 17. the LM substrate's serving path (repro_torch.models, serve.engine) in
+     plain torch, as the reference's models call none of K1-K8 (no kernel
+     launches across the phase, checked): (a) llama3.2-1b at its full config
+     (16 layers, bf16 params from init_params with its zero leaves drawn
+     too): ServeEngine(max_len 1,088).generate of 8 seeded 1,024-token
+     prompts, 64 greedy steps; finite logits, each step's argmax the
+     engine's token, a second generate the same tokens bit for bit, every
+     step's logits against forward over prompt + tokens (max |diff| <=
+     0.15, the reference's bound), the prefill handoff against pure decode
+     at a 64-token prompt, forward of 1 x 32 on the card against the CPU
+     (0.15) and both against the same forward in f32 (the card's relative
+     Frobenius error within 1.5x the CPU's); (b) every other architecture at full
+     width, depth cut to one pattern repeat plus its tail: decode against
+     forward over a prompt plus 8 steps (gemma2-9b 4,160 and
+     recurrentgemma-9b 2,112 tokens, past their windows: ring caches; the
+     MoE archs at the positions whose forward routing kept every
+     assignment, each expert's kept and dropped assignments logged;
+     phi-3-vision also forward with its 576 patches), hubert-xlarge forward
+     on 1,024 frames; (c) prefill ms and decode ms a step (CUDA events,
+     medians), tokens/s, peak memory, each beside its bound, and a
+     torch.profiler run of 3 llama decode steps (busy time, idle share, top
+     operators);
+ 18. one JSON line of the kernels (K1 and K2 with their batched launches'
      times, launches and shape, K1 with its sharded launches); the last
      line is the result.
 
@@ -175,6 +197,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -3281,6 +3304,513 @@ def phase_dist(rt, km, seed: int, root: Path, smi: str, k1_ms: dict, grid=2048,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the LM substrate's serving path (repro_torch.models and
+# serve.engine): ServeEngine prefill then decode of every architecture at
+# full width, in plain torch (the reference's models call none of K1-K8)
+# ---------------------------------------------------------------------------
+
+LM_TOL = 0.15  # the reference's bf16 logit bound (tests/test_models.py:85)
+LM_STEPS = 8  # decode steps a causal architecture of (b) takes
+# (b)'s runs: architecture -> (batch, prompt tokens); gemma2's and
+# recurrentgemma's prompts pass their windows (4,096 and 2,048), so their
+# local layers decode from ring caches
+LM_RUNS = {"gemma2-9b": (2, 4160), "recurrentgemma-9b": (2, 2112), "mamba2-2.7b": (2, 1024),
+           "qwen2-7b": (2, 1024), "codeqwen1.5-7b": (2, 1024), "qwen3-moe-30b-a3b": (2, 512),
+           "qwen3-moe-235b-a22b": (2, 512), "phi-3-vision-4.2b": (2, 1024),
+           "hubert-xlarge": (2, 1024)}
+
+
+def lm_tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: lm_tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(lm_tree_map(fn, v) for v in tree)
+    if isinstance(tree, tuple):
+        return type(tree)(*(lm_tree_map(fn, v) for v in tree))
+    return fn(tree)
+
+
+def lm_leaves(tree) -> list:
+    out = []
+    lm_tree_map(out.append, tree)
+    return out
+
+
+def lm_params(lm, cfg, seed: int, dev):
+    """``init_params`` in bf16 on ``dev``, then every leaf it leaves at zero
+    drawn from the same generator: the "norm"-role matrices (the MoE router,
+    the vision and audio projections, the SSM's B/C and dt projections, the
+    encoder's positions) normal x 0.02, norms and other 1-D leaves normal x
+    0.1. Left at zero, the router would tie every expert and mamba2's SSD
+    would add nothing."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.models.init_params(cfg, g, dtype=torch.bfloat16, device=dev)
+
+    def walk(t, p, stacked):
+        if lm.is_template_leaf(t):
+            shape, role = t[0][1:] if stacked else t[0], t[1]
+            if role == "norm" or len(shape) == 1:
+                scale = 0.1 if len(shape) == 1 else 0.02
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * scale)
+            return
+        for key in (sorted(t) if isinstance(t, dict) else range(len(t))):
+            walk(t[key], p[key], stacked or key == "blocks")
+
+    walk(lm.models.model_template(cfg), params, False)
+    return params
+
+
+def lm_matmul_flops(cfg, tokens: int) -> int:
+    """bf16 matmul operations of a forward over ``tokens`` tokens (no
+    patches): 2 x the weights each token multiplies, from the config's own
+    count (MoE at its active experts; norms and biases left out)."""
+    n = cfg.active_param_count()
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab_size * cfg.d_model  # the token embedding is a gather
+    if cfg.is_encoder:
+        n -= 32_768 * cfg.d_model  # the learned positions too
+    if cfg.frontend == "vision":
+        n -= cfg.frontend_dim * cfg.d_model  # patches, not tokens
+    return 2 * n * tokens
+
+
+def lm_attention_flops(cfg, b: int, t: int) -> int:
+    """f32 operations of the blockwise attention over the live (query, key)
+    pairs of a T-token forward: q.k and p.v, 2 x head_dim each a pair and a
+    head, summed over the attention layers."""
+    kinds = list(cfg.pattern) * cfg.pattern_repeats + list(cfg.tail)
+    total = 0
+    for kind in kinds:
+        if kind in ("attn", "local", "global", "moe"):
+            window = cfg.window if kind == "local" else None
+            total += (4 * b * cfg.num_heads * cfg.resolved_head_dim
+                      * live_pairs(t, cfg.causal, window))
+    return total
+
+
+def lm_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in lm_leaves(tree))
+
+
+def lm_read_bytes(cfg, params, rows: int, t: int, expert_share: float) -> int:
+    """Param bytes a pass must read: every weight once, but the gathered
+    tables at the rows gathered (``rows`` distinct tokens of an untied
+    embedding, ``t`` of the encoder's positions; an audio model reads no
+    token row) and the MoE experts at the share the routing used."""
+    total = lm_bytes(params)
+    row = cfg.d_model * params["embed"].element_size()
+    if cfg.frontend == "audio":
+        total -= cfg.vocab_size * row + (params["pos_embed"].shape[0] - t) * row
+    elif not cfg.tie_embeddings:
+        total -= (cfg.vocab_size - rows) * row
+    for kind, blk in zip(cfg.pattern, params["blocks"]):
+        if kind == "moe":
+            total -= (1 - expert_share) * lm_bytes([blk["moe"][w] for w in ("w1", "w3", "w2")])
+    return int(total)
+
+
+def lm_expert_share(cfg, calls) -> float:
+    """Mean share of the experts that the recorded routing calls used."""
+    if not calls:
+        return 1.0
+    return sum(int(torch.unique(ids).numel()) for _, ids, _ in calls) / (len(calls) * cfg.num_experts)
+
+
+def lm_prefill_bound(cfg, params, tokens, expert_share=1.0) -> tuple:
+    """(bound ms, 'bytes' or 'operations') of a prefill of ``tokens`` (B, T):
+    the params it reads and the (B, T, V) bf16 logits written at 3.35 TB/s,
+    against the bf16 matmuls at 989 TFLOP/s plus the f32 attention over the
+    live pairs at 67 TFLOP/s."""
+    b, t = tokens.shape[:2]
+    rows = int(torch.unique(tokens).numel()) if tokens.dtype == torch.int32 else 0
+    t_bytes = ((lm_read_bytes(cfg, params, rows, t, expert_share) + b * t * cfg.vocab_size * 2)
+               / HBM_BYTES_PER_S * 1e3)
+    t_ops = (lm_matmul_flops(cfg, b * t) / BF16_FLOPS_PER_S
+             + lm_attention_flops(cfg, b, t) / F32_FLOPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lm_decode_bound(cfg, params, caches, tok, pos: int, expert_share: float) -> tuple:
+    """(bound ms, kind) of one decode step at ``pos``: the params it reads,
+    the live slots of each KV cache (positions <= pos) and the recurrent
+    states once, the logits written; against the matmuls of B tokens."""
+    b = tok.shape[0]
+    cache = 0
+    for c in caches["blocks"] + caches["tail"]:
+        nbytes = lm_bytes(c)
+        if type(c).__name__ == "AttnCache":  # (..., S, Hkv, hd)
+            s = c.k.shape[-3]
+            nbytes = nbytes * min(pos + 1, s) // s
+        cache += nbytes
+    rows = int(torch.unique(tok).numel())
+    t_bytes = ((lm_read_bytes(cfg, params, rows, 1, expert_share) + cache
+                + b * cfg.vocab_size * 2) / HBM_BYTES_PER_S * 1e3)
+    t_ops = lm_matmul_flops(cfg, b) / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lm_decode_logits(lm, eng, prompts, tokens):
+    """The engine's path step by step along ``tokens`` (B, S): prefill, then
+    one decode_step a token, keeping every step's logits: (prefill's last
+    logits (B, V), decode logits (B, S, V))."""
+    last, caches, pos = eng.prefill(prompts)
+    out = []
+    for i in range(tokens.shape[1]):
+        lg, caches = lm.models.decode_step(eng.params, caches, tokens[:, i:i + 1], pos + i,
+                                           eng.cfg, eng.rules, max_len=eng.max_len)
+        out.append(lg[:, 0])
+    return last, torch.stack(out, 1)
+
+
+class RoutingSpy:
+    """Records (router logits, expert ids, keep mask) of every
+    ``routing_symbolic`` call while installed (``moe_ffn_local`` looks it
+    up in its module)."""
+
+    def __init__(self, moe_mod):
+        self.mod, self.real, self.calls = moe_mod, moe_mod.routing_symbolic, []
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            out = self.real(*args, **kw)
+            self.calls.append((args[0], out[1], out[3]))
+            return out
+        self.mod.routing_symbolic = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.routing_symbolic = self.real
+        return False
+
+
+def lm_expert_counts(cfg, ids, keep) -> tuple:
+    e = cfg.num_experts
+    kept = torch.bincount(ids[keep], minlength=e).tolist()
+    dropped = torch.bincount(ids[~keep], minlength=e).tolist()
+    return kept, dropped
+
+
+def lm_check_serving(lm, label, cfg, params, prompts, steps, out, moe=False):
+    """generate (greedy) through ServeEngine, then the same path step by
+    step: finite logits, each step's argmax the engine's token, and each
+    step's logits against forward over prompt + tokens at the same positions.
+    MoE: the prefill's routing (capacity factor 1.25) is logged per expert;
+    a decode step's B tokens never fill an expert's 8 slots, so decode is
+    held to a forward whose capacity drops nothing either (checked), at the
+    positions where both routed the token to the same experts (bf16 noise
+    in the router's input swaps near-tied k-th and (k+1)-th experts: such
+    positions are counted and logged) and, for the prefill's last logits,
+    where the prefill kept that token whole (one MoE layer after the
+    attention: a drop or a swap changes that token's output alone).
+    Returns (engine, tokens)."""
+    b, t = prompts.shape
+    eng = lm.ServeEngine(params, cfg, max_len=t + steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RoutingSpy(lm.moe) as spy:
+        toks = eng.generate(prompts, steps)
+        torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated() / 2**30
+    require(tuple(toks.shape) == (b, steps) and toks.dtype == torch.int32,
+            f"{label}: generate gave {tuple(toks.shape)} {toks.dtype}")
+    require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{label}: token out of range")
+    live = torch.ones((b, steps + 1), dtype=torch.bool, device=prompts.device)
+    if moe:
+        (lg0, ids, keep), decode_calls = spy.calls[0], spy.calls[1:]
+        kept, dropped = lm_expert_counts(cfg, ids, keep)
+        log(f"   {label}: prefill routing of {b} x {t} tokens, capacity factor 1.25: "
+            f"{sum(dropped)} of {ids.numel()} assignments dropped, {sum(k > 0 for k in kept)} "
+            f"of {cfg.num_experts} experts used")
+        log(f"      kept per expert: {kept}")
+        log(f"      dropped per expert: {dropped}")
+        require(len(decode_calls) == steps and all(bool(k.all()) for *_, k in decode_calls),
+                f"{label}: a decode step dropped an assignment")
+        live[:, 0] = keep.reshape(b, t, -1)[:, -1].all(-1)
+        # the routing behind each compared position: the prefill's last
+        # token, then each decode step's
+        got_route = (torch.stack([lg0.reshape(b, t, -1)[:, -1]] + [c[0] for c in decode_calls], 1),
+                     torch.stack([ids.reshape(b, t, -1)[:, -1]] + [c[1] for c in decode_calls], 1))
+        out.update(prefill_dropped=sum(dropped), prefill_assignments=ids.numel())
+    with torch.no_grad():
+        last, dec = lm_decode_logits(lm, eng, prompts, toks)
+    require(bool(torch.isfinite(last.float()).all() and torch.isfinite(dec.float()).all()),
+            f"{label}: non-finite logits")
+    greedy = torch.cat([last.argmax(-1)[:, None], dec[:, :-1].argmax(-1)], 1).to(torch.int32)
+    require(torch.equal(greedy, toks), f"{label}: the step-by-step argmax is not generate's "
+                                       f"({int((greedy != toks).sum())} of {toks.numel()})")
+    seq = torch.cat([prompts, toks], 1)
+    no_drop = cfg.num_experts / max(cfg.experts_per_token, 1)  # capacity >= every token
+    with torch.no_grad(), moe_capacity(lm.moe, no_drop), RoutingSpy(lm.moe) as spy:
+        full, _ = lm.models.forward(params, {"tokens": seq}, cfg, lm.models.NO_SHARDING,
+                                    remat=False)
+    require(all(bool(k.all()) for *_, k in spy.calls), f"{label}: the no-drop forward dropped")
+    if moe:
+        f_lg, f_ids, _ = spy.calls[-1]
+        f_lg = f_lg.reshape(b, t + steps, -1)[:, t - 1:]
+        f_ids = f_ids.reshape(b, t + steps, -1)[:, t - 1:]
+        same = (got_route[1].sort(-1).values == f_ids.sort(-1).values).all(-1)
+        delta = float((got_route[0] - f_lg).abs().max())
+        log(f"   {label}: routing of the {live.numel()} compared tokens: {int((~same).sum())} "
+            f"routed to other experts than the forward's (a near tie swapped by a router-"
+            f"logit difference of at most {delta:.3g})")
+        require(int(same.sum()) * 2 >= same.numel(), f"{label}: routing differs at most tokens")
+        live &= same
+        out.update(routing_swaps=int((~same).sum()), router_logit_diff=delta)
+    want = torch.cat([full[:, t - 1:t], full[:, t:t + steps]], 1).float()
+    got = torch.cat([last[:, None], dec], 1).float()
+    got, want = got[live], want[live]
+    err = float((got - want).abs().max())
+    rel = float((got - want).norm() / want.norm())
+    scale = float(want.abs().max())
+    log(f"   {label}: generate {b} x {steps} tokens after a {t}-token prompt: "
+        f"{gen_s:.3f} s, peak {gen_peak:.3f} GiB; decode vs forward over {int(live.sum())} "
+        f"of {live.numel()} positions: max |diff| {err:.4g} (max |logit| {scale:.4g}, bound "
+        f"{LM_TOL}), relative Frobenius {rel:.3e}")
+    require(err <= LM_TOL, f"{label}: decode differs from forward by {err:.4g} > {LM_TOL}")
+    out.update(generate_s=gen_s, generate_peak_gib=gen_peak, decode_vs_forward=err,
+               decode_vs_forward_rel=rel, max_logit=scale)
+    del full
+    return eng, toks
+
+
+@contextlib.contextmanager
+def moe_capacity(moe_mod, factor: float):
+    """``moe_layer`` with its capacity factor set to ``factor`` for the
+    block (``apply_layer`` looks it up in its module)."""
+    real = moe_mod.moe_layer
+    moe_mod.moe_layer = lambda *a, **kw: real(*a, **kw, capacity_factor=factor)
+    try:
+        yield
+    finally:
+        moe_mod.moe_layer = real
+
+
+def lm_times(lm, label, cfg, eng, prompts, toks, out, reps=5, profile=False):
+    """Prefill ms (CUDA events, median of ``reps``), decode ms a token over
+    LM_STEPS steps (the same), tokens/s, peaks, each beside its bound."""
+    b, t = prompts.shape
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        prefill = time_ms(lambda: eng.prefill(prompts), reps)
+        prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+        with RoutingSpy(lm.moe) as spy:
+            _, caches, pos = eng.prefill(prompts)
+        prefill_share = lm_expert_share(cfg, spy.calls)
+        with RoutingSpy(lm.moe) as spy:  # the experts a decode step reads
+            lm.models.decode_step(eng.params, caches, toks[:, :1], pos, cfg, eng.rules,
+                                  max_len=eng.max_len)
+        decode_share = lm_expert_share(cfg, spy.calls)
+        steps = min(LM_STEPS, toks.shape[1])
+
+        def decode():
+            for i in range(steps):
+                lm.models.decode_step(eng.params, caches, toks[:, i:i + 1], pos + i, cfg,
+                                      eng.rules, max_len=eng.max_len)
+
+        torch.cuda.reset_peak_memory_stats()
+        decode_tok = time_ms(decode, reps) / steps
+        decode_peak = torch.cuda.max_memory_allocated() / 2**30
+    pb, pkind = lm_prefill_bound(cfg, eng.params, prompts, prefill_share)
+    db, dkind = lm_decode_bound(cfg, eng.params, caches, toks[:, :1], pos, decode_share)
+    smi = out.get("smi", "")
+    log(f"   {label} times ({smi}): prefill {b} x {t} {prefill:.3f} ms (bound {pb:.3f}, "
+        f"{pkind}), peak {prefill_peak:.3f} GiB; decode {decode_tok:.3f} ms a step (bound "
+        f"{db:.3f}, {dkind}), {b * 1e3 / decode_tok:.1f} tokens/s (bound "
+        f"{b * 1e3 / db:.1f}), peak {decode_peak:.3f} GiB")
+    out.update(prefill_ms=prefill, prefill_bound_ms=pb, prefill_bound_by=pkind,
+               prefill_peak_gib=prefill_peak, decode_ms=decode_tok, decode_bound_ms=db,
+               decode_bound_by=dkind, tokens_per_s=b * 1e3 / decode_tok,
+               decode_peak_gib=decode_peak, prefill_expert_share=prefill_share,
+               decode_expert_share=decode_share)
+    if profile:
+        def one_step():
+            with torch.no_grad():
+                lm.models.decode_step(eng.params, caches, toks[:, :1], pos, cfg, eng.rules,
+                                      max_len=eng.max_len)
+        host, busy, rows = profile_run(f"{label} decode step", one_step, steps=3)
+        # the profiler slows the host's launches, so the idle share of the
+        # step as timed without it is the one the users see
+        log(f"   {label} decode step: device busy {busy:.3f} ms of {decode_tok:.3f} ms (CUDA "
+            f"events, unprofiled): idle share {1 - busy / decode_tok:.3f}")
+        out.update(profile_host_ms=host, profile_busy_ms=busy, idle_share=1 - busy / decode_tok,
+                   profiled_idle_share=1 - busy / host,
+                   profile_top=[(ms, count, key[:60]) for ms, count, key in rows[:8]])
+    del caches
+
+
+@contextlib.contextmanager
+def compute_dtype(model_mod, dtype):
+    """The model zoo's activation dtype (``COMPUTE_DTYPE``, bf16) set to
+    ``dtype`` for the block: the same forward in f32."""
+    old = model_mod.COMPUTE_DTYPE
+    model_mod.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        model_mod.COMPUTE_DTYPE = old
+
+
+def lm_cut(cfg):
+    """One pattern repeat plus the tail, every width as published."""
+    return dataclasses.replace(cfg, num_layers=len(cfg.pattern) + len(cfg.tail))
+
+
+def phase_lm(lm, km, seed: int, smi: str, dev="cuda", smoke=False,
+             llama=(8, 1024, 64), handoff_t=64, cpu_t=32, runs=None) -> dict:
+    """Phase 17 (a)-(c): llama3.2-1b at its full config, every other
+    architecture at full width and one pattern repeat, through ServeEngine."""
+    out: dict = {"smi": smi}
+    runs = LM_RUNS if runs is None else runs
+    get = lambda arch: lm.get_config(arch, smoke=smoke)  # noqa: E731
+    kernels_before = lm_kernel_launches(km)
+    # (a) llama3.2-1b, full depth
+    cfg = get("llama3.2-1b")
+    b, t, steps = llama
+    params = lm_params(lm, cfg, seed + 170, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 171)
+    prompts = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=dev,
+                            dtype=torch.int32)
+    n_params = sum(x.numel() for x in lm_leaves(params))
+    log(f"   (a) {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads / {cfg.num_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_params:,} bf16 params ({lm_bytes(params) / 2**30:.3f} GiB)")
+    a = out["llama"] = {"smi": smi}
+    eng, toks = lm_check_serving(lm, cfg.name, cfg, params, prompts, steps, a)
+    again = eng.generate(prompts, steps)
+    require(torch.equal(again, toks), f"{cfg.name}: a second generate gave other tokens")
+    log(f"   {cfg.name}: a second generate gave the same {toks.numel()} tokens bit for bit")
+    # the prefill handoff against pure decode (tests/test_serve.py), 64-token prompt
+    hp = prompts[:, :handoff_t]
+    h_eng = lm.ServeEngine(params, cfg, max_len=2 * handoff_t)
+    with torch.no_grad():
+        h_last, h_caches, h_pos = h_eng.prefill(hp)
+        c2 = lm.models.init_cache(cfg, b, max_len=2 * handoff_t, dtype=torch.float32, device=dev)
+        for i in range(handoff_t):
+            lg2, c2 = lm.models.decode_step(params, c2, hp[:, i:i + 1], i, cfg,
+                                            lm.models.NO_SHARDING, max_len=2 * handoff_t)
+        err1 = float((h_last.float() - lg2[:, 0].float()).abs().max())
+        nxt = toks[:, :1]
+        lga, _ = lm.models.decode_step(params, h_caches, nxt, h_pos, cfg,
+                                       lm.models.NO_SHARDING, max_len=2 * handoff_t)
+        lgb, _ = lm.models.decode_step(params, c2, nxt, h_pos, cfg, lm.models.NO_SHARDING,
+                                       max_len=2 * handoff_t)
+        err2 = float((lga.float() - lgb.float()).abs().max())
+    log(f"   {cfg.name}: prefill handoff at a {handoff_t}-token prompt against {handoff_t} "
+        f"pure decode steps: max |diff| {err1:.4g}, one step on: {err2:.4g} (bound {LM_TOL})")
+    require(max(err1, err2) <= LM_TOL, f"{cfg.name}: the prefill handoff differs")
+    a.update(handoff_err=max(err1, err2))
+    del h_caches, c2, h_eng
+    # the card against the CPU: the same bf16 params, forward of B = 1; both
+    # against the same forward in f32 on the card (bf16's own noise here)
+    cp = prompts[:1, :cpu_t]
+    with torch.no_grad():
+        on_card, _ = lm.models.forward(params, {"tokens": cp}, cfg, lm.models.NO_SHARDING,
+                                       remat=False)
+        t0 = time.perf_counter()
+        host_params = lm_tree_map(lambda x: x.cpu(), params)
+        on_host, _ = lm.models.forward(host_params, {"tokens": cp.cpu()}, cfg,
+                                       lm.models.NO_SHARDING, remat=False)
+        cpu_s = time.perf_counter() - t0
+        del host_params
+        with compute_dtype(lm.models.model, torch.float32):
+            exact, _ = lm.models.forward(lm_tree_map(lambda x: x.float(), params),
+                                         {"tokens": cp}, cfg, lm.models.NO_SHARDING,
+                                         remat=False)
+    exact, on_card, on_host = exact.float().cpu(), on_card.float().cpu(), on_host.float()
+    rel = lambda x, y: float((x - y).norm() / y.norm())  # noqa: E731
+    err = float((on_card - on_host).abs().max())
+    rel_card, rel_host = rel(on_card, exact), rel(on_host, exact)
+    log(f"   {cfg.name}: forward of 1 x {cpu_t} on the card against the CPU (same bf16 "
+        f"params): max |diff| {err:.4g} (bound {LM_TOL}), relative Frobenius "
+        f"{rel(on_card, on_host):.3e}; against the f32 forward: card {rel_card:.3e}, CPU "
+        f"{rel_host:.3e} (bound: the card within 1.5x the CPU); max |logit| "
+        f"{float(exact.abs().max()):.4g}; CPU run {cpu_s:.2f} s")
+    require(err <= LM_TOL and rel_card <= 1.5 * rel_host,
+            f"{cfg.name}: the card and the CPU disagree")
+    a.update(cpu_err=err, cpu_rel=rel(on_card, on_host), f32_rel_card=rel_card,
+             f32_rel_cpu=rel_host)
+    # (c) times, the profile of 3 decode steps
+    lm_times(lm, cfg.name, cfg, eng, prompts, toks, a, reps=5, profile=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    # (b) every other architecture at full width, one pattern repeat
+    require(set(LM_RUNS) == set(lm.arch_ids) - {"llama3.2-1b"}, "LM_RUNS misses an architecture")
+    for arch in runs:
+        full = get(arch)
+        cfg = lm_cut(full)
+        b, t = runs[arch]
+        t0 = time.perf_counter()
+        params = lm_params(lm, cfg, seed + 172 + len(out), dev)
+        r = out[arch] = {"smi": smi}
+        log(f"   (b) {arch}: depth {full.num_layers} -> {cfg.num_layers} ({'+'.join(cfg.pattern)}"
+            f"{' + ' + '+'.join(cfg.tail) if cfg.tail else ''}), d_model {cfg.d_model}, "
+            f"vocab {cfg.vocab_size}, {sum(x.numel() for x in lm_leaves(params)):,} bf16 params")
+        g = torch.Generator(device=dev).manual_seed(seed + 173)
+        if not cfg.causal:  # hubert: an encoder, forward only
+            frames = torch.randn((b, t, cfg.frontend_dim), generator=g, device=dev)
+            fwd = lambda: lm.models.forward(params, {"frames": frames}, cfg,  # noqa: E731
+                                            lm.models.NO_SHARDING, remat=False)[0]
+            with torch.no_grad():
+                torch.cuda.reset_peak_memory_stats()
+                logits = fwd()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                require(tuple(logits.shape) == (b, t, cfg.vocab_size)
+                        and bool(torch.isfinite(logits.float()).all()),
+                        f"{arch}: forward gave {tuple(logits.shape)} or non-finite logits")
+                ms = time_ms(fwd, 3)
+            pb, kind = lm_prefill_bound(cfg, params, frames)
+            log(f"   {arch}: forward of {b} x {t} frames: {ms:.3f} ms (bound {pb:.3f}, {kind}), "
+                f"peak {peak:.3f} GiB, max |logit| {float(logits.float().abs().max()):.4g} ({smi})")
+            r.update(prefill_ms=ms, prefill_bound_ms=pb, prefill_bound_by=kind,
+                     prefill_peak_gib=peak)
+        else:
+            prompts = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=dev,
+                                    dtype=torch.int32)
+            eng, toks = lm_check_serving(lm, arch, cfg, params, prompts, LM_STEPS, r,
+                                         moe="moe" in cfg.pattern)
+            if cfg.window is not None:
+                local = [i for i, k in enumerate(cfg.pattern) if k == "local"]
+                s = lm.cache_len(cfg, "local", eng.max_len)
+                log(f"   {arch}: local layers at pattern positions {local} decode from ring "
+                    f"caches of {s} slots ({t}-token prompt, max_len {eng.max_len})")
+                require(s == cfg.window < t, f"{arch}: the prompt does not pass the window")
+            if cfg.frontend == "vision":
+                patches = torch.randn((b, cfg.num_patches, cfg.frontend_dim), generator=g,
+                                      device=dev)
+                with torch.no_grad():
+                    logits, _ = lm.models.forward(params, {"tokens": prompts, "patches": patches},
+                                                  cfg, lm.models.NO_SHARDING, remat=False)
+                require(tuple(logits.shape) == (b, t, cfg.vocab_size)
+                        and bool(torch.isfinite(logits.float()).all()),
+                        f"{arch}: forward with patches failed")
+                log(f"   {arch}: forward with {cfg.num_patches} patches of {cfg.frontend_dim} "
+                    f"in a {t}-token prompt: finite, max |logit| "
+                    f"{float(logits.float().abs().max()):.4g}")
+                del logits
+            lm_times(lm, arch, cfg, eng, prompts, toks, r, reps=3)
+            del eng
+        log(f"   {arch}: {time.perf_counter() - t0:.2f} s")
+        del params
+        torch.cuda.empty_cache()
+    after = lm_kernel_launches(km)
+    require(after == kernels_before, f"the LM path launched a hand-written kernel: "
+                                     f"{kernels_before} -> {after}")
+    log("   kernel launches across phase 17: none (every launch counter as before), as "
+        "the reference's models call none of K1-K8")
+    return out
+
+
+def lm_kernel_launches(km) -> dict:
+    counts = read_launches(km)
+    counts.update(read_new_launches(km))
+    counts.update(segsum_reuse_batched=km.seg.BATCHED_LAUNCHES,
+                  lp_reuse_batched=km.lp.BATCHED_LAUNCHES)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3338,6 +3868,16 @@ def main(argv=None) -> int:
     rt.compressed_psum = staticmethod(rt_dist.compressed_psum)
     rt.pipeline_forward = staticmethod(rt_dist.pipeline_forward)
     rt.plan_nbytes, rt.hash_counts = staticmethod(rt_core.plan_nbytes), rt_core.HASH_COUNTS
+
+    class lm:  # the LM substrate: the model zoo and its serving engine
+        import repro_torch.models as models
+        from repro_torch.models import moe
+        from repro_torch.serve import ServeEngine
+        get_config = staticmethod(rt_configs.get_config)
+        arch_ids = rt_configs.ARCH_IDS
+
+    from repro_torch.models.model import _cache_len, _is_template_leaf
+    lm.cache_len, lm.is_template_leaf = staticmethod(_cache_len), staticmethod(_is_template_leaf)
 
     class km:  # the kernels' modules: wrappers, plain versions, launch counts
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
@@ -3416,6 +3956,9 @@ def main(argv=None) -> int:
         dist = phase_dist(rt, km, args.seed, Path(__file__).resolve().parent, smi,
                           {DIST_LABELS[0]: times["multigrid AP"]["segsum_reuse"],
                            DIST_LABELS[1]: times["power-law A*A"]["segsum_reuse"]})
+    torch.cuda.empty_cache()
+    with Phase("phase 17: the LM serving path (models/, serve/engine.py), every architecture"):
+        phase_lm(lm, km, args.seed, smi)
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     serve_worst = max(serve[k]["worst"] for k in ("pallas", "pallas_lp", "singletons", "chaos"))

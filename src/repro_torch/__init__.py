@@ -16,9 +16,13 @@ ports ``repro/core/spgemm.py``, and so on):
              injection, retry and the watchdog;
   obs      — phase spans with Chrome export, latency histograms and the
              flight recorder;
+  models   — the LM substrate's model zoo in plain torch (dense, local /
+             global, MoE, RG-LRU and SSD stacks): templates, init, forward
+             and decode, as the reference's models call no kernel;
   serve    — the SpGEMM serving tier: bounded admission, deadlines, grouped
              dispatch over pinned plans, the circuit breaker, plan-cache
-             warming;
+             warming; and ``ServeEngine``, prefill then decode of the model
+             zoo;
   dist     — the sharded two-phase SpGEMM: stacked per-shard plans pinned
              once and replayed a shard at a time (K1 on the card), the
              mesh-aware plan cache, compressed collectives, pipeline
@@ -36,5 +40,5 @@ down the degradation ladder to another kernel on the same device, never to
 the plain version or the CPU; a kernel that cannot be built raises.
 """
 
-__all__ = ["compat", "configs", "convert", "core", "dist", "kernels", "obs", "runtime", "serve",
-           "sparse"]
+__all__ = ["compat", "configs", "convert", "core", "dist", "kernels", "models", "obs", "runtime",
+           "serve", "sparse"]

@@ -8,6 +8,10 @@ a bitmask crosses bit for bit between the reference's uint32 and the port's
 int32 (``bitmask_from_numpy``, ``bitmask_to_numpy``). A BSR operand
 crosses as a port ``BSR`` (``bsr_from_numpy``) and the block plan of
 ``kernels.bsr_spgemm`` as its five int32 arrays (``bsr_plan_from_numpy``).
+A model's param tree (nested dicts and lists) and its decode caches
+(``AttnCache``, ``RGLRUCache``, ``SSMCache``, by the reference's class names)
+cross leaf for leaf (``params_from_numpy``, ``caches_from_numpy``) and back
+(``params_to_numpy``, ``caches_to_numpy``), bf16 bit for bit both ways.
 """
 from __future__ import annotations
 
@@ -15,9 +19,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.spgemm import SpgemmPlan
+from repro_torch.models.layers import AttnCache
+from repro_torch.models.rglru import RGLRUCache
+from repro_torch.models.ssm import SSMCache
 from repro_torch.sparse.formats import BSR, CSR, ELL
 
 _PLAN_FIELDS = ("indptr", "indices", "seg_ids", "a_slot_s", "b_slot_s")
+_CACHE_TYPES = {c.__name__: c for c in (AttnCache, RGLRUCache, SSMCache)}
 
 
 def tensor_from_numpy(x, device="cuda") -> torch.Tensor:
@@ -116,3 +124,47 @@ def bsr_plan_from_numpy(c_indptr, c_indices, contrib_a, contrib_b, contrib_n,
     tensors on ``device``, in the same order."""
     return tuple(tensor_from_numpy(np.asarray(x, np.int32), device)
                  for x in (c_indptr, c_indices, contrib_a, contrib_b, contrib_n))
+
+
+def _map_tree(fn, tree):
+    """``fn`` over the leaves of nested dicts, lists and NamedTuples; a
+    NamedTuple named like one of the port's cache types becomes that type."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        kind = _CACHE_TYPES.get(type(tree).__name__, type(tree))
+        return kind(*(_map_tree(fn, v) for v in tree))
+    return fn(tree)
+
+
+def _to_numpy_bits(t: torch.Tensor, bfloat16) -> np.ndarray:
+    if t.dtype == torch.bfloat16 and bfloat16 is not None:
+        return t.detach().cpu().view(torch.int16).numpy().view(bfloat16)
+    return tensor_to_numpy(t)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The reference's param tree, its leaves as numpy arrays, as the port's
+    (the same nesting; bf16 leaves bit for bit)."""
+    return _map_tree(lambda x: tensor_from_numpy(x, device), tree)
+
+
+def params_to_numpy(params, bfloat16=None):
+    """A port param tree as numpy arrays. bf16 leaves come back bit for bit
+    as ``bfloat16`` (a numpy dtype the caller holds, such as
+    ``jnp.bfloat16``), or, without one, as float32 (exactly)."""
+    return _map_tree(lambda t: _to_numpy_bits(t, bfloat16), params)
+
+
+def caches_from_numpy(caches, device="cuda"):
+    """The reference's decode caches (``{"blocks": [...], "tail": [...]}`` of
+    its cache NamedTuples, leaves as numpy arrays) as the port's."""
+    return _map_tree(lambda x: tensor_from_numpy(x, device), caches)
+
+
+def caches_to_numpy(caches, bfloat16=None):
+    """Port decode caches as numpy arrays in the port's NamedTuples (bf16 as
+    in ``params_to_numpy``)."""
+    return _map_tree(lambda t: _to_numpy_bits(t, bfloat16), caches)

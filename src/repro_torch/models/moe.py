@@ -1,0 +1,134 @@
+"""Mixture-of-Experts block (port of ``repro/models/moe.py``): the paper's
+two-phase discipline applied to token -> expert dispatch.
+
+  * symbolic phase — routing: top-k expert ids and in-expert positions from
+    a stable sort by expert (counts only, no FLOPs on activations);
+    capacity bounds each expert's buffer and overflowing assignments drop;
+  * numeric phase — scatter tokens into (E_local, C, d) expert buffers, run
+    the expert FFNs as three batched products, and combine weighted by the
+    router's probabilities.
+
+As in the reference, the numeric phase is plain batched products: the
+hand-written grouped matmul is reached through ``kernels.ops.expert_matmul``
+only. The expert-parallel path over a data x model mesh (the reference's
+``shard_map`` with FSDP-gathered experts) waits for that mesh and raises.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import gelu, rms_norm
+from repro_torch.models.sharding import MESH_ITEM, ShardingRules
+from repro_torch.runtime.validate import SpgemmConfigError
+
+
+def moe_params_template(cfg: ModelConfig):
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    return {
+        "router": ((d, e), "norm"),
+        "w1": ((e, d, f), "moe"),
+        "w3": ((e, d, f), "moe"),
+        "w2": ((e, f, d), "moe"),
+        "norm": ((d,), "norm"),
+    }
+
+
+def routing_symbolic(logits: torch.Tensor, k: int, capacity: int,
+                     num_experts: int):
+    """Symbolic phase: (weights, expert_ids, slot_pos, keep_mask).
+
+    logits: (T, E). slot_pos[t, j] = position of assignment j of token t
+    inside its expert's capacity buffer; keep = slot_pos < capacity.
+    Positions come from a stable sort of the assignment stream by expert
+    and each assignment's rank within its expert's run.
+
+    Top-k is a stable descending sort: tied probabilities go to the lower
+    expert id first, as ``jax.lax.top_k`` orders them (``torch.topk``
+    promises no order). Ties are real: ``init_params`` gives the router the
+    role "norm", so its logits start all zero.
+    """
+    t = logits.shape[0]
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :k], ids[:, :k]  # (T, k)
+    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    flat_ids = ids.reshape(-1)  # (T*k,) — assignment stream
+    n = flat_ids.shape[0]
+    sorted_ids, order = torch.sort(flat_ids, stable=True)
+    counts = torch.bincount(sorted_ids, minlength=num_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    rank_sorted = torch.arange(n, device=logits.device) - starts[sorted_ids]
+    slot = torch.empty_like(rank_sorted)
+    slot[order] = rank_sorted
+    keep = slot < capacity
+    return weights, ids, slot.reshape(t, k), keep.reshape(t, k)
+
+
+def moe_ffn_local(x, router_w, w1, w3, w2, *, k: int, capacity: int,
+                  num_experts: int, e_start, act):
+    """Numeric phase for the experts [e_start, e_start + E_local).
+    x: (T, d) tokens (full d)."""
+    t, d = x.shape
+    e_local = w1.shape[0]
+    logits = x.float() @ router_w.float()  # (T, E)
+    weights, ids, slot, keep = routing_symbolic(logits, k, capacity, num_experts)
+
+    local = (ids >= e_start) & (ids < e_start + e_local) & keep  # (T, k)
+    local_e = torch.where(local, ids - e_start, 0)
+    local_slot = torch.where(local, slot, capacity)  # capacity slot == dropped
+
+    # scatter token rows into (E_local, capacity+1, d); slot 'capacity' is
+    # the drop bin (many writers, discarded). Each kept (expert, slot) has
+    # one writer, so its row is the token's exactly.
+    buf = torch.zeros((e_local, capacity + 1, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        buf.index_put_((local_e[:, j], local_slot[:, j]),
+                       torch.where(local[:, j][:, None], x, 0), accumulate=True)
+    xe = buf[:, :capacity]  # (E_local, C, d)
+
+    # expert FFNs: three batched products
+    gate_act = F.silu if act == "silu" else gelu
+    h = gate_act(torch.einsum("ecd,edf->ecf", xe, w1.to(xe.dtype)))
+    h = h * torch.einsum("ecd,edf->ecf", xe, w3.to(xe.dtype))
+    ye = torch.einsum("ecf,efd->ecd", h, w2.to(xe.dtype))  # (E_local, C, d)
+
+    # combine: gather each assignment's output row, weight, sum over k
+    ye_pad = torch.cat([ye, torch.zeros((e_local, 1, d), dtype=ye.dtype, device=ye.device)],
+                       dim=1)
+    out = torch.zeros((t, d), dtype=ye.dtype, device=ye.device)
+    for j in range(k):
+        rows = ye_pad[local_e[:, j], local_slot[:, j]]  # (T, d)
+        rows = rows * weights[:, j][:, None].to(rows.dtype)
+        out = out + torch.where(local[:, j][:, None], rows, 0)
+    return out
+
+
+def moe_layer(p, x, cfg: ModelConfig, rules: ShardingRules,
+              mesh=None, capacity_factor: float = 1.25):
+    """Full MoE block: norm -> expert FFN -> residual delta. x: (B, T, d).
+
+    Without a mesh (or with sharding off): every expert on this device.
+    With a mesh and a tp axis the reference splits experts over 'model';
+    that path needs the data x model mesh and raises.
+    """
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    b, t, d = h.shape
+    k = cfg.experts_per_token
+    e = cfg.num_experts
+
+    def capacity_for(tokens: int, e_local: int) -> int:
+        cap = int(tokens * k / e * capacity_factor) + 1
+        return max(-(-cap // 8) * 8, 8)
+
+    if mesh is None or not rules.enabled or rules.tp_axis is None:
+        cap = capacity_for(b * t, e)
+        y = moe_ffn_local(
+            h.reshape(b * t, d), p["router"], p["w1"], p["w3"], p["w2"],
+            k=k, capacity=cap, num_experts=e, e_start=0, act=cfg.act,
+        )
+        return y.reshape(b, t, d)
+    raise SpgemmConfigError(
+        f"expert parallelism over the mesh axis {rules.tp_axis!r} needs the data x "
+        f"model mesh, which the port does not have yet ({MESH_ITEM})")

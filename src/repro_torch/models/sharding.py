@@ -1,0 +1,195 @@
+"""Logical sharding rules (port of ``repro/models/sharding.py``): the DP / TP /
+EP / SP mapping of every tensor role.
+
+Axis conventions, as in the reference:
+  * batch  -> ('pod', 'data')   (pod acts as outer data parallelism)
+  * TP     -> 'model' (attention heads + FFN columns + vocab, Megatron-style)
+  * EP     -> 'model' (MoE experts)
+  * SP     -> 'model' on the sequence dim of the residual stream (train), and
+              on the KV-cache sequence dim for long-context decode.
+
+A spec is a plain tuple of axis names (``None`` for a replicated dim, a
+tuple of names for a dim split over several axes), entry for entry the
+reference's ``PartitionSpec``.
+
+Placing activations needs a data x model mesh, which the port does not have
+yet (``compat.Mesh`` has one axis; ROADMAP Queue 1, the 2-D mesh). So every
+activation hook returns its input when ``enabled`` is false and raises
+``SpgemmConfigError`` where the reference would place a sharding constraint.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.runtime.validate import SpgemmConfigError
+
+MESH_ITEM = "ROADMAP Queue 1 item 3c, the 2-D data x model mesh"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Resolves tensor roles to specs for a concrete mesh shape."""
+
+    dp_axes: tuple = ("data",)  # ('pod','data') on the multi-pod mesh
+    tp_axis: str | None = "model"
+    tp_size: int = 16
+    dp_size: int = 1  # product of the data-axis sizes (for FSDP divisibility)
+    enabled: bool = True
+    # sequence-parallel residuals (train/prefill)
+    sp_residual: bool = True
+    # decode mode: KV caches stay sequence-sharded; q heads replicate
+    decode: bool = False
+    long_context: bool = False
+
+    # ---- helpers -------------------------------------------------------
+    def _tp_if(self, n: int):
+        """tp axis if divisible, else None (replicated)."""
+        return self.tp_axis if (self.tp_axis and n % self.tp_size == 0) else None
+
+    @property
+    def dp(self):
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    def constraint(self, x, spec):
+        if not self.enabled:
+            return x
+        raise SpgemmConfigError(
+            f"placing an activation at {spec!r} needs the data x model mesh, "
+            f"which the port does not have yet ({MESH_ITEM}); use NO_SHARDING")
+
+    # ---- parameter specs ----------------------------------------------
+    def embed(self, vocab: int, d: int):
+        return (self._tp_if(vocab), None)
+
+    def lm_head(self, d: int, vocab: int):
+        return (None, self._tp_if(vocab))
+
+    def norm(self):
+        return (None,)
+
+    def wq(self, d: int, h: int, hd: int):
+        tp = self._tp_if(h)
+        if tp:
+            return (None, tp, None)
+        # non-divisible head count (qwen2's 28 heads): replicate the (small)
+        # attention weights; activations are query-sequence-sharded instead
+        return (None, None, None)
+
+    def wkv(self, d: int, h: int, hd: int):
+        tp = self._tp_if(h)
+        if tp:
+            return (None, tp, None)
+        return (None, None, None)
+
+    def wo(self, h: int, hd: int, d: int):
+        tp = self._tp_if(h)
+        if tp:
+            return (tp, None, None)  # row-parallel: psum after
+        return (None, None, None)
+
+    def ffn_in(self, d: int, f: int):
+        return (None, self._tp_if(f))
+
+    def ffn_out(self, f: int, d: int):
+        return (self._tp_if(f), None)
+
+    def moe_experts(self, e: int, *dims):
+        """Experts over model (EP) + FSDP over the data axes on the first
+        inner dim (at-rest sharding)."""
+        ep = self._tp_if(e)
+        inner = [None] * len(dims)
+        if dims and self.dp_size > 1 and dims[0] % self.dp_size == 0:
+            inner[0] = self.dp
+        return (ep, *inner)
+
+    def ssm_inproj(self, d: int, out: int):
+        return (None, self._tp_if(out))
+
+    def ssm_outproj(self, d_in: int, d: int):
+        return (self._tp_if(d_in), None)
+
+    # ---- role dispatch (param templates carry a role string per leaf) ----
+    def spec_for(self, role: str, shape: tuple):
+        if role == "wq":
+            return self.wq(*shape)
+        if role == "wkv":
+            return self.wkv(*shape)
+        if role == "wo":
+            return self.wo(*shape)
+        if role == "ffn_in":
+            return self.ffn_in(*shape)
+        if role == "ffn_out":
+            return self.ffn_out(*shape)
+        if role == "moe":
+            return self.moe_experts(shape[0], *shape[1:])
+        if role == "embed":
+            return self.embed(*shape)
+        if role == "lm_head":
+            return self.lm_head(*shape)
+        if role == "conv_ch":  # (K, C): channel dim TP
+            return (None, self._tp_if(shape[1]))
+        if role == "conv_ch1":  # (C,)
+            return (self._tp_if(shape[0]),)
+        if role == "gate_block":  # (H, bw, bw): heads TP
+            return (self._tp_if(shape[0]), None, None)
+        if role == "norm":
+            return (None,) * len(shape)
+        raise SpgemmConfigError(f"unknown param role {role!r}")
+
+    # ---- activation constraints ----------------------------------------
+    def residual(self, x):
+        """(B, T, d) residual stream: batch over DP, seq over model (SP).
+        Seq sharding is dropped when T doesn't divide (e.g. decode T=1)."""
+        if x.ndim != 3:
+            return x
+        seq = self.tp_axis if self.sp_residual else None
+        if seq is not None and x.shape[1] % self.tp_size:
+            seq = None
+        return self.constraint(x, (self.dp, seq, None))
+
+    def attn_activations(self, x, n_heads: int):
+        """(B, T, H, hd) q/out activations: heads over model when they
+        divide, else the query sequence; replicated in decode mode."""
+        if self.decode:
+            dp = None if self.long_context else self.dp
+            return self.constraint(x, (dp, None, None, None))
+        tp = self._tp_if(n_heads)
+        if tp:
+            return self.constraint(x, (self.dp, None, tp, None))
+        if self.tp_axis and x.shape[1] % self.tp_size == 0:
+            return self.constraint(x, (self.dp, self.tp_axis, None, None))
+        return self.constraint(x, (self.dp, None, None, None))
+
+    def attn_kv(self, x, n_heads: int):
+        """(B, T, H, hd) repeated KV: head-sharded when divisible, else
+        fully replicated over model."""
+        if self.decode:
+            dp = None if self.long_context else self.dp
+            return self.constraint(x, (dp, None, None, None))
+        tp = self._tp_if(n_heads)
+        return self.constraint(x, (self.dp, None, tp, None))
+
+    def kv_cache_constraint(self, x):
+        """(B, S, H, hd) decode cache tensors: seq-dim sharding in decode
+        mode."""
+        if not self.decode:
+            return x
+        spec = self.kv_cache_spec(x.shape[0], x.shape[2],
+                                  long_context=self.long_context)
+        return self.constraint(x, spec)
+
+    def kv_cache_spec(self, batch: int, hkv: int, *, long_context: bool = False):
+        """(B, S, Hkv, hd) cache. Long-context (batch < dp size): shard the
+        sequence dim over every axis; else batch over DP, seq over model."""
+        if long_context:
+            axes = tuple(self.dp_axes) + ((self.tp_axis,) if self.tp_axis else ())
+            # one axis is named alone, none is None, as PartitionSpec has it
+            return (None, axes if len(axes) > 1 else (axes[0] if axes else None), None, None)
+        return (self.dp, self.tp_axis, None, None)
+
+    def logits(self, x):
+        """(B, T, V) vocab-sharded logits."""
+        return self.constraint(x, (self.dp, None, self._tp_if(x.shape[-1])))
+
+
+NO_SHARDING = ShardingRules(enabled=False, tp_axis=None, tp_size=1)

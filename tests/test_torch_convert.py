@@ -174,3 +174,67 @@ def test_importing_every_port_module_never_loads_jax():
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# --------------------------------------------------------------------------
+# the LM substrate's params and caches
+# --------------------------------------------------------------------------
+
+def _lm_archs():
+    from repro.configs import ARCH_IDS
+    return ARCH_IDS
+
+
+def _leaf_bits(tree):
+    import jax
+    return [(np.asarray(x).dtype, np.asarray(x).shape, np.asarray(x).tobytes())
+            for x in jax.tree.leaves(tree)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", _lm_archs())
+def test_params_round_trip_bitwise(arch, dtype):
+    """Every architecture's smoke params (the reference's init_params, as
+    numpy) cross into the port and back bit for bit, tree and all."""
+    import jax
+    from repro.configs import get_config
+    from repro.models import init_params
+
+    tree = jax.tree.map(np.asarray, init_params(get_config(arch, smoke=True),
+                                                jax.random.PRNGKey(0),
+                                                dtype=getattr(jnp, dtype)))
+    port = convert.params_from_numpy(tree, device="cpu")
+    leaves = jax.tree.leaves(port)
+    assert all(isinstance(x, torch.Tensor) and x.dtype == getattr(torch, dtype) for x in leaves)
+    assert jax.tree.structure(port) == jax.tree.structure(tree)
+    back = convert.params_to_numpy(port, bfloat16=jnp.bfloat16)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    assert _leaf_bits(back) == _leaf_bits(tree)
+    if dtype == "bfloat16":  # without a bf16 dtype: float32, exactly
+        plain = jax.tree.leaves(convert.params_to_numpy(port))
+        assert all(x.dtype == np.float32 for x in plain)
+        np.testing.assert_array_equal(plain[-1], np.asarray(jax.tree.leaves(tree)[-1], np.float32))
+
+
+@pytest.mark.parametrize("arch", [a for a in _lm_archs() if a != "hubert-xlarge"])
+def test_caches_round_trip_bitwise(arch):
+    """Decode caches (AttnCache, RGLRUCache, SSMCache: bf16 K/V and conv
+    windows, f32 states) cross as the port's NamedTuples and back."""
+    import jax
+    from repro.configs import get_config
+    from repro.models import init_cache
+    from repro_torch.models.layers import AttnCache
+    from repro_torch.models.rglru import RGLRUCache
+    from repro_torch.models.ssm import SSMCache
+
+    rng = np.random.default_rng(3)
+    tmpl = init_cache(get_config(arch, smoke=True), 2, 24)
+    tree = jax.tree.map(lambda x: np.asarray(jnp.asarray(rng.standard_normal(x.shape),
+                                                         x.dtype)), tmpl)
+    port = convert.caches_from_numpy(tree, device="cpu")
+    kinds = {AttnCache, RGLRUCache, SSMCache}
+    assert all(type(c) in kinds for c in port["blocks"] + port["tail"])
+    assert [type(c).__name__ for c in port["blocks"] + port["tail"]] == \
+        [type(c).__name__ for c in tree["blocks"] + tree["tail"]]
+    back = convert.caches_to_numpy(port, bfloat16=jnp.bfloat16)
+    assert _leaf_bits(back) == _leaf_bits(tree)

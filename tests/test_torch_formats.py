@@ -216,10 +216,11 @@ def test_estimate_ars_matches_the_reference():
 
 
 def test_the_port_exports_the_references_public_names():
-    """Every name of ``repro.runtime``, ``repro.obs`` and ``repro.dist``,
-    and every autotune, meta, telemetry, distributed and memory-pool name of
-    ``repro.core`` (TRACE_COUNTS is STAGE_COUNTS)."""
-    for pkg in ("runtime", "obs", "dist"):
+    """Every name of ``repro.runtime``, ``repro.obs``, ``repro.dist``,
+    ``repro.models`` and ``repro.serve``, and every autotune, meta,
+    telemetry, distributed and memory-pool name of ``repro.core``
+    (TRACE_COUNTS is STAGE_COUNTS)."""
+    for pkg in ("runtime", "obs", "dist", "models", "serve"):
         ref = importlib.import_module(f"repro.{pkg}")
         port = importlib.import_module(f"repro_torch.{pkg}")
         assert set(ref.__all__) <= set(port.__all__), set(ref.__all__) - set(port.__all__)

@@ -1075,7 +1075,7 @@ def test_port_serve_imports_neither_jax_nor_repro():
         text = path.read_text()
         assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b", text, re.M), path.name
     names = set(tserve.__all__)
-    assert names == set(jserve.__all__) - {"ServeEngine", "prefill_to_cache"}
+    assert names == set(jserve.__all__)
     for name in names:
         assert hasattr(tserve, name)
     assert tservice.RETRY_LABEL == importlib.import_module(
