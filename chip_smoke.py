@@ -158,7 +158,34 @@ Phases, in order:
      medians), tokens/s, peak memory, each beside its bound, and a
      torch.profiler run of 3 llama decode steps (busy time, idle share, top
      operators);
- 18. one JSON line of the kernels (K1 and K2 with their batched launches'
+ 18. the LM substrate's training path (repro_torch.train, data, ckpt,
+     launch/train.py) in plain torch with autograd (no kernel launches across
+     the phase, checked): (a) llama3.2-1b at its full config with f32 params
+     (lm_params in f32): 8 steps of make_train_step on SyntheticLMDataset
+     (seed 0) batch 0 of 8 x 1,024, repeated, AdamWConfig(lr=1e-3,
+     warmup_steps=2): finite losses and grad norms, the last loss below the
+     first, opt_state.step 8; num_microbatches=2 against 1 from one fresh
+     state (AdamWConfig(): loss rtol 1e-2, first leaf rtol 1e-2 atol 1e-4,
+     the reference's bar); one step at 1 x 32 on the card and on the CPU from
+     the same params, both against the same step with f32 activations on the
+     card (grads and updated params: the card's relative Frobenius distance
+     within 1.5x the CPU's); (b) step ms (CUDA events, median of steps 3-8),
+     tokens/s, peak memory, the bound (lm_train_bound), the loss and the AdamW
+     update timed alone, a torch.profiler run of one step (busy time, idle
+     share, top kernels, GEMM ops by input dtype: the bf16 matmuls and the f32
+     attention); (c) at llama3.2-1b's width cut to one layer, B = 2, T = 256,
+     under deterministic algorithms: 4 steps straight against 2 + save +
+     restore into a fresh state + 2, the restored state bitwise what was
+     saved, the resumed params and moments bitwise the straight run's, save
+     and restore times and bytes (the checkpoint under build/, removed after);
+     (d) every other architecture at full width and one pattern repeat plus
+     its tail (lm_cut), f32 params: 2
+     steps at 2 x 512 (phi-3-vision 1,024 tokens with its 576 patches,
+     hubert-xlarge 1,024 frames with make_labels' labels), finite losses and
+     grad norms, every leaf moved; (e) python -m repro_torch.launch.train
+     --smoke at 8 x 128 in a subprocess to step 20, then to 30: the second run
+     resumes from step 20 and ends with "done";
+ 19. one JSON line of the kernels (K1 and K2 with their batched launches'
      times, launches and shape, K1 with its sharded launches); the last
      line is the result.
 
@@ -3337,15 +3364,15 @@ def lm_leaves(tree) -> list:
     return out
 
 
-def lm_params(lm, cfg, seed: int, dev):
-    """``init_params`` in bf16 on ``dev``, then every leaf it leaves at zero
+def lm_params(lm, cfg, seed: int, dev, dtype=torch.bfloat16):
+    """``init_params`` in ``dtype`` on ``dev``, then every leaf it leaves at zero
     drawn from the same generator: the "norm"-role matrices (the MoE router,
     the vision and audio projections, the SSM's B/C and dt projections, the
     encoder's positions) normal x 0.02, norms and other 1-D leaves normal x
     0.1. Left at zero, the router would tie every expert and mamba2's SSD
     would add nothing."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    params = lm.models.init_params(cfg, g, dtype=torch.bfloat16, device=dev)
+    params = lm.models.init_params(cfg, g, dtype=dtype, device=dev)
 
     def walk(t, p, stacked):
         if lm.is_template_leaf(t):
@@ -3811,6 +3838,459 @@ def lm_kernel_launches(km) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the LM substrate's training path (repro_torch.train, data, ckpt,
+# launch/train.py) in plain torch with autograd, as the reference's models
+# call none of K1-K8 and none has a backward kernel
+# ---------------------------------------------------------------------------
+
+# (d)'s runs: architecture -> (batch, tokens); phi-3-vision's 576 patches
+# need more than 512 tokens, hubert takes 1,024 frames
+TRAIN_RUNS = {"gemma2-9b": (2, 512), "recurrentgemma-9b": (2, 512), "mamba2-2.7b": (2, 512),
+              "qwen2-7b": (2, 512), "codeqwen1.5-7b": (2, 512), "qwen3-moe-30b-a3b": (2, 512),
+              "qwen3-moe-235b-a22b": (2, 512), "phi-3-vision-4.2b": (2, 1024),
+              "hubert-xlarge": (2, 1024)}
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+ADAMW_BYTES = 28  # a param's AdamW traffic in f32: p, g, m, v read, p, m, v written
+
+
+def lm_train_bound(cfg, params, b: int, t: int) -> tuple:
+    """(bound ms, 'operations' or 'bytes', parts) of one training step on B x
+    T tokens with remat: the blocks' bf16 matmuls forward, recomputed and
+    backward (4 x their forward), the head's (3 x: it is not recomputed) at
+    989 TFLOP/s, the f32 attention over the live pairs 4 x at 67 TFLOP/s,
+    then AdamW's 28 B a param at 3.35 TB/s. The update runs after the
+    backward pass, so the two parts' bounds add; the larger names the kind."""
+    tokens = b * t
+    head = 2 * cfg.vocab_size * cfg.d_model * tokens
+    blocks = lm_matmul_flops(cfg, tokens) - head
+    gemm = (4 * blocks + 3 * head) / BF16_FLOPS_PER_S * 1e3
+    attn = 4 * lm_attention_flops(cfg, b, t) / F32_FLOPS_PER_S * 1e3
+    n = sum(x.numel() for x in lm_leaves(params))
+    adamw = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+    parts = {"bf16_gemm_ms": gemm, "f32_attention_ms": attn, "adamw_ms": adamw,
+             "bf16_tflop": (4 * blocks + 3 * head) / 1e12,
+             "f32_attention_tflop": 4 * lm_attention_flops(cfg, b, t) / 1e12}
+    return gemm + attn + adamw, ("operations" if gemm + attn >= adamw else "bytes"), parts
+
+
+def timed_call(fn) -> tuple:
+    """(fn(), device ms between CUDA events around the call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the block (the embedding's
+    backward then sorts instead of adding with atomics). ``warn_only``: an
+    op with no deterministic version warns, and the warnings are logged."""
+    import warnings
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        for w in {str(w.message).split("\n")[0] for w in caught}:
+            log(f"      deterministic mode warned: {w[:160]}")
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def train_profile(label: str, fn) -> dict:
+    """One call of ``fn`` (a training step) under torch.profiler after a
+    traced warm-up: the host interval, the device's busy time (kernels and
+    copies) and idle share, the top kernels, and the GEMMs' device time by
+    kernel: f32 ("f32f32" or "sgemm" in the name: the blockwise attention's
+    einsums) and the rest (tensor-core bf16: the blocks' and the head's
+    matmuls); also by op (aten mm/addmm against bmm/baddbmm, with the input
+    dtype where the profiler records it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")), reverse=True)
+    busy = sum(r[0] for r in rows)
+    gemm = {"bf16": 0.0, "f32": 0.0}
+    for ms, _, key in rows:
+        if any(w in key for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            gemm["f32" if ("f32f32" in key or "sgemm" in key) else "bf16"] += ms
+    by_op = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in GEMM_OPS:
+            dts = getattr(e, "input_dtypes", None) or []
+            kind = e.name.split("::")[1] + (f" {dts[0]}" if dts and dts[0] else "")
+            by_op[kind] = by_op.get(kind, 0.0) + e.device_time_total / 1e3
+    log(f"   {label}: host {host:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / host:.3f} (torch.profiler, one step)")
+    log(f"      GEMM kernels: tensor-core (bf16) {gemm['bf16']:.3f} ms, f32 {gemm['f32']:.3f} ms; "
+        f"GEMM ops: " + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by_op.items())))
+    for ms, count, key in rows[:12]:
+        log(f"      {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    return {"host_ms": host, "busy_ms": busy, "gemm_ms": gemm, "gemm_ops_ms": by_op,
+            "top": [(ms, count, key[:60]) for ms, count, key in rows[:12]]}
+
+
+def train_leaves_moved(tr, before, params) -> list:
+    """Leaf paths whose sampled elements (every ``stride``-th, up to 65,536
+    of a leaf, as ``train_samples`` took them) all kept their values."""
+    still = []
+    for (path, leaf), (stride, was) in zip(tr.tree.leaves_with_path(params), before):
+        if torch.equal(leaf.detach().reshape(-1)[::stride], was):
+            still.append("/".join(path))
+    return still
+
+
+def train_samples(tr, params) -> list:
+    out = []
+    for leaf in tr.tree.leaves(params):
+        stride = max(1, leaf.numel() // 65536)
+        out.append((stride, leaf.detach().reshape(-1)[::stride].clone()))
+    return out
+
+
+def tree_rel(tr, got, want) -> float:
+    """Relative Frobenius distance of two trees, over all their leaves,
+    computed where ``want`` lives (the card, for the CPU's step too)."""
+    num = den = 0.0
+    for a, b in zip(tr.tree.leaves(got), tr.tree.leaves(want)):
+        a = a.to(b.device)
+        num += float(torch.sum(torch.square(a.double() - b.double())))
+        den += float(torch.sum(torch.square(b.double())))
+    return math.sqrt(num / den)
+
+
+def train_updates(tr, new, old) -> list:
+    """new - old, leaf for leaf: a step's update."""
+    return [x - y for x, y in zip(tr.tree.leaves(new), tr.tree.leaves(old))]
+
+
+def train_one(lm, tr, cfg, params, batch, opt_cfg=None):
+    """(loss, grads, updated params) of one step from ``params`` (cloned,
+    with a fresh optimizer state): the grads from ``loss_and_grads``, then
+    ``adamw_update`` (what ``train_step`` runs, split to keep the grads)."""
+    loss, grads = tr.step.loss_and_grads(params, batch, cfg, lm.models.NO_SHARDING)
+    p = tr.tree.tree_map(torch.clone, params)
+    p, _, _ = tr.train.adamw_update(grads, tr.train.adamw_init(p), p,
+                                    opt_cfg or tr.train.AdamWConfig(lr=1e-3, warmup_steps=2))
+    return float(loss), grads, p
+
+
+def phase_train_llama(lm, tr, seed: int, smi: str, dev, smoke, b, t, steps, cpu_t, out):
+    """(a) and (b): llama3.2-1b at its full config, f32 params."""
+    cfg = lm.get_config("llama3.2-1b", smoke=smoke)
+    fresh = lambda: lm_params(lm, cfg, seed + 180, dev, dtype=torch.float32)  # noqa: E731
+    params = fresh()
+    n = sum(x.numel() for x in lm_leaves(params))
+    data = tr.data.SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                                      seed=0, device=dev)
+    batch = data.get_batch(0)
+    require(batch["tokens"].dtype == torch.int32 and tuple(batch["tokens"].shape) == (b, t),
+            "the dataset gave another batch")
+    log(f"   (a) {cfg.name}: {cfg.num_layers} layers, {n:,} f32 params, state (params, grads, "
+        f"two moments) {16 * n / 1e9:.3f} GB; SyntheticLMDataset(seed=0) batch 0 of {b} x {t}, "
+        f"repeated; AdamWConfig(lr=1e-3, warmup_steps=2)")
+    opt_cfg = tr.train.AdamWConfig(lr=1e-3, warmup_steps=2)
+    step_fn = tr.train.make_train_step(cfg, lm.models.NO_SHARDING, opt_cfg)
+    opt = tr.train.adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        (params, opt, m), dt = timed_call(lambda: step_fn(params, opt, batch))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(dt)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"   {cfg.name}: losses {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"   {cfg.name}: grad norms {', '.join(f'{x:.4f}' for x in norms)}")
+    log(f"   {cfg.name}: step ms {', '.join(f'{x:.3f}' for x in ms)} (CUDA events; the first "
+        f"one pays the card's and cuBLAS's warm-up)")
+    require(all(math.isfinite(x) for x in losses + norms), f"{cfg.name}: a non-finite loss or norm")
+    require(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    require(int(opt.step) == steps, f"{cfg.name}: opt_state.step is {int(opt.step)}, not {steps}")
+    a = out["llama"] = {"smi": smi, "losses": losses, "grad_norms": norms, "step_ms_all": ms,
+                        "params": n, "batch": [b, t]}
+    step_ms = statistics.median(ms[2:]) if len(ms) > 2 else statistics.median(ms)
+    bound, kind, parts = lm_train_bound(cfg, params, b, t)
+    a.update(step_ms=step_ms, tokens_per_s=b * t * 1e3 / step_ms, peak_gib=peak, bound_ms=bound,
+             bound_by=kind, bound_parts=parts)
+    log(f"   (b) {cfg.name} times ({smi}): step {step_ms:.3f} ms (median of steps 3-{steps}), "
+        f"{b * t * 1e3 / step_ms:.1f} tokens/s; bound {bound:.3f} ms ({kind}: bf16 GEMMs "
+        f"{parts['bf16_tflop']:.2f} TFLOP {parts['bf16_gemm_ms']:.3f} ms, f32 attention "
+        f"{parts['f32_attention_tflop']:.3f} TFLOP {parts['f32_attention_ms']:.3f} ms, AdamW "
+        f"{parts['adamw_ms']:.3f} ms), {bound / step_ms:.3f} of it; peak {peak:.3f} GiB")
+    # (b) where the time goes: the loss and the update alone, then a profile
+    logits = torch.randn((b, t, cfg.vocab_size), device=dev).to(torch.bfloat16).requires_grad_(True)
+
+    def loss_alone():
+        loss = tr.train.cross_entropy_loss(logits, batch["labels"])
+        return torch.autograd.grad(loss, logits)
+
+    a["loss_ms"] = time_ms(loss_alone, 3)
+    del logits
+    grads = tr.tree.tree_map(lambda p: torch.full_like(p, 1e-3), params)
+    a["adamw_ms"] = time_ms(lambda: tr.train.adamw_update(grads, opt, params, opt_cfg), 3)
+    del grads
+    log(f"   {cfg.name}: alone, the loss forward + backward at ({b}, {t}, {cfg.vocab_size}) "
+        f"{a['loss_ms']:.3f} ms, the AdamW update {a['adamw_ms']:.3f} ms (bound "
+        f"{parts['adamw_ms']:.3f}) (CUDA events, medians of 3)")
+    prof = train_profile(f"{cfg.name} training step", lambda: step_fn(params, opt, batch))
+    a["profile"] = prof
+    a["idle_share"] = 1 - prof["busy_ms"] / step_ms
+    gemm = prof["gemm_ms"]
+    rest = prof["busy_ms"] - sum(gemm.values()) - a["loss_ms"] - a["adamw_ms"]
+    log(f"   {cfg.name} step split ({smi}): bf16 GEMMs {gemm.get('bf16', 0.0):.3f} ms, f32 "
+        f"attention GEMMs {gemm.get('f32', 0.0):.3f} ms, loss {a['loss_ms']:.3f} ms, AdamW "
+        f"{a['adamw_ms']:.3f} ms, the rest (elementwise, norms, softmax, copies) {rest:.3f} ms "
+        f"of {prof['busy_ms']:.3f} ms busy; idle share {a['idle_share']:.3f} of the "
+        f"unprofiled {step_ms:.3f} ms step")
+    a["rest_ms"] = rest
+    del params, opt
+    torch.cuda.empty_cache()
+    # (a) microbatches: 2 against 1 from one fresh state, the reference's bar
+    results = []
+    for nmb in (1, 2):
+        p = fresh()
+        p, _, m = tr.train.make_train_step(cfg, lm.models.NO_SHARDING, tr.train.AdamWConfig(),
+                                           num_microbatches=nmb)(p, tr.train.adamw_init(p), batch)
+        results.append((float(m["loss"]), float(m["grad_norm"]), tr.tree.leaves(p)[0].clone()))
+        del p
+        torch.cuda.empty_cache()
+    (l1, g1, f1), (l2, g2, f2) = results
+    leaf_err = float((f2 - f1).abs().max())
+    log(f"   {cfg.name}: num_microbatches=2 against 1 (AdamWConfig()): loss {l2:.6f} / {l1:.6f}, "
+        f"grad norm {g2:.6f} / {g1:.6f}, first leaf max |diff| {leaf_err:.3e} (bars: loss rtol "
+        f"1e-2, first leaf rtol 1e-2 atol 1e-4)")
+    require(abs(l2 - l1) <= 1e-2 * abs(l1), f"{cfg.name}: microbatched loss differs")
+    require(bool(torch.allclose(f2, f1, rtol=1e-2, atol=1e-4)),
+            f"{cfg.name}: microbatched first leaf differs")
+    a.update(mb_loss=(l1, l2), mb_grad_norm=(g1, g2), mb_leaf_err=leaf_err)
+    # (a) the card against the CPU: one step at 1 x cpu_t from the same
+    # params, both against the same step in f32 on the card
+    small = {k: v[:1, :cpu_t] for k, v in batch.items()}
+    params = fresh()
+    with compute_dtype(lm.models.model, torch.float32):
+        _, g_f32, p_f32 = train_one(lm, tr, cfg, params, small)
+    _, g_card, p_card = train_one(lm, tr, cfg, params, small)
+    rel_g_card, rel_p_card = tree_rel(tr, g_card, g_f32), tree_rel(tr, p_card, p_f32)
+    upd_f32 = train_updates(tr, p_f32, params)
+    upd_card = tree_rel(tr, train_updates(tr, p_card, params), upd_f32)
+    del g_card, p_card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = tr.tree.tree_map(lambda x: x.cpu(), params)
+    _, g_cpu, p_cpu = train_one(lm, tr, cfg, host, {k: v.cpu() for k, v in small.items()})
+    cpu_s = time.perf_counter() - t0
+    rel_g_cpu, rel_p_cpu = tree_rel(tr, g_cpu, g_f32), tree_rel(tr, p_cpu, p_f32)
+    upd_cpu = tree_rel(tr, train_updates(tr, p_cpu, host), upd_f32)
+    log(f"   {cfg.name}: one step at 1 x {cpu_t} against the same step with f32 activations on "
+        f"the card, relative Frobenius: grads card {rel_g_card:.3e}, CPU {rel_g_cpu:.3e}; updated "
+        f"params card {rel_p_card:.3e}, CPU {rel_p_cpu:.3e} (the update alone: card "
+        f"{upd_card:.3e}, CPU {upd_cpu:.3e}); bound: the card within 1.5x the CPU; CPU step "
+        f"{cpu_s:.2f} s")
+    require(rel_g_card <= 1.5 * rel_g_cpu and rel_p_card <= 1.5 * rel_p_cpu,
+            f"{cfg.name}: the card's step is further from the f32 step than 1.5x the CPU's")
+    a.update(f32_grad_rel_card=rel_g_card, f32_grad_rel_cpu=rel_g_cpu,
+             f32_param_rel_card=rel_p_card, f32_param_rel_cpu=rel_p_cpu,
+             f32_update_rel_card=upd_card, f32_update_rel_cpu=upd_cpu, cpu_step_s=cpu_s)
+    del g_f32, p_f32, upd_f32, g_cpu, p_cpu, host, params
+    torch.cuda.empty_cache()
+
+
+def phase_train_resume(lm, tr, seed: int, dev, smoke, b, t, root: Path, out):
+    """(c): checkpoint and resume at llama3.2-1b's width, one layer."""
+    cfg = lm_cut(lm.get_config("llama3.2-1b", smoke=smoke))
+    data = tr.data.SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                                      seed=0, device=dev)
+    step_fn = tr.train.make_train_step(cfg, lm.models.NO_SHARDING,
+                                       tr.train.AdamWConfig(lr=1e-3, warmup_steps=2))
+    ckpt_dir = root / "build" / "chip_smoke_ckpt"
+    if ckpt_dir.exists():
+        import shutil
+        shutil.rmtree(ckpt_dir)
+    c = out["resume"] = {}
+    with deterministic():
+        pa = lm_params(lm, cfg, seed + 181, dev, dtype=torch.float32)
+        oa = tr.train.adamw_init(pa)
+        for s in range(4):
+            pa, oa, _ = step_fn(pa, oa, data.get_batch(s))
+        pb = lm_params(lm, cfg, seed + 181, dev, dtype=torch.float32)
+        ob = tr.train.adamw_init(pb)
+        for s in range(2):
+            pb, ob, _ = step_fn(pb, ob, data.get_batch(s))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = tr.ckpt.save(str(ckpt_dir), 2, (pb, ob), extra={"arch": cfg.name})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        like = tr.tree.tree_map(torch.empty_like, (pb, ob))
+        t0 = time.perf_counter()
+        (pr, orr), manifest = tr.ckpt.restore(str(ckpt_dir), tr.ckpt.latest_step(str(ckpt_dir)), like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del like
+        same = all(torch.equal(x, y) and x.dtype == y.dtype and x.device == y.device
+                   for x, y in zip(tr.tree.leaves((pr, orr)), tr.tree.leaves((pb, ob))))
+        require(same and manifest["step"] == 2, "the restored state is not what was saved")
+        del pb, ob
+        for s in range(2, 4):
+            pr, orr, _ = step_fn(pr, orr, data.get_batch(s))
+        diff = max(float((x - y).abs().max()) for x, y in zip(tr.tree.leaves((pr, orr.mu, orr.nu)),
+                                                               tr.tree.leaves((pa, oa.mu, oa.nu))))
+        bitwise = all(torch.equal(x, y) for x, y in zip(tr.tree.leaves((pr, orr)),
+                                                        tr.tree.leaves((pa, oa))))
+    n = sum(x.numel() for x in lm_leaves(pa))
+    log(f"   (c) {cfg.name} cut to {cfg.num_layers} layer ({n:,} f32 params), {b} x {t}: 4 steps "
+        f"straight against 2 + save + restore + 2, under deterministic algorithms: the restored "
+        f"state bitwise what was saved; resumed against straight: max |diff| {diff:.3e}, "
+        f"bitwise {bitwise}")
+    log(f"   (c) checkpoint of params + state: {nbytes / 1e9:.3f} GB in "
+        f"{len(manifest['leaves'])} leaves, save {save_s:.3f} s ({nbytes / 1e9 / save_s:.3f} GB/s), "
+        f"restore {restore_s:.3f} s ({nbytes / 1e9 / restore_s:.3f} GB/s)")
+    require(bitwise, f"{cfg.name}: the resumed run differs from the straight run by {diff:.3e}")
+    import shutil
+    shutil.rmtree(ckpt_dir)
+    c.update(resume_diff=diff, bitwise=bitwise, ckpt_bytes=nbytes, save_s=save_s,
+             restore_s=restore_s, leaves=len(manifest["leaves"]))
+    del pa, oa, pr, orr
+    torch.cuda.empty_cache()
+
+
+def train_arch(lm, tr, cfg, b, t, seed: int, dev, dtype, g) -> dict:
+    """Two steps of ``make_train_step`` at B x T from ``lm_params`` in
+    ``dtype``: the losses, grad norms, step ms, peak memory and the leaves
+    that did not move."""
+    params = lm_params(lm, cfg, seed, dev, dtype=dtype)
+    if cfg.frontend == "audio":
+        frames = torch.randn((b, t, cfg.frontend_dim), generator=g, device=dev)
+        batch = tr.data.make_labels({"frames": frames})
+    else:
+        batch = tr.data.SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                                           seed=0, device=dev).get_batch(0)
+        if cfg.frontend == "vision":
+            batch["patches"] = torch.randn((b, cfg.num_patches, cfg.frontend_dim), generator=g,
+                                           device=dev)
+    before = train_samples(tr, params)
+    step_fn = tr.train.make_train_step(cfg, lm.models.NO_SHARDING,
+                                       tr.train.AdamWConfig(lr=1e-3, warmup_steps=2))
+    opt = tr.train.adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = {"losses": [], "grad_norms": [], "step_ms": [], "params": sum(
+        x.numel() for x in lm_leaves(params)), "dtype": str(dtype).split(".")[-1]}
+    for _ in range(2):
+        (params, opt, m), dt = timed_call(lambda: step_fn(params, opt, batch))
+        r["losses"].append(float(m["loss"]))
+        r["grad_norms"].append(float(m["grad_norm"]))
+        r["step_ms"].append(dt)
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["still"] = train_leaves_moved(tr, before, params)
+    r["leaves"] = len(before)
+    return r
+
+
+def phase_train_archs(lm, tr, seed: int, smi: str, dev, smoke, runs, out):
+    """(d): every other architecture at full width, one pattern repeat."""
+    for i, arch in enumerate(runs):
+        full = lm.get_config(arch, smoke=smoke)
+        cfg = lm_cut(full)
+        b, t = runs[arch]
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(seed + 183)
+        r = train_arch(lm, tr, cfg, b, t, seed + 182 + i, dev, torch.float32, g)
+        out[arch] = dict(r, smi=smi, batch=[b, t])
+        log(f"   (d) {arch}: depth {full.num_layers} -> {cfg.num_layers}, {r['params']:,} "
+            f"{r['dtype']} params, {b} x {t}: losses {r['losses'][0]:.4f}, {r['losses'][1]:.4f}; "
+            f"grad norms {r['grad_norms'][0]:.4f}, {r['grad_norms'][1]:.4f}; step ms "
+            f"{r['step_ms'][0]:.3f}, {r['step_ms'][1]:.3f}; peak {r['peak_gib']:.3f} GiB; "
+            f"{r['leaves'] - len(r['still'])} of {r['leaves']} leaves moved; "
+            f"{time.perf_counter() - t0:.2f} s")
+        require(all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]),
+                f"{arch}: a non-finite loss or grad norm")
+        require(not r["still"], f"{arch}: leaves that did not move: {r['still']}")
+        torch.cuda.empty_cache()
+
+
+def phase_train_launcher(root: Path, out, steps=(20, 30), batch=8, seq=128, every=10,
+                         extra=()):
+    """(e): ``python -m repro_torch.launch.train`` twice in a subprocess; the
+    second run resumes from the first one's last checkpoint."""
+    import os
+    import shutil
+    ckpt_dir = root / "build" / "chip_smoke_launch"
+    if ckpt_dir.exists():
+        shutil.rmtree(ckpt_dir)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = []
+    for n in steps:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
+               "--smoke", "--steps", str(n), "--batch", str(batch), "--seq", str(seq),
+               "--ckpt-every", str(every), "--ckpt-dir", str(ckpt_dir), *extra]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=str(root),
+                             timeout=300)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        log(f"   (e) launcher --steps {n}: exit {res.returncode}, {wall:.2f} s; "
+            + " | ".join(lines[-4:]))
+        require(res.returncode == 0 and lines and lines[-1] == "done",
+                f"the launcher failed: {res.stderr[-2000:]}")
+        runs.append((lines, wall))
+    require(f"resumed from step {steps[0]}" in runs[1][0],
+            f"the second launcher run did not resume from step {steps[0]}")
+    last = sorted(p.name for p in ckpt_dir.iterdir() if p.name.startswith("step_"))
+    require(last[-1] == f"step_{steps[1]:08d}", f"the launcher left checkpoints {last}")
+    shutil.rmtree(ckpt_dir)
+    out["launcher"] = {"wall_s": [w for _, w in runs], "log": [ls[-4:] for ls, _ in runs]}
+
+
+def phase_train(lm, tr, km, seed: int, smi: str, root: Path, dev="cuda", smoke=False,
+                llama=(8, 1024), steps=8, cpu_t=32, resume=(2, 256), runs=None,
+                launcher=None) -> dict:
+    """Phase 18 (a)-(e): the training path, as the module docstring says."""
+    out: dict = {"smi": smi}
+    kernels_before = lm_kernel_launches(km)
+    t0 = time.perf_counter()
+    phase_train_llama(lm, tr, seed, smi, dev, smoke, *llama, steps, cpu_t, out)
+    log(f"   (a)-(b): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_train_resume(lm, tr, seed, dev, smoke, *resume, root, out)
+    log(f"   (c): {time.perf_counter() - t0:.2f} s")
+    runs = TRAIN_RUNS if runs is None else runs
+    require(set(TRAIN_RUNS) == set(lm.arch_ids) - {"llama3.2-1b"},
+            "TRAIN_RUNS misses an architecture")
+    t0 = time.perf_counter()
+    phase_train_archs(lm, tr, seed, smi, dev, smoke, runs, out)
+    log(f"   (d): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_train_launcher(root, out, **(launcher or {}))
+    log(f"   (e): {time.perf_counter() - t0:.2f} s")
+    after = lm_kernel_launches(km)
+    require(after == kernels_before, f"the training path launched a hand-written kernel: "
+                                     f"{kernels_before} -> {after}")
+    log("   kernel launches across phase 18: none (every launch counter as before), as "
+        "the reference's models call none of K1-K8 and no kernel has a backward")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3819,6 +4299,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of each path after phase 5")
     args = ap.parse_args(argv)
+    # cuBLAS's workspace as deterministic mode needs it (phase 18 (c)),
+    # before CUDA starts; 4,096 KiB x 8 is also torch's default on Hopper
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a card",
               file=sys.stderr)
@@ -3878,6 +4362,13 @@ def main(argv=None) -> int:
 
     from repro_torch.models.model import _cache_len, _is_template_leaf
     lm.cache_len, lm.is_template_leaf = staticmethod(_cache_len), staticmethod(_is_template_leaf)
+
+    class tr:  # the training path: optimizer and step, data, checkpoints, trees
+        import repro_torch.train as train
+        from repro_torch.train import step
+        import repro_torch.data as data
+        import repro_torch.ckpt as ckpt
+        import repro_torch._tree as tree
 
     class km:  # the kernels' modules: wrappers, plain versions, launch counts
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
@@ -3959,6 +4450,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with Phase("phase 17: the LM serving path (models/, serve/engine.py), every architecture"):
         phase_lm(lm, km, args.seed, smi)
+    torch.cuda.empty_cache()
+    with Phase("phase 18: the LM training path (train/, data/, ckpt/, launch/train.py)"):
+        phase_train(lm, tr, km, args.seed, smi, Path(__file__).resolve().parent)
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     serve_worst = max(serve[k]["worst"] for k in ("pallas", "pallas_lp", "singletons", "chaos"))

@@ -19,6 +19,11 @@ ports ``repro/core/spgemm.py``, and so on):
   models   — the LM substrate's model zoo in plain torch (dense, local /
              global, MoE, RG-LRU and SSD stacks): templates, init, forward
              and decode, as the reference's models call no kernel;
+  train    — AdamW (f32 moments, in-place updates), the cross-entropy loss
+             and the remat'd training step with microbatches;
+  data     — Philox-keyed synthetic and memory-mapped token streams;
+  ckpt     — atomic checkpoints in the reference's on-disk layout;
+  launch   — the training launcher (``python -m repro_torch.launch.train``);
   serve    — the SpGEMM serving tier: bounded admission, deadlines, grouped
              dispatch over pinned plans, the circuit breaker, plan-cache
              warming; and ``ServeEngine``, prefill then decode of the model
@@ -40,5 +45,5 @@ down the degradation ladder to another kernel on the same device, never to
 the plain version or the CPU; a kernel that cannot be built raises.
 """
 
-__all__ = ["compat", "configs", "convert", "core", "dist", "kernels", "models", "obs", "runtime",
-           "serve", "sparse"]
+__all__ = ["ckpt", "compat", "configs", "convert", "core", "data", "dist", "kernels", "launch",
+           "models", "obs", "runtime", "serve", "sparse", "train"]

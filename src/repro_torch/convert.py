@@ -11,7 +11,9 @@ crosses as a port ``BSR`` (``bsr_from_numpy``) and the block plan of
 A model's param tree (nested dicts and lists) and its decode caches
 (``AttnCache``, ``RGLRUCache``, ``SSMCache``, by the reference's class names)
 cross leaf for leaf (``params_from_numpy``, ``caches_from_numpy``) and back
-(``params_to_numpy``, ``caches_to_numpy``), bf16 bit for bit both ways.
+(``params_to_numpy``, ``caches_to_numpy``), bf16 bit for bit both ways, and
+so does an AdamW state (``OptState``: param-shaped ``mu`` and ``nu``, the
+int32 ``step``; ``opt_state_from_numpy``, ``opt_state_to_numpy``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.models.layers import AttnCache
 from repro_torch.models.rglru import RGLRUCache
 from repro_torch.models.ssm import SSMCache
 from repro_torch.sparse.formats import BSR, CSR, ELL
+from repro_torch.train.optim import OptState
 
 _PLAN_FIELDS = ("indptr", "indices", "seg_ids", "a_slot_s", "b_slot_s")
 _CACHE_TYPES = {c.__name__: c for c in (AttnCache, RGLRUCache, SSMCache)}
@@ -168,3 +171,17 @@ def caches_to_numpy(caches, bfloat16=None):
     """Port decode caches as numpy arrays in the port's NamedTuples (bf16 as
     in ``params_to_numpy``)."""
     return _map_tree(lambda t: _to_numpy_bits(t, bfloat16), caches)
+
+
+def opt_state_from_numpy(state, device="cuda") -> OptState:
+    """The reference's ``OptState`` (``mu``, ``nu`` as param-shaped trees,
+    ``step``; leaves as numpy arrays) as the port's."""
+    mu, nu, step = state
+    return OptState(mu=params_from_numpy(mu, device), nu=params_from_numpy(nu, device),
+                    step=tensor_from_numpy(np.asarray(step, np.int32), device))
+
+
+def opt_state_to_numpy(state: OptState, bfloat16=None) -> OptState:
+    """A port ``OptState`` with numpy leaves (bf16 as in ``params_to_numpy``)."""
+    return OptState(mu=params_to_numpy(state.mu, bfloat16), nu=params_to_numpy(state.nu, bfloat16),
+                    step=tensor_to_numpy(state.step))

@@ -169,9 +169,12 @@ def _ssd_chunked(dx, da, b_in, c_out, chunk: int):
         sl = slice(ci * chunk, (ci + 1) * chunk)
         dxq, daq, bq, cq = dx[:, sl], da[:, sl], b_in[:, sl], c_out[:, sl]
         da_cs = torch.cumsum(daq, dim=1)  # (B,Q,H)
-        # intra-chunk: L[l,s] = exp(da_cs[l] - da_cs[s]) for l >= s
+        # intra-chunk: L[l,s] = exp(da_cs[l] - da_cs[s]) for l >= s; masked
+        # before the exp (exp(-inf) = 0, the reference's zeros), so that the
+        # l < s entries, which can overflow to inf, give a zero gradient
+        # where the reference's where-after-exp gives NaN
         ldiff = da_cs[:, :, None, :] - da_cs[:, None, :, :]  # (B,Q,Q,H)
-        l_mat = torch.where(tri[None, :, :, None], torch.exp(ldiff), 0.0)
+        l_mat = torch.exp(torch.where(tri[None, :, :, None], ldiff, float("-inf")))
         scores = torch.einsum("bln,bsn->bls", cq, bq)  # (B,Q,Q)
         y_diag = torch.einsum("bls,blsh,bshp->blhp", scores, l_mat, dxq)
         # contribution of incoming state

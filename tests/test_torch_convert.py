@@ -164,6 +164,8 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 def test_importing_every_port_module_never_loads_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
     assert "repro_torch.core.executor" in modules and "repro_torch.convert" in modules
+    assert {"repro_torch.train.step", "repro_torch.train.optim", "repro_torch.data.pipeline",
+            "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n"
@@ -238,3 +240,32 @@ def test_caches_round_trip_bitwise(arch):
         [type(c).__name__ for c in tree["blocks"] + tree["tail"]]
     back = convert.caches_to_numpy(port, bfloat16=jnp.bfloat16)
     assert _leaf_bits(back) == _leaf_bits(tree)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_opt_state_round_trip_bitwise(dtype):
+    """The reference's AdamW state (f32 moments shaped like f32 or bf16
+    params, an int32 step) crosses into the port's OptState and back bit for
+    bit, and a port state restores the reference's field for field."""
+    import jax
+    from repro.configs import get_config
+    from repro.models import init_params
+    from repro.train import adamw_init
+    from repro_torch.train import OptState
+
+    params = init_params(get_config("gemma2-9b", smoke=True), jax.random.PRNGKey(0),
+                         dtype=getattr(jnp, dtype))
+    rng = np.random.default_rng(4)
+    state = adamw_init(params)
+    state = state._replace(mu=jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32),
+                                           state.mu), step=jnp.int32(11))
+    tree = jax.tree.map(np.asarray, state)
+    port = convert.opt_state_from_numpy(tree, device="cpu")
+    assert isinstance(port, OptState) and port._fields == type(state)._fields
+    assert port.step.dtype == torch.int32 and port.step.shape == () and int(port.step) == 11
+    assert all(x.dtype == torch.float32 for x in jax.tree.leaves((port.mu, port.nu)))
+    back = convert.opt_state_to_numpy(port, bfloat16=jnp.bfloat16)
+    assert _leaf_bits(back) == _leaf_bits(tree)
+    pp = convert.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
+    assert all(x.dtype == getattr(torch, dtype) for x in jax.tree.leaves(pp))
+    assert _leaf_bits(convert.params_to_numpy(pp, bfloat16=jnp.bfloat16)) == _leaf_bits(params)

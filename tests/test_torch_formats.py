@@ -217,10 +217,10 @@ def test_estimate_ars_matches_the_reference():
 
 def test_the_port_exports_the_references_public_names():
     """Every name of ``repro.runtime``, ``repro.obs``, ``repro.dist``,
-    ``repro.models`` and ``repro.serve``, and every autotune, meta,
-    telemetry, distributed and memory-pool name of ``repro.core``
-    (TRACE_COUNTS is STAGE_COUNTS)."""
-    for pkg in ("runtime", "obs", "dist", "models", "serve"):
+    ``repro.models``, ``repro.serve``, ``repro.train``, ``repro.data`` and
+    ``repro.ckpt``, and every autotune, meta, telemetry, distributed and
+    memory-pool name of ``repro.core`` (TRACE_COUNTS is STAGE_COUNTS)."""
+    for pkg in ("runtime", "obs", "dist", "models", "serve", "train", "data", "ckpt"):
         ref = importlib.import_module(f"repro.{pkg}")
         port = importlib.import_module(f"repro_torch.{pkg}")
         assert set(ref.__all__) <= set(port.__all__), set(ref.__all__) - set(port.__all__)
