@@ -185,7 +185,29 @@ Phases, in order:
      grad norms, every leaf moved; (e) python -m repro_torch.launch.train
      --smoke at 8 x 128 in a subprocess to step 20, then to 30: the second run
      resumes from step 20 and ends with "done";
- 19. one JSON line of the kernels (K1 and K2 with their batched launches'
+ 19. the LM substrate's 2-D data x model mesh (launch/mesh.make_test_mesh,
+     DTensor placements from the specs, the MoE's local_map expert path,
+     ZeRO-1 moments, the elastic restore) on a (1, 1) mesh over NCCL at world
+     size 1 (a file:// rendezvous under build/): the code path at full width,
+     no real split (NCCL puts one rank on a card; the 2 x 4 split is held on
+     the CPU's gloo ranks); every check against the same call with
+     NO_SHARDING from the same params, bitwise or within MESH_RTOL relative
+     (which, logged): (a) llama3.2-1b at its full config, f32 params placed by
+     param_shardings: forward at 8 x 1,024 (bf16 activations), then 4
+     train steps with ZeRO-1 moments (zero1_shardings, placements checked) on
+     phase 18's repeated batch against 4 plain steps (losses, grad norms,
+     final params); ServeEngine(mesh=) with decode rules, bf16 params: 8 x 64
+     prompt tokens, 16 greedy steps, the same tokens as without the mesh;
+     (b) qwen3-moe-30b-a3b at full width, one pattern repeat (lm_cut), f32
+     params, 2 x 512: forward and one train step through the local_map
+     expert path (its calls counted); (c) llama3.2-1b cut to one layer:
+     params and ZeRO-1 state after a step, saved from the mesh and restored
+     onto NamedShardings of the specs: bitwise, at the asked placements (the
+     checkpoint under build/, removed after); (d) the mesh step's ms against
+     the plain step's (CUDA events, medians of steps 2-4) and phase 18's, and
+     its idle share from one torch.profiler step: DTensor's host cost; (e) no
+     kernel launch across the phase (checked);
+ 20. one JSON line of the kernels (K1 and K2 with their batched launches'
      times, launches and shape, K1 with its sharded launches); the last
      line is the result.
 
@@ -4291,6 +4313,327 @@ def phase_train(lm, tr, km, seed: int, smi: str, root: Path, dev="cuda", smoke=F
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the LM substrate's 2-D data x model mesh on a (1, 1) mesh at
+# world size 1 (NCCL puts one rank on a card): the mesh path at full width
+# ---------------------------------------------------------------------------
+
+MESH_RTOL = 1e-6  # the (1, 1) mesh against NO_SHARDING: bitwise, or within this relative
+
+
+@contextlib.contextmanager
+def mesh_group(root: Path, dev):
+    """A world-size-1 process group for the block (NCCL on the card, gloo on
+    the CPU) through a file:// rendezvous under build/."""
+    import os
+
+    import torch.distributed as tdist
+
+    rendezvous = root / "build" / "chip_smoke_mesh_rendezvous"
+    rendezvous.parent.mkdir(parents=True, exist_ok=True)
+    rendezvous.unlink(missing_ok=True)
+    backend = "nccl" if dev == "cuda" else "gloo"
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: loopback only
+    tdist.init_process_group(backend, init_method=f"file://{rendezvous}", rank=0, world_size=1)
+    try:
+        yield backend
+    finally:
+        tdist.destroy_process_group()
+        rendezvous.unlink(missing_ok=True)
+
+
+def mesh_agree(ms, tr, name, got, want) -> tuple:
+    """(bitwise, worst relative max |diff|) of two trees (DTensors taken
+    whole); fails past MESH_RTOL."""
+    same, worst = True, 0.0
+    for a, b in zip(tr.tree.leaves(got), tr.tree.leaves(want)):
+        a, b = ms.compat.whole(a), ms.compat.whole(b)
+        require(a.shape == b.shape and a.dtype == b.dtype, f"{name}: {a.shape} {a.dtype} against "
+                                                           f"{b.shape} {b.dtype}")
+        if not torch.equal(a, b):
+            same = False
+            scale = max(float(b.double().abs().max()), 1e-30)
+            worst = max(worst, float((a.double() - b.double()).abs().max()) / scale)
+    require(worst <= MESH_RTOL, f"{name}: the mesh differs from NO_SHARDING by {worst:.3e} "
+                                f"relative (bound {MESH_RTOL})")
+    return same, worst
+
+
+def mesh_state(lm, tr, ms, cfg, rules, mesh, params):
+    """``params`` placed by param_shardings, moments by zero1_shardings
+    (placements checked); returns (params, opt state, moment specs)."""
+    specs = lm.models.param_shardings(cfg, rules)
+    zero1 = tr.train.zero1_shardings(specs, rules.dp_axes, mesh.shape,
+                                     lm.models.param_specs(cfg, rules))
+    placed = lm.models.place(params, specs, mesh)
+    opt = tr.train.adamw_init(placed, mesh, zero1)
+    want = [mesh.placements(z) for z in lm_leaves_specs(tr, zero1, params)]
+    got = [tuple(m.placements) for m in tr.tree.leaves(opt.mu)]
+    require(got == want, "the moments are not at zero1_shardings' placements")
+    return placed, opt, zero1
+
+
+def lm_leaves_specs(tr, specs, like) -> list:
+    out = []
+    tr.tree.map_specs(lambda spec, _: out.append(spec), specs, like)
+    return out
+
+
+def phase_mesh_llama(lm, tr, ms, mesh, rules, seed: int, smi: str, dev, smoke, b, t, steps,
+                     serve, plain_ms_18, out):
+    """(a) and (d): llama3.2-1b at its full config through the mesh."""
+    cfg = lm.get_config("llama3.2-1b", smoke=smoke)
+    no = lm.models.NO_SHARDING
+    fresh = lambda: lm_params(lm, cfg, seed + 190, dev, dtype=torch.float32)  # noqa: E731
+    batch = tr.data.SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                                       seed=0, device=dev).get_batch(0)
+    a = out["llama"] = {"smi": smi, "batch": [b, t]}
+    params = fresh()
+    with torch.no_grad():
+        want, _ = lm.models.forward(params, {"tokens": batch["tokens"]}, cfg, no, remat=False)
+        placed = lm.models.place(params, lm.models.param_shardings(cfg, rules), mesh)
+        got, _ = lm.models.forward(placed, {"tokens": batch["tokens"]}, cfg, rules, mesh=mesh,
+                                   remat=False)
+    require(isinstance(got, ms.DTensor), "forward on the mesh did not give a DTensor")
+    same, worst = mesh_agree(ms, tr, "(a) forward logits", got, want)
+    a["forward"] = {"bitwise": same, "rel": worst}
+    log(f"   (a) {cfg.name}, {b} x {t}, f32 params placed by param_shardings on {mesh}: forward "
+        f"logits {tuple(want.shape)} against NO_SHARDING: bitwise {same}, relative {worst:.3e}")
+    del want, got, placed, params
+    torch.cuda.empty_cache()
+    opt_cfg = tr.train.AdamWConfig(lr=1e-3, warmup_steps=2)
+    runs = {}
+    for label in ("plain", "mesh"):
+        params = fresh()
+        if label == "plain":
+            opt = tr.train.adamw_init(params)
+            step_fn = tr.train.make_train_step(cfg, no, opt_cfg)
+        else:
+            params, opt, _ = mesh_state(lm, tr, ms, cfg, rules, mesh, params)
+            step_fn = tr.train.make_train_step(cfg, rules, opt_cfg, mesh=mesh)
+        losses, norms, ms_all = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # this run's state, and what earlier runs keep
+        for _ in range(steps):
+            (params, opt, m), dt = timed_call(lambda: step_fn(params, opt, batch))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms_all.append(dt)
+        peak = torch.cuda.max_memory_allocated()
+        runs[label] = {"losses": losses, "grad_norms": norms, "step_ms_all": ms_all,
+                       "step_ms": statistics.median(ms_all[1:]), "peak_gib": peak / 2**30,
+                       "held_gib": held / 2**30, "peak_above_held_gib": (peak - held) / 2**30}
+        kept = ""
+        if label == "mesh":  # the plain run's params stay alive for the comparison below
+            kept = sum(x.numel() * x.element_size() for x in lm_leaves(plain_params))
+            runs[label]["plain_params_kept_gib"] = kept / 2**30
+            kept = f", of it the plain run's params kept {kept / 2**30:.3f} GiB"
+        log(f"   (a) {label}: losses {', '.join(f'{x:.6f}' for x in losses)}; grad norms "
+            f"{', '.join(f'{x:.6f}' for x in norms)}; step ms "
+            f"{', '.join(f'{x:.3f}' for x in ms_all)}; peak "
+            f"{runs[label]['peak_gib']:.3f} GiB: held at the first step "
+            f"{held / 2**30:.3f} GiB{kept}, peak above it "
+            f"{runs[label]['peak_above_held_gib']:.3f} GiB")
+        if label == "plain":
+            plain_params = params
+            del opt
+        else:
+            mesh_params, mesh_opt, mesh_step = params, opt, step_fn
+        del params
+        torch.cuda.empty_cache()
+    same, worst = mesh_agree(ms, tr, "(a) train params", mesh_params, plain_params)
+    for key in ("losses", "grad_norms"):
+        for x, y in zip(runs["mesh"][key], runs["plain"][key]):
+            require(abs(x - y) <= MESH_RTOL * abs(y), f"(a) {key}: {x} on the mesh, {y} plain")
+    a["train"] = {"bitwise": same, "rel": worst, "runs": runs,
+                  "losses_equal": runs["mesh"]["losses"] == runs["plain"]["losses"]}
+    log(f"   (a) {steps} train steps, ZeRO-1 moments at zero1_shardings: params after them "
+        f"against NO_SHARDING bitwise {same}, relative {worst:.3e}; losses equal "
+        f"{a['train']['losses_equal']}")
+    del plain_params
+    torch.cuda.empty_cache()
+    # (d) DTensor's host cost: the step through the mesh against the plain one
+    mesh_ms, plain_ms = runs["mesh"]["step_ms"], runs["plain"]["step_ms"]
+    prof = train_profile(f"{cfg.name} training step on the mesh",
+                         lambda: mesh_step(mesh_params, mesh_opt, batch))
+    idle = 1 - prof["busy_ms"] / mesh_ms
+    a["times"] = {"mesh_step_ms": mesh_ms, "plain_step_ms": plain_ms,
+                  "phase18_step_ms": plain_ms_18, "mesh_busy_ms": prof["busy_ms"],
+                  "mesh_profiled_host_ms": prof["host_ms"], "mesh_idle_share": idle,
+                  "tokens_per_s": b * t * 1e3 / mesh_ms}
+    p18 = f"{plain_ms_18:.3f}" if plain_ms_18 is not None else "not run"
+    log(f"   (d) {cfg.name} step ({smi}): through the mesh {mesh_ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms (medians of steps 2-{steps}, CUDA events; phase 18's plain step {p18} ms), "
+        f"{mesh_ms / plain_ms:.3f}x; the mesh step's device busy {prof['busy_ms']:.3f} ms, idle "
+        f"share {idle:.3f} of the unprofiled step")
+    del mesh_params, mesh_opt, mesh_step
+    torch.cuda.empty_cache()
+    # (a) the engine on the mesh: decode rules, cache_shardings, greedy tokens
+    nb, nt, nsteps = serve
+    bf = lm_params(lm, cfg, seed + 191, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 192)
+    prompts = torch.randint(0, cfg.vocab_size, (nb, nt), generator=g, device=dev,
+                            dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = lm.ServeEngine(bf, cfg, max_len=nt + nsteps).generate(prompts, nsteps)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    dec = dataclasses.replace(rules, decode=True)
+    eng = lm.ServeEngine(lm.models.place(bf, lm.models.param_shardings(cfg, dec), mesh), cfg,
+                         rules=dec, mesh=mesh, max_len=nt + nsteps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = eng.generate(prompts, nsteps)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    require(not isinstance(got, ms.DTensor) and torch.equal(got, want),
+            "(a) ServeEngine on the mesh gave other tokens than without it")
+    a["serve"] = {"tokens_equal": True, "generate_s": gen_s, "plain_generate_s": plain_s,
+                  "shape": [nb, nt, nsteps]}
+    log(f"   (a) ServeEngine(mesh=, decode rules, cache_shardings), bf16 params: {nb} x {nt} "
+        f"prompt tokens, {nsteps} greedy steps: the same tokens as without the mesh; generate "
+        f"{gen_s:.3f} s on the mesh, {plain_s:.3f} s without it (host clock, each engine's "
+        f"first call)")
+    del bf, eng, want, got
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_moe(lm, tr, ms, mesh, rules, seed: int, dev, smoke, b, t, out):
+    """(b): qwen3-moe-30b-a3b at full width, one repeat, through local_map."""
+    cfg = lm_cut(lm.get_config("qwen3-moe-30b-a3b", smoke=smoke))
+    no = lm.models.NO_SHARDING
+    fresh = lambda: lm_params(lm, cfg, seed + 193, dev, dtype=torch.float32)  # noqa: E731
+    batch = tr.data.SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                                       seed=1, device=dev).get_batch(0)
+    calls = [0]
+    real = lm.moe.local_map
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    params = fresh()
+    with torch.no_grad():
+        want, _ = lm.models.forward(params, {"tokens": batch["tokens"]}, cfg, no, remat=False)
+        placed = lm.models.place(params, lm.models.param_shardings(cfg, rules), mesh)
+        lm.moe.local_map = counted
+        try:
+            got, _ = lm.models.forward(placed, {"tokens": batch["tokens"]}, cfg, rules, mesh=mesh,
+                                       remat=False)
+        finally:
+            lm.moe.local_map = real
+    fwd_calls = calls[0]
+    require(fwd_calls == cfg.num_layers, f"(b) local_map ran {fwd_calls} times in "
+                                         f"{cfg.num_layers} MoE layers")
+    f_same, f_worst = mesh_agree(ms, tr, "(b) forward logits", got, want)
+    del want, got, placed, params
+    torch.cuda.empty_cache()
+    opt_cfg = tr.train.AdamWConfig(lr=1e-3, warmup_steps=2)
+    p1 = fresh()
+    p1, _, m1 = tr.train.make_train_step(cfg, no, opt_cfg)(p1, tr.train.adamw_init(p1), batch)
+    p2, o2, _ = mesh_state(lm, tr, ms, cfg, rules, mesh, fresh())
+    lm.moe.local_map = counted
+    try:
+        p2, o2, m2 = tr.train.make_train_step(cfg, rules, opt_cfg, mesh=mesh)(p2, o2, batch)
+    finally:
+        lm.moe.local_map = real
+    require(calls[0] > fwd_calls, "(b) the train step on the mesh did not run local_map")
+    require(abs(float(m2["loss"]) - float(m1["loss"])) <= MESH_RTOL * abs(float(m1["loss"])),
+            f"(b) loss {float(m2['loss'])} on the mesh, {float(m1['loss'])} plain")
+    t_same, t_worst = mesh_agree(ms, tr, "(b) train params", p2, p1)
+    n = sum(x.numel() for x in lm_leaves(p1))
+    out["moe"] = {"forward": {"bitwise": f_same, "rel": f_worst},
+                  "train": {"bitwise": t_same, "rel": t_worst, "loss": float(m2["loss"])},
+                  "local_map_calls": calls[0], "params": n, "batch": [b, t]}
+    log(f"   (b) {cfg.name} cut to {cfg.num_layers} layer ({n:,} f32 params), {b} x {t}, "
+        f"through local_map ({calls[0]} calls: {fwd_calls} forward, the rest the step's "
+        f"forward and recompute): forward logits bitwise {f_same} (relative {f_worst:.3e}); "
+        f"one train step: loss {float(m2['loss']):.6f} / {float(m1['loss']):.6f}, params "
+        f"bitwise {t_same} (relative {t_worst:.3e})")
+    del p1, p2, o2
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_restore(lm, tr, ms, mesh, rules, seed: int, dev, smoke, b, t, root: Path, out):
+    """(c): the elastic restore, saved from the mesh, restored onto specs."""
+    cfg = lm_cut(lm.get_config("llama3.2-1b", smoke=smoke))
+    batch = tr.data.SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                                       seed=2, device=dev).get_batch(0)
+    params, opt, zero1 = mesh_state(lm, tr, ms, cfg, rules, mesh,
+                                    lm_params(lm, cfg, seed + 194, dev, dtype=torch.float32))
+    specs = lm.models.param_shardings(cfg, rules)
+    params, opt, _ = tr.train.make_train_step(cfg, rules, tr.train.AdamWConfig(lr=1e-3),
+                                              mesh=mesh)(params, opt, batch)
+    ckpt_dir = root / "build" / "chip_smoke_mesh_ckpt"
+    if ckpt_dir.exists():
+        import shutil
+        shutil.rmtree(ckpt_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = tr.ckpt.save(str(ckpt_dir), 1, (params, opt))
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    named = lambda tree: tr.tree.map_specs(lambda spec, _: ms.NamedSharding(mesh, spec),  # noqa: E731
+                                           specs if tree is params else zero1, tree)
+    shardings = (named(params), type(opt)(mu=named(opt.mu), nu=named(opt.nu),
+                                          step=opt.step.device))
+    like = (params, opt)
+    t0 = time.perf_counter()
+    (pr, orr), manifest = tr.ckpt.restore(str(ckpt_dir), 1, like, shardings=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bitwise = all(torch.equal(ms.compat.whole(x), ms.compat.whole(y))
+                  for x, y in zip(tr.tree.leaves((pr, orr)), tr.tree.leaves((params, opt))))
+    placed = all(tuple(x.placements) == tuple(y.placements)
+                 for x, y in zip(tr.tree.leaves((pr, orr.mu, orr.nu)),
+                                 tr.tree.leaves((params, opt.mu, opt.nu))))
+    require(bitwise and placed and manifest["step"] == 1,
+            f"(c) the restored state: bitwise {bitwise}, at the asked placements {placed}")
+    import shutil
+    shutil.rmtree(ckpt_dir)
+    out["restore"] = {"bitwise": bitwise, "placed": placed, "bytes": nbytes, "save_s": save_s,
+                      "restore_s": restore_s, "leaves": len(manifest["leaves"])}
+    log(f"   (c) {cfg.name} cut to {cfg.num_layers} layer: params + ZeRO-1 state after a step "
+        f"on the mesh, {nbytes / 1e9:.3f} GB in {len(manifest['leaves'])} leaves, saved in "
+        f"{save_s:.3f} s, restored onto NamedShardings of param_shardings / zero1_shardings "
+        f"in {restore_s:.3f} s: bitwise, at the asked placements")
+    del params, opt, pr, orr
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(lm, tr, ms, km, seed: int, smi: str, root: Path, plain_ms_18, dev="cuda",
+               smoke=False, llama=(8, 1024), steps=4, serve=(8, 64, 16), moe=(2, 512),
+               restore=(2, 256)) -> dict:
+    """Phase 19 (a)-(e): the 2-D mesh path, as the module docstring says."""
+    out: dict = {"smi": smi}
+    kernels_before = lm_kernel_launches(km)
+    with mesh_group(root, dev) as backend:
+        mesh = ms.mesh.make_test_mesh((1, 1))
+        rules = ms.mesh.rules_for_mesh(mesh)
+        require(rules.enabled and rules.tp_axis == "model" and rules.dp_axes == ("data",),
+                f"rules_for_mesh: {rules}")
+        log(f"   {backend} world size 1: {mesh}, {rules}")
+        t0 = time.perf_counter()
+        phase_mesh_llama(lm, tr, ms, mesh, rules, seed, smi, dev, smoke, *llama, steps, serve,
+                         plain_ms_18, out)
+        log(f"   (a), (d): {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        phase_mesh_moe(lm, tr, ms, mesh, rules, seed, dev, smoke, *moe, out)
+        log(f"   (b): {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        phase_mesh_restore(lm, tr, ms, mesh, rules, seed, dev, smoke, *restore, root, out)
+        log(f"   (c): {time.perf_counter() - t0:.2f} s")
+    after = lm_kernel_launches(km)
+    require(after == kernels_before, f"the mesh path launched a hand-written kernel: "
+                                     f"{kernels_before} -> {after}")
+    log("   (e) kernel launches across phase 19: none (every launch counter as before)")
+    print(json.dumps({"phase19": {k: v for k, v in out.items() if k != "smi"}},
+                     default=str), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4369,6 +4712,12 @@ def main(argv=None) -> int:
         import repro_torch.data as data
         import repro_torch.ckpt as ckpt
         import repro_torch._tree as tree
+
+    class ms:  # the data x model mesh: launch/mesh, compat's DTensor mesh
+        import repro_torch.launch.mesh as mesh
+        from repro_torch import compat
+        from repro_torch.compat import NamedSharding
+        from torch.distributed.tensor import DTensor
 
     class km:  # the kernels' modules: wrappers, plain versions, launch counts
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
@@ -4452,7 +4801,12 @@ def main(argv=None) -> int:
         phase_lm(lm, km, args.seed, smi)
     torch.cuda.empty_cache()
     with Phase("phase 18: the LM training path (train/, data/, ckpt/, launch/train.py)"):
-        phase_train(lm, tr, km, args.seed, smi, Path(__file__).resolve().parent)
+        train = phase_train(lm, tr, km, args.seed, smi, Path(__file__).resolve().parent)
+    torch.cuda.empty_cache()
+    with Phase("phase 19: the 2-D data x model mesh (launch/mesh, DTensor placements, the "
+               "MoE's local_map path, ZeRO-1, the elastic restore) at world size 1"):
+        phase_mesh(lm, tr, ms, km, args.seed, smi, Path(__file__).resolve().parent,
+                   train["llama"]["step_ms"])
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     serve_worst = max(serve[k]["worst"] for k in ("pallas", "pallas_lp", "singletons", "chaos"))

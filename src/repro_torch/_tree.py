@@ -3,7 +3,9 @@ and checkpoints: dict keys in sorted order, lists and tuples in order, a
 NamedTuple by its fields, ``None`` a node with no leaves, anything else a
 leaf. A leaf's path is the tuple of its keys as strings (dict key, list or
 tuple index, NamedTuple field name), the parts the reference's checkpoint
-joins into a file name."""
+joins into a file name. A tree of specs (``models.param_shardings``) holds
+plain tuples as its leaves, walked beside the tree it describes by
+``map_specs``."""
 from __future__ import annotations
 
 from repro_torch.runtime.validate import SpgemmInputError
@@ -58,3 +60,19 @@ def unflatten(tree_like, new_leaves):
 
 def tree_map(fn, tree):
     return unflatten(tree, [fn(x) for x in leaves(tree)])
+
+
+def is_spec(x) -> bool:
+    """A spec tuple (a leaf of a spec tree), not a NamedTuple node."""
+    return isinstance(x, tuple) and not _is_namedtuple(x)
+
+
+def map_specs(fn, specs, tree):
+    """``fn(spec, leaf)`` over a spec tree and the matching tree, in the
+    spec tree's structure."""
+    if is_spec(specs):
+        return fn(specs, tree)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, specs[k], tree[k]) for k in sorted(specs)}
+    return type(specs)(*(map_specs(fn, s, t) for s, t in zip(specs, tree))) \
+        if _is_namedtuple(specs) else type(specs)(map_specs(fn, s, t) for s, t in zip(specs, tree))

@@ -31,14 +31,30 @@ Two backings, one design:
   ``torch.distributed`` collectives (NCCL on the card, gloo on the CPU):
   the list form of ``all_gather``, ``all_reduce``, and
   ``batch_isend_irecv`` for the ring.
+
+The LM substrate's data x model mesh is a sibling class, ``DTensorMesh``
+(``make_device_mesh``), not a third backing of ``Mesh``: one shard a rank
+over a ``torch.distributed.device_mesh.DeviceMesh``, its tensors DTensors
+whose placements come from the reference's ``PartitionSpec``-like specs
+(``spec_placements``). The two meshes move data differently (local stacks
+and three primitives against DTensor redistributions), and ``Mesh``'s
+single-process multi-axis form stays what ``dist/`` uses, so one class with
+both meanings would branch in every method. Both have ``shape`` (axis name
+-> size), ``axis_names`` and ``axis_shapes``; ``AbstractMesh`` has only
+those (JAX's ``AbstractMesh``: axis names and sizes, no devices), enough to
+resolve rules and specs for a mesh that is not built.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
+from torch.distributed import tensor as dtensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.runtime.validate import SpgemmConfigError
 
@@ -205,3 +221,170 @@ def use_mesh(mesh: Mesh | None):
 def current_mesh() -> Mesh | None:
     """The mesh bound by the innermost ``use_mesh``, or None."""
     return _MESH.get()
+
+
+# --------------------------------------------------------------------------
+# the data x model mesh: one shard a rank, DTensor placements
+# --------------------------------------------------------------------------
+
+
+def spec_placements(spec, axis_names, axis_sizes) -> tuple:
+    """The DTensor placements, one a mesh dim, of a spec tuple (entry for
+    entry the reference's ``PartitionSpec``: ``None`` or ``()`` replicated,
+    an axis name, or a tuple of names for a dim split over several axes).
+
+    A dim split over several axes takes ``Shard(dim)`` on each of their mesh
+    dims; DTensor splits such a dim over its mesh dims left to right, so the
+    names must come in mesh order (JAX's major-to-minor order). An unknown
+    axis, an axis named twice, or names out of mesh order raise
+    ``SpgemmConfigError``. An axis of one shard (``axis_sizes``, one a
+    name) takes ``Replicate()``, the same layout (DTensor's view refuses to
+    merge a dim sharded over one shard, as an einsum does at decode's
+    T = 1)."""
+    axis_names = tuple(axis_names)
+    out = [Replicate()] * len(axis_names)
+    for dim, entry in enumerate(spec):
+        names = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        idx = []
+        for name in names:
+            if name not in axis_names:
+                raise SpgemmConfigError(f"spec {spec!r} names {name!r}, not an axis of "
+                                        f"{axis_names}")
+            i = axis_names.index(name)
+            if isinstance(out[i], Shard):
+                raise SpgemmConfigError(f"spec {spec!r} names axis {name!r} twice")
+            out[i] = Shard(dim)
+            idx.append(i)
+        if idx != sorted(idx):
+            raise SpgemmConfigError(
+                f"spec {spec!r} splits dim {dim} over {names}, out of the mesh's order "
+                f"{axis_names}")
+    return tuple(Replicate() if n == 1 else q for q, n in zip(out, axis_sizes))
+
+
+class AbstractMesh:
+    """Axis names and sizes, no devices: what ``rules_for_mesh`` and
+    ``spec_placements`` need."""
+
+    def __init__(self, axis_shapes, axis_names):
+        axis_shapes = tuple(int(s) for s in axis_shapes)
+        axis_names = tuple(axis_names)
+        if len(axis_shapes) != len(axis_names) or not axis_names:
+            raise SpgemmConfigError(
+                f"axis_shapes {axis_shapes} and axis_names {axis_names} must be non-empty "
+                f"and of one length")
+        if any(s < 1 for s in axis_shapes) or len(set(axis_names)) != len(axis_names):
+            raise SpgemmConfigError(
+                f"every axis needs a distinct name and at least one shard, got "
+                f"{axis_names} {axis_shapes}")
+        self.axis_names = axis_names
+        self.axis_shapes = axis_shapes
+        self.shape = dict(zip(axis_names, axis_shapes))
+        self.size = math.prod(axis_shapes)
+
+    def placements(self, spec) -> tuple:
+        return spec_placements(spec, self.axis_names, self.axis_shapes)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.shape})"
+
+
+class DTensorMesh(AbstractMesh):
+    """A mesh of one shard a rank over a ``DeviceMesh`` with the same axis
+    names (``device_mesh``), on this rank's ``device``."""
+
+    def __init__(self, axis_shapes, axis_names, device_mesh, device):
+        super().__init__(axis_shapes, axis_names)
+        self.device_mesh = device_mesh
+        self.device = torch.device(device)
+
+    def distribute(self, x: torch.Tensor, spec):
+        """``x`` (the whole tensor, the same on every rank) as a DTensor at
+        ``spec``: each rank keeps its slice, nothing is sent (the port's
+        ``jax.device_put`` with a ``NamedSharding``)."""
+        if len(spec) > x.ndim:
+            raise SpgemmConfigError(f"spec {spec!r} has more entries than the {x.ndim} dims "
+                                    f"of a {tuple(x.shape)} tensor")
+        return distribute_tensor(x.detach().to(self.device), self.device_mesh,
+                                 self.placements(spec), src_data_rank=None)
+
+    def zeros(self, shape, spec, dtype=torch.float32):
+        """A zero DTensor of global ``shape`` at ``spec``, each rank
+        allocating its slice only."""
+        return dtensor.zeros(tuple(shape), dtype=dtype, device_mesh=self.device_mesh,
+                        placements=self.placements(spec))
+
+    def local_index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis``."""
+        return self.device_mesh.get_local_rank(axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a ``DTensorMesh`` (JAX's ``NamedSharding``): what
+    ``ckpt.restore(shardings=)`` and ``models.place`` take a leaf to."""
+
+    mesh: DTensorMesh
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return self.mesh.placements(self.spec)
+
+
+def make_device_mesh(axis_shapes, axis_names) -> DTensorMesh:
+    """The data x model mesh: a ``DeviceMesh`` of ``axis_shapes`` over the
+    initialised default process group, one rank a shard (NCCL: the card;
+    gloo: the CPU). Raises ``SpgemmConfigError`` without a process group or
+    when the world size is not the product of the axes."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    axis_shapes, axis_names = tuple(int(s) for s in axis_shapes), tuple(axis_names)
+    size = AbstractMesh(axis_shapes, axis_names).size  # and the shape checks
+    if not (dist.is_available() and dist.is_initialized()):
+        raise SpgemmConfigError(
+            f"a {axis_shapes} {axis_names} mesh needs an initialised torch.distributed "
+            f"process group of {size} ranks, one a shard")
+    world = dist.get_world_size()
+    if world != size:
+        raise SpgemmConfigError(
+            f"world size {world} is not the {size} shards of the {axis_shapes} "
+            f"{axis_names} mesh")
+    if dist.get_backend() == "nccl":
+        device_type, device = "cuda", torch.device("cuda", torch.cuda.current_device())
+    else:
+        device_type, device = "cpu", torch.device("cpu")
+    dm = init_device_mesh(device_type, axis_shapes, mesh_dim_names=axis_names)
+    return DTensorMesh(axis_shapes, axis_names, dm, device)
+
+
+def local_range(x, dim: int) -> tuple:
+    """(first index, count) of ``x``'s dim ``dim`` that this rank holds, for
+    a DTensor ``x``: the mesh dims sharding ``dim`` split it in mesh order,
+    each into ``torch.chunk``'s pieces (DTensor's own rule)."""
+    first, count = 0, x.shape[dim]
+    coord = x.device_mesh.get_coordinate()
+    for mdim, placement in enumerate(x.placements):
+        if isinstance(placement, Shard) and placement.dim == dim:
+            n = x.device_mesh.size(mdim)
+            chunk = -(-count // n)
+            start = min(coord[mdim] * chunk, count)
+            first, count = first + start, min(chunk, count - start)
+    return first, count
+
+
+def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor the same on every rank (a position, a mask, a zero
+    accumulator, made from shapes alone), as a replicated DTensor on
+    ``like``'s mesh when ``like`` is a DTensor (nothing is sent); beside a
+    plain tensor, ``t`` as it is."""
+    if isinstance(like, DTensor):
+        return DTensor.from_local(t, like.device_mesh, [Replicate()] * like.device_mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor as the whole tensor on every rank (a collective); a plain
+    tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x

@@ -10,6 +10,8 @@ from repro_torch.models.model import (
     model_template,
     param_shardings,
     param_specs,
+    place,
+    place_batch,
 )
 from repro_torch.models.sharding import NO_SHARDING, ShardingRules
 
@@ -23,6 +25,8 @@ __all__ = [
     "cache_template",
     "cache_shardings",
     "model_template",
+    "place",
+    "place_batch",
     "ShardingRules",
     "NO_SHARDING",
 ]

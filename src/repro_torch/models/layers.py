@@ -15,7 +15,8 @@ back to the activations' dtype.
 
 On a decode step ``attention_layer`` writes the new K/V into the cache it is
 given and returns that cache: the port's counterpart of the reference's
-donated cache buffers (ROADMAP Queue 3).
+donated cache buffers (ROADMAP Queue 3). A DTensor cache (a data x model
+mesh) is written shard by shard: each rank writes the slots it holds.
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.compat import local_range, replicated
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.sharding import ShardingRules
 
@@ -53,9 +56,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     """x: (B, T, H, hd); positions: (T,) int32."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.exp(
+    freqs = replicated(torch.exp(
         -math.log(theta) * torch.arange(half, dtype=torch.float32, device=x.device) / half
-    )
+    ), x)
     angles = positions.float()[:, None] * freqs  # (T, half)
     cos = torch.cos(angles)[None, :, None, :]  # (1, T, 1, half)
     sin = torch.sin(angles)[None, :, None, :]
@@ -121,16 +124,17 @@ def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
             k_sl = F.pad(k_sl, (0, 0, 0, 0, 0, pad))
             v_sl = F.pad(v_sl, (0, 0, 0, 0, 0, pad))
 
-        qpos = s_q + torch.arange(cq, dtype=torch.int32, device=dev)
-        m_prev = torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=dev)
-        l_prev = torch.zeros((b, h, cq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, h, cq, hd), dtype=torch.float32, device=dev)
+        qpos = replicated(s_q + torch.arange(cq, dtype=torch.int32, device=dev), q)
+        m_prev = replicated(torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=dev), q)
+        l_prev = replicated(torch.zeros((b, h, cq), dtype=torch.float32, device=dev), q)
+        acc = replicated(torch.zeros((b, h, cq, hd), dtype=torch.float32, device=dev), q)
         for bi in range(nb):
             kblk = k_sl[:, bi * k_block:(bi + 1) * k_block]
             vblk = v_sl[:, bi * k_block:(bi + 1) * k_block]
             s = torch.einsum("bqhd,bkhd->bhqk", qc, kblk.float())
             s = _softcap(s, softcap)
-            kpos = kv_start + bi * k_block + torch.arange(k_block, dtype=torch.int32, device=dev)
+            kpos = replicated(kv_start + bi * k_block
+                              + torch.arange(k_block, dtype=torch.int32, device=dev), q)
             mask = (kpos < tk)[None, :].expand(cq, k_block)  # padding
             if causal:
                 mask = mask & (qpos[:, None] >= kpos[None, :])
@@ -163,7 +167,7 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: Optional[int],
     qs = q.float() * scale
     scores = torch.einsum("bqhd,bshd->bhqs", qs, k_cache.float())  # (B,H,1,S)
     scores = _softcap(scores, softcap)
-    idx = torch.arange(s, dtype=torch.int32, device=q.device)
+    idx = replicated(torch.arange(s, dtype=torch.int32, device=q.device), q)
     if ring:
         abs_pos = pos - torch.remainder(pos - idx, s)
         mask = (abs_pos >= 0) & (abs_pos <= pos)
@@ -182,6 +186,23 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: Optional[int],
 # --------------------------------------------------------------------------
 # attention layer (QKV/O + rope + norm)
 # --------------------------------------------------------------------------
+
+
+def write_slots(buf: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``buf[:, slot:slot + n] = new`` for (B, S, ...) ``buf`` and (B, n, ...)
+    ``new``. On a DTensor ``buf``, ``new`` is taken to ``buf``'s placements
+    with its dim 1 whole, and each rank writes the slots of dim 1 it holds
+    (DTensor's slicing of a sharded dim would gather it into a copy)."""
+    n = new.shape[1]
+    if not isinstance(buf, DTensor):
+        buf[:, slot:slot + n] = new
+        return
+    whole = [Replicate() if isinstance(q, Shard) and q.dim == 1 else q for q in buf.placements]
+    new = new.to(buf.dtype).redistribute(buf.device_mesh, whole).to_local()
+    first, count = local_range(buf, 1)
+    lo, hi = max(slot, first), min(slot + n, first + count)
+    if lo < hi:
+        buf.to_local()[:, lo - first:hi - first] = new[:, lo - slot:hi - slot]
 
 
 class AttnCache(NamedTuple):
@@ -253,8 +274,8 @@ def attention_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
         s = cache.k.shape[1]
         slot = pos % s if ring else pos
         slot = min(max(slot, 0), s - k.shape[1])
-        cache.k[:, slot:slot + k.shape[1]] = k
-        cache.v[:, slot:slot + v.shape[1]] = v
+        write_slots(cache.k, k, slot)
+        write_slots(cache.v, v, slot)
         k_c = rules.kv_cache_constraint(cache.k)
         v_c = rules.kv_cache_constraint(cache.v)
         out = decode_attention(

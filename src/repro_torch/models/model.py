@@ -14,14 +14,24 @@ Everything runs where the params and inputs live; ``init_params`` and
 ``decode_step`` writes the new K/V and states into the caches it is given
 and returns them (the port's counterpart of the reference's donated cache
 buffers).
+
+On a data x model mesh (``compat.DTensorMesh``, enabled ``ShardingRules``)
+params and caches are DTensors placed by ``place`` from ``param_shardings``
+and ``cache_shardings`` (the port's ``device_put`` with ``NamedSharding``s);
+``forward`` and ``decode_step`` place plain inputs over the data axes where
+the batch divides (``place_batch``) and return DTensor logits.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
+from repro_torch import _tree
+from repro_torch.compat import replicated
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -35,7 +45,7 @@ from repro_torch.models.layers import (
     ffn_params_template,
     rms_norm,
 )
-from repro_torch.models.sharding import ShardingRules
+from repro_torch.models.sharding import ShardingRules, check_mesh
 from repro_torch.runtime.validate import SpgemmConfigError
 
 MAX_ENCODER_POS = 32_768  # learned positions for encoder-only archs
@@ -161,6 +171,52 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float3
                 * 0.02).to(dtype)
 
     return _tree_map(init_leaf, model_template(cfg), is_leaf=_is_template_leaf)
+
+
+def place(tree, specs, mesh):
+    """Each leaf of ``tree`` as a DTensor on ``mesh`` at its spec in
+    ``specs``, a matching tree of spec tuples (``param_shardings``,
+    ``cache_shardings``, ``zero1_shardings``): a whole tensor (the same on
+    every rank) keeps this rank's slice, a DTensor is redistributed."""
+    check_mesh(mesh)
+
+    def one(spec, leaf):
+        if isinstance(leaf, DTensor):
+            return leaf.redistribute(mesh.device_mesh, mesh.placements(spec))
+        return mesh.distribute(leaf, spec)
+
+    return _tree.map_specs(one, specs, tree)
+
+
+def batch_spec(x: torch.Tensor, rules: ShardingRules) -> tuple:
+    """An input's spec: its batch dim over the data axes where it divides
+    (the reference's ``cells._resolve_dp``), else replicated."""
+    return ((rules.dp if x.shape[0] % rules.dp_size == 0 else None),) + (None,) * (x.ndim - 1)
+
+
+def place_batch(batch: dict, rules: ShardingRules, mesh) -> dict:
+    """Each plain input of ``batch`` on ``mesh`` at ``batch_spec``; DTensors
+    stay as they are."""
+    check_mesh(mesh)
+    return {k: v if isinstance(v, DTensor) else mesh.distribute(v, batch_spec(v, rules))
+            for k, v in batch.items()}
+
+
+def active_mesh(rules: ShardingRules, mesh, placed=None):
+    """The mesh the model paths run over: ``mesh`` with enabled rules (which
+    need one, and every leaf of ``placed`` a DTensor on it), else None (the
+    reference's MoE takes the local path then)."""
+    if not rules.enabled:
+        return None
+    check_mesh(mesh)
+    plain = [path for path, leaf in _tree.leaves_with_path(placed)
+             if not isinstance(leaf, DTensor)]
+    if plain:
+        raise SpgemmConfigError(
+            f"enabled sharding rules need every param and cache on the mesh, and "
+            f"{'/'.join(plain[0])} (of {len(plain)}) is a plain tensor: place them "
+            f"(models.place with param_shardings / cache_shardings)")
+    return mesh
 
 
 # --------------------------------------------------------------------------
@@ -316,16 +372,20 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig, rules: ShardingRules):
         t = x.shape[1]
         if cfg.is_encoder:
             x = x + params["pos_embed"][:t].to(COMPUTE_DTYPE)[None]
-        return x, torch.arange(t, dtype=torch.int32, device=x.device)
+        return x, replicated(torch.arange(t, dtype=torch.int32, device=x.device), x)
     tokens = batch["tokens"]
-    x = emb[tokens].to(COMPUTE_DTYPE)
+    # a gather of rows: on a vocab-sharded table each shard looks up its own
+    # rows and the rest sum in at the next constraint
+    x = F.embedding(tokens, emb).to(COMPUTE_DTYPE)
     if cfg.frontend == "vision" and "patches" in batch:
         patches = batch["patches"]  # (B, P, frontend_dim)
         pe = patches.to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
         npatch = pe.shape[1]
+        if isinstance(x, DTensor):  # the vocab shards' rows summed in first
+            x = x.redistribute(x.device_mesh, pe.placements)
         x = torch.cat([pe, x[:, npatch:]], dim=1)
     t = x.shape[1]
-    return x, torch.arange(t, dtype=torch.int32, device=x.device)
+    return x, replicated(torch.arange(t, dtype=torch.int32, device=x.device), x)
 
 
 def lm_logits(params, x, cfg: ModelConfig, rules: ShardingRules):
@@ -357,7 +417,11 @@ def forward(params, batch: dict, cfg: ModelConfig, rules: ShardingRules, *,
 
     ``remat`` recomputes each repeat's blocks in the backward pass
     (``torch.utils.checkpoint``) when autograd is recording; under
-    ``torch.no_grad()`` it changes nothing."""
+    ``torch.no_grad()`` it changes nothing. With enabled rules ``mesh`` is a
+    data x model mesh and plain inputs are placed on it."""
+    mesh = active_mesh(rules, mesh, params)
+    if mesh is not None:
+        batch = place_batch(batch, rules, mesh)
     x, positions = embed_inputs(params, batch, cfg, rules)
     x = rules.residual(x)
     max_len = max_len or x.shape[1]
@@ -402,19 +466,27 @@ def forward(params, batch: dict, cfg: ModelConfig, rules: ShardingRules, *,
 def _write_back(dest, new) -> None:
     """Copy a layer's new cache fields into the given cache's tensors where
     the layer made new ones (recurrent and SSM states); attention writes
-    its K/V in place itself."""
+    its K/V in place itself. A DTensor field keeps its placement."""
     for d, n in zip(dest, new):
-        if n is not d:
-            d.copy_(n)
+        if n is d:
+            continue
+        if isinstance(d, DTensor):
+            n = n.redistribute(d.device_mesh, d.placements)
+        d.copy_(n)
 
 
 def decode_step(params, caches, tokens, pos: int, cfg: ModelConfig,
                 rules: ShardingRules, *, mesh=None, max_len: int):
     """One decode step. tokens: (B, 1); pos: the absolute position (an int).
-    Returns (logits (B, 1, V), caches), the given caches updated in place."""
+    Returns (logits (B, 1, V), caches), the given caches updated in place.
+    With enabled rules the caches are DTensors on ``mesh``
+    (``place(..., cache_shardings(...), mesh)``)."""
+    mesh = active_mesh(rules, mesh, (params, caches))
+    if mesh is not None:
+        tokens = place_batch({"tokens": tokens}, rules, mesh)["tokens"]
     pos = int(pos)
-    x = params["embed"][tokens].to(COMPUTE_DTYPE)
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    x = F.embedding(tokens, params["embed"]).to(COMPUTE_DTYPE)
+    positions = replicated(torch.full((1,), pos, dtype=torch.int32, device=x.device), x)
     x = rules.constraint(x, (rules.dp, None, None)) if rules.enabled else x
 
     for r in range(cfg.pattern_repeats):

@@ -10,17 +10,25 @@ two-phase discipline applied to token -> expert dispatch.
 
 As in the reference, the numeric phase is plain batched products: the
 hand-written grouped matmul is reached through ``kernels.ops.expert_matmul``
-only. The expert-parallel path over a data x model mesh (the reference's
-``shard_map`` with FSDP-gathered experts) waits for that mesh and raises.
+only. On a data x model mesh (``compat.DTensorMesh``) the block is expert
+parallel, step for step the reference's ``shard_map``, here a
+``local_map``: experts over 'model', tokens over the data axes, each
+shard's capacity from its own tokens, the FSDP'd expert weights gathered
+over the data axes in bf16, the sequence-parallel tokens gathered over
+'model' on the way in; each shard's output is a partial sum over 'model'
+(its experts' share), reduce-scattered over the sequence on the way out
+(all-reduced when the sequence does not divide).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import gelu, rms_norm
-from repro_torch.models.sharding import MESH_ITEM, ShardingRules
+from repro_torch.models.sharding import ShardingRules, check_mesh
 from repro_torch.runtime.validate import SpgemmConfigError
 
 
@@ -107,11 +115,11 @@ def moe_ffn_local(x, router_w, w1, w3, w2, *, k: int, capacity: int,
 
 def moe_layer(p, x, cfg: ModelConfig, rules: ShardingRules,
               mesh=None, capacity_factor: float = 1.25):
-    """Full MoE block: norm -> expert FFN -> residual delta. x: (B, T, d).
+    """Full MoE block: norm -> EP-sharded expert FFN -> residual delta.
 
-    Without a mesh (or with sharding off): every expert on this device.
-    With a mesh and a tp axis the reference splits experts over 'model';
-    that path needs the data x model mesh and raises.
+    x: (B, T, d). With a mesh and a tp axis: experts split over 'model',
+    tokens over the data axes (the module docstring). Without a mesh, or
+    with sharding off: every expert on this device.
     """
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     b, t, d = h.shape
@@ -129,6 +137,65 @@ def moe_layer(p, x, cfg: ModelConfig, rules: ShardingRules,
             k=k, capacity=cap, num_experts=e, e_start=0, act=cfg.act,
         )
         return y.reshape(b, t, d)
-    raise SpgemmConfigError(
-        f"expert parallelism over the mesh axis {rules.tp_axis!r} needs the data x "
-        f"model mesh, which the port does not have yet ({MESH_ITEM})")
+
+    check_mesh(mesh)
+    if not isinstance(h, DTensor):
+        raise SpgemmConfigError(
+            f"expert parallelism over {rules.tp_axis!r} takes DTensor activations on the "
+            f"mesh, got a plain {tuple(h.shape)} tensor")
+    tp = rules.tp_axis
+    dp = rules.dp_axes
+    tp_size = rules.tp_size
+    if e % tp_size:
+        raise SpgemmConfigError(f"{e} experts do not split over the {tp_size} shards of {tp!r}")
+    e_local = e // tp_size
+    dp_size = 1
+    for ax in dp:
+        dp_size *= mesh.shape[ax]
+    tokens_local = (b // dp_size) * t
+    cap = capacity_for(tokens_local, e_local)
+    # FSDP on expert weights: at rest each shard holds E/tp experts'
+    # (d/dp)-slice; the full expert block is gathered over the data axes, in
+    # bf16, per layer, and its grads come back reduce-scattered
+    dp_flat = dp if len(dp) > 1 else dp[0]
+    fsdp = (d % dp_size == 0) and (cfg.moe_d_ff % dp_size == 0) and dp_size > 1
+    # sequence-parallel boundary: tokens arrive seq-sharded over 'model',
+    # gathered in, the partial sums reduce-scattered out
+    sp = t % tp_size == 0 and tp_size > 1
+    h_spec = (dp_flat, tp if sp else None, None)
+
+    def partial_over(spec, axes):
+        out = list(mesh.placements(spec))
+        for ax in axes:
+            out[mesh.axis_names.index(ax)] = Partial()
+        return tuple(out)
+
+    h_in = mesh.placements((dp_flat, None, None))
+    w_in = mesh.placements((tp, None, None))
+    rep = mesh.placements((None, None))
+    weights = [p[name].to(torch.bfloat16) if fsdp else p[name] for name in ("w1", "w3", "w2")]
+    weights = [w.redistribute(mesh.device_mesh, w_in) for w in weights]
+
+    def shard_fn(h_sh, router_w, w1, w3, w2):
+        # h_sh: (B_loc, T, d), every token of this data shard; w: (E_local, ., .)
+        e_start = mesh.local_index(tp) * e_local
+        y = moe_ffn_local(
+            h_sh.reshape(-1, d), router_w, w1, w3, w2,
+            k=k, capacity=cap, num_experts=e, e_start=e_start, act=cfg.act,
+        )
+        return y.reshape(h_sh.shape)
+
+    # each shard's output, and its grad of the tokens, are its experts'
+    # share (partial over 'model'); its grads of the router and of its
+    # experts' weights, its tokens' share (partial over the data axes)
+    w_grad = partial_over((tp, None, None), dp)
+    y = local_map(
+        shard_fn,
+        out_placements=list(partial_over((dp_flat, None, None), (tp,))),
+        in_placements=(h_in, rep, w_in, w_in, w_in),
+        in_grad_placements=(partial_over((dp_flat, None, None), (tp,)),
+                            partial_over((None, None), (*dp, tp)), w_grad, w_grad, w_grad),
+        device_mesh=mesh.device_mesh,
+    )(h.redistribute(mesh.device_mesh, h_in),
+      p["router"].redistribute(mesh.device_mesh, rep), *weights)
+    return y.redistribute(mesh.device_mesh, mesh.placements(h_spec))

@@ -12,18 +12,36 @@ A spec is a plain tuple of axis names (``None`` for a replicated dim, a
 tuple of names for a dim split over several axes), entry for entry the
 reference's ``PartitionSpec``.
 
-Placing activations needs a data x model mesh, which the port does not have
-yet (``compat.Mesh`` has one axis; ROADMAP Queue 1, the 2-D mesh). So every
-activation hook returns its input when ``enabled`` is false and raises
-``SpgemmConfigError`` where the reference would place a sharding constraint.
+Activations live on a data x model mesh as DTensors (``compat.DTensorMesh``;
+params and inputs placed by ``models.place``). ``constraint`` redistributes a
+DTensor to the spec's placements (``compat.spec_placements``), the port's
+``with_sharding_constraint``: where GSPMD takes the constraint as a hint and
+propagates, DTensor moves the data there and then. With ``enabled`` false
+every hook returns its input; with it true a plain tensor raises
+``SpgemmConfigError`` (nothing is left unplaced by accident). The model
+paths run without implicit replication: a plain tensor that meets a
+DTensor raises (DTensor's own check), and the constants they make from
+shapes alone (positions, masks, zero accumulators) are placed as
+replicated DTensors explicitly (``compat.replicated``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.compat import DTensorMesh, spec_placements
 from repro_torch.runtime.validate import SpgemmConfigError
 
-MESH_ITEM = "ROADMAP Queue 1 item 3c, the 2-D data x model mesh"
+
+def check_mesh(mesh) -> DTensorMesh:
+    """``mesh`` if it is a data x model mesh; ``SpgemmConfigError`` if not
+    (a local-stack ``compat.Mesh`` is the sharded SpGEMM's)."""
+    if not isinstance(mesh, DTensorMesh):
+        raise SpgemmConfigError(
+            f"the model paths take a data x model mesh (compat.make_device_mesh, "
+            f"launch.mesh.make_test_mesh), got {mesh!r}")
+    return mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +71,15 @@ class ShardingRules:
     def constraint(self, x, spec):
         if not self.enabled:
             return x
-        raise SpgemmConfigError(
-            f"placing an activation at {spec!r} needs the data x model mesh, "
-            f"which the port does not have yet ({MESH_ITEM}); use NO_SHARDING")
+        if not isinstance(x, DTensor):
+            raise SpgemmConfigError(
+                f"placing an activation at {spec!r} needs a DTensor on a data x model "
+                f"mesh, got a plain {tuple(x.shape)} tensor: place the params and inputs "
+                f"(models.place) or use NO_SHARDING")
+        placements = spec_placements(spec, x.device_mesh.mesh_dim_names, x.device_mesh.shape)
+        if tuple(x.placements) == placements:
+            return x
+        return x.redistribute(x.device_mesh, placements)
 
     # ---- parameter specs ----------------------------------------------
     def embed(self, vocab: int, d: int):

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import replicated
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.sharding import ShardingRules
@@ -162,8 +163,10 @@ def _ssd_chunked(dx, da, b_in, c_out, chunk: int):
         c_out = F.pad(c_out, (0, 0, 0, pad))
     tp = t + pad
     nc = tp // chunk
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dx.device))
-    state = torch.zeros((b_sz, n_heads, hd, n), dtype=torch.float32, device=dx.device)
+    tri = replicated(torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dx.device)),
+                     dx)
+    state = replicated(torch.zeros((b_sz, n_heads, hd, n), dtype=torch.float32,
+                                   device=dx.device), dx)
     ys = []
     for ci in range(nc):
         sl = slice(ci * chunk, (ci + 1) * chunk)

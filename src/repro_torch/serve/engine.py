@@ -4,7 +4,10 @@ decode with static-shape caches.
 The prefill -> decode handoff pads full-length prefill KV into the max_len
 decode buffers (ring-compacting 'local' layers to their window). Decode is
 eager: each step writes into the caches in place (the reference donates
-them to a jitted step). The engine runs where its params live.
+them to a jitted step). The engine runs where its params live; with enabled
+``rules`` on a data x model ``mesh`` the params are DTensors (``models.place``),
+prompts are placed over the data axes, the decode caches are taken to
+``cache_shardings`` after the handoff, and ``generate`` returns whole tokens.
 """
 from __future__ import annotations
 
@@ -14,10 +17,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import whole
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decode_step, forward
+from repro_torch.models import cache_shardings, decode_step, forward, place
 from repro_torch.models.layers import AttnCache
-from repro_torch.models.model import _cache_len
+from repro_torch.models.model import _cache_len, active_mesh
 from repro_torch.models.sharding import NO_SHARDING, ShardingRules
 
 
@@ -71,6 +75,7 @@ class ServeEngine:
         self.rules = rules or NO_SHARDING
         self.mesh = mesh
         self.max_len = max_len
+        active_mesh(self.rules, mesh, params)  # enabled rules: params on a data x model mesh
         self._decode = partial(decode_step, cfg=cfg, rules=self.rules, mesh=mesh,
                                max_len=max_len)
 
@@ -84,6 +89,10 @@ class ServeEngine:
             max_len=self.max_len,
         )
         caches = prefill_to_cache(caches, self.cfg, t, self.max_len)
+        if self.rules.enabled:
+            specs = cache_shardings(self.cfg, self.rules, tokens.shape[0], self.max_len,
+                                    long_context=self.rules.long_context)
+            caches = place(caches, specs, self.mesh)
         return logits[:, -1], caches, t
 
     @torch.no_grad()
@@ -91,17 +100,20 @@ class ServeEngine:
                  temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         """Greedy (or, at temperature > 0, sampled from ``generator``)
-        continuation of a (B, T) prompt batch: (B, steps) int32 tokens."""
+        continuation of a (B, T) prompt batch: (B, steps) int32 tokens. On a
+        mesh every rank samples from the whole logits, so each rank's
+        ``generator`` starts in the same state."""
         last, caches, pos = self.prefill(prompts)
         outs = []
-        tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+        tok = whole(torch.argmax(last, dim=-1)[:, None].to(torch.int32))
         for i in range(steps):
             outs.append(tok)
             logits, caches = self._decode(self.params, caches, tok, pos + i)
             lg = logits[:, 0]
             if temperature > 0:
-                probs = torch.softmax(lg.float() / temperature, dim=-1)
+                # whole logits on every rank: each draws the plain path's tokens
+                probs = torch.softmax(whole(lg).float() / temperature, dim=-1)
                 tok = torch.multinomial(probs, 1, generator=generator).to(torch.int32)
             else:
-                tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+                tok = whole(torch.argmax(lg, dim=-1)[:, None].to(torch.int32))
         return torch.cat(outs, dim=1)

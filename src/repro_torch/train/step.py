@@ -9,21 +9,29 @@ pattern repeat in the backward pass (``torch.utils.checkpoint``). With
 grads are summed ``/ n``, as the reference's ``lax.scan`` sums them. The
 update writes params and optimizer state in place (``optim.adamw_update``).
 
-A ``mesh`` or an enabled ``ShardingRules`` raises ``SpgemmConfigError``: the
-data x model mesh is not ported yet (``models/sharding.MESH_ITEM``).
+With enabled ``ShardingRules`` the step runs on a data x model mesh
+(``mesh``, a ``compat.DTensorMesh``) over DTensor params and moments; the
+batch is placed over the data axes where it divides. The gradient's
+reduction over the data axes is DTensor's backward (a replicated param's
+grad comes back a partial sum, reduced where the update takes it to its
+moment's placement), as GSPMD inserts it in the reference. The metrics are
+whole on every rank.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import _tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import forward
-from repro_torch.models.sharding import MESH_ITEM, ShardingRules
-from repro_torch.runtime.validate import SpgemmConfigError
-from repro_torch.train.optim import AdamWConfig, adamw_update
+from repro_torch.compat import local_range, whole
+from repro_torch.models import forward, place_batch
+from repro_torch.models.model import active_mesh
+from repro_torch.models.sharding import ShardingRules
+from repro_torch.train.optim import AdamWConfig, adamw_update, as_placed
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -34,20 +42,43 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     lf = logits.to(torch.float32)
     m = torch.amax(lf, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    gold = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
+    if isinstance(lf, DTensor):
+        gold = _gather_sharded(lf, labels)
+    else:
+        gold = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
     return torch.mean(lse - gold)
 
 
-def _check_mesh(rules: ShardingRules, mesh) -> None:
-    if mesh is not None or rules.enabled:
-        raise SpgemmConfigError(
-            f"a training step over a mesh or with enabled sharding rules needs the data x "
-            f"model mesh, which the port does not have yet ({MESH_ITEM}); use NO_SHARDING")
+def _gather_sharded(lf, labels):
+    """``lf[..., labels]`` on DTensor logits, shard-local (``local_map``):
+    each shard gathers the labels in the vocab range it holds, zero
+    elsewhere, and the shards' values are a partial sum over the vocab's
+    mesh axes, as GSPMD gathers from a sharded dim. (DTensor's own gather
+    gives a masked partial sum that it fails to reduce into a sharded
+    placement: ROADMAP Queue 3 item 11.)"""
+    mesh, v = lf.device_mesh, lf.ndim - 1
+    vocab_axes = {i for i, q in enumerate(lf.placements) if isinstance(q, Shard) and q.dim == v}
+    lab_pl = tuple(Replicate() if i in vocab_axes else q for i, q in enumerate(lf.placements))
+    out_pl = tuple(Partial() if i in vocab_axes else q for i, q in enumerate(lf.placements))
+    first, count = local_range(lf, v)
+
+    def local(lf_l, lab_l):
+        idx = lab_l.to(torch.int64) - first
+        held = (idx >= 0) & (idx < count)
+        got = torch.gather(lf_l, -1, idx.clamp(0, max(count - 1, 0))[..., None])[..., 0]
+        return torch.where(held, got, 0.0)
+
+    labels = labels.redistribute(mesh, lab_pl) if isinstance(labels, DTensor) \
+        else DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim)
+    return local_map(local, out_placements=list(out_pl), in_placements=(lf.placements, lab_pl),
+                     in_grad_placements=(lf.placements, lab_pl), device_mesh=mesh)(lf, labels)
 
 
 def _grads_one(params, batch: dict, cfg: ModelConfig, rules: ShardingRules, mesh):
     """(loss, grads as a list in leaf order) of one batch."""
     leaves = _tree.leaves(params)
+    if mesh is not None:
+        batch = place_batch(batch, rules, mesh)
     with torch.enable_grad():
         live = [p.detach().requires_grad_(True) for p in leaves]
         logits, _ = forward(_tree.unflatten(params, live), batch, cfg, rules, mesh=mesh,
@@ -63,22 +94,23 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, rules: ShardingRules, 
                    mesh=None, num_microbatches: int = 1):
     """(loss, grads): the reference's ``value_and_grad`` of the step's loss,
     grads as a tree like ``params`` (the params' dtype; f32 when summed
-    over microbatches)."""
-    _check_mesh(rules, mesh)
+    over microbatches). On a mesh the loss is whole and each grad a DTensor
+    (a partial sum over the data axes where its param is replicated)."""
+    mesh = active_mesh(rules, mesh)
     if num_microbatches <= 1:
         loss, grads = _grads_one(params, batch, cfg, rules, mesh)
-        return loss, _tree.unflatten(params, grads)
+        return whole(loss), _tree.unflatten(params, grads)
     n = num_microbatches
     mbs = [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
            for i in range(n)]
     leaves = _tree.leaves(params)
     loss_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    grad_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+    grad_acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
     for mb in mbs:
         loss, grads = _grads_one(params, mb, cfg, rules, mesh)
-        loss_acc = loss_acc + loss / n
+        loss_acc = loss_acc + whole(loss) / n
         for acc, g in zip(grad_acc, grads):
-            acc.add_(g.to(torch.float32) / n)
+            acc.add_(as_placed(g, acc).to(torch.float32) / n)
         del grads
     return loss_acc, _tree.unflatten(params, grad_acc)
 
@@ -98,7 +130,7 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
                     opt_cfg: Optional[AdamWConfig] = None, *, mesh=None,
                     num_microbatches: int = 1):
     opt_cfg = opt_cfg or AdamWConfig()
-    _check_mesh(rules, mesh)
+    mesh = active_mesh(rules, mesh)
 
     def fn(params, opt_state, batch):
         return train_step(params, opt_state, batch, cfg, rules, opt_cfg, mesh=mesh,

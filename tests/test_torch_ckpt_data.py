@@ -23,14 +23,18 @@ from repro import data as jdata
 from repro.train import optim as joptim
 from repro_torch import _tree, convert
 from repro_torch.ckpt import latest_step, restore, save
+from repro_torch.compat import NamedSharding
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset, TokenFileDataset, make_labels
 from repro_torch.launch import train as launcher
+from repro_torch.launch.mesh import rules_for_mesh
 from repro_torch.models import NO_SHARDING, init_params, param_shardings
 from repro_torch.runtime.validate import SpgemmConfigError
 from repro_torch.train import AdamWConfig, OptState, adamw_init, make_train_step
 
-from torch_lm_common import np_params, to_jax, to_port
+from torch.distributed.tensor import DTensor
+
+from torch_lm_common import np_params, one_rank_mesh, to_jax, to_port
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -194,16 +198,29 @@ def test_port_restores_reference_bf16_checkpoints(tmp_path):
 
 
 def test_restore_places_leaves_and_refuses_spec_shardings(tmp_path):
+    """Devices and NamedShardings on a mesh place leaves; a bare spec (no
+    mesh) is refused."""
     cfg = get_config("llama3.2-1b", smoke=True)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     save(str(tmp_path), 1, params)
     devices = _tree.tree_map(lambda _: torch.device("cpu"), params)
     got, _ = restore(str(tmp_path), 1, params, shardings=devices)
     assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(got), _tree.leaves(params)))
-    with pytest.raises(SpgemmConfigError, match="mesh"):
+    with pytest.raises(SpgemmConfigError, match="NamedSharding"):
         restore(str(tmp_path), 1, params, shardings=param_shardings(cfg, NO_SHARDING))
     with pytest.raises(KeyError, match="missing leaf"):
         restore(str(tmp_path), 1, {"other": params["embed"]})
+    with one_rank_mesh(tmp_path) as mesh:
+        specs = param_shardings(cfg, rules_for_mesh(mesh))
+        named = _tree.map_specs(lambda spec, _: NamedSharding(mesh, spec), specs, params)
+        got, _ = restore(str(tmp_path), 1, params, shardings=named)
+        for (path, a), b in zip(_tree.leaves_with_path(got), _tree.leaves(params)):
+            assert isinstance(a, DTensor) and torch.equal(a.full_tensor(), b), path
+        assert [tuple(a.placements) for a in _tree.leaves(got)] == [
+            tuple(n.placements) for n in _tree.leaves(named)]
+        save(str(tmp_path / "placed"), 2, got)
+        again, _ = restore(str(tmp_path / "placed"), 2, params)
+        assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(again), _tree.leaves(params)))
 
 
 def _setup(seed=0):

@@ -33,7 +33,9 @@ from repro_torch.models import sharding as tsh
 from repro_torch.models import ssm as tssm
 from repro_torch.runtime.validate import SpgemmConfigError
 
-from torch_lm_common import assert_close, max_err, np_params
+from torch.distributed.tensor import DTensor
+
+from torch_lm_common import assert_close, max_err, np_params, one_rank_mesh
 
 RTOL = 1e-5
 
@@ -394,20 +396,33 @@ def _fields(cls):
     return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
 
-def test_sharding_hooks_pass_through_when_off_and_raise_when_on():
+def test_sharding_hooks_pass_through_when_off_and_raise_when_on(tmp_path):
+    """Off, every hook returns its input; on, a plain tensor raises and a
+    DTensor on a mesh is placed at the hook's spec."""
     x3, x4 = torch.zeros(2, 32, 8), torch.zeros(2, 32, 4, 8)
     off = tsh.NO_SHARDING
     for got, x in ((off.residual(x3), x3), (off.attn_activations(x4, 4), x4),
                    (off.attn_kv(x4, 4), x4), (off.kv_cache_constraint(x4), x4),
                    (off.logits(x3), x3), (off.constraint(x3, (None,)), x3)):
         assert got is x
-    on, dec = tsh.ShardingRules(), tsh.ShardingRules(decode=True)
+    on, dec = tsh.ShardingRules(tp_size=1), tsh.ShardingRules(tp_size=1, decode=True)
     calls = [lambda: on.residual(x3), lambda: on.attn_activations(x4, 16),
              lambda: on.attn_activations(x4, 28), lambda: on.attn_kv(x4, 16),
              lambda: dec.kv_cache_constraint(x4), lambda: on.logits(x3),
              lambda: on.constraint(x3, (None, None, None))]
     for call in calls:
-        with pytest.raises(SpgemmConfigError, match="2-D data x model mesh"):
+        with pytest.raises(SpgemmConfigError, match="DTensor on a data x model mesh"):
             call()
     # where the reference places nothing, neither does the port
     assert on.kv_cache_constraint(x4) is x4 and on.residual(torch.zeros(3)).ndim == 1
+    with one_rank_mesh(tmp_path) as mesh:
+        d3, d4 = (mesh.distribute(x, (None,) * x.ndim) for x in (x3, x4))
+        for got, spec in ((on.residual(d3), ("data", "model", None)),
+                          (on.attn_activations(d4, 1), ("data", None, "model", None)),
+                          (on.attn_kv(d4, 1), ("data", None, "model", None)),
+                          (dec.attn_activations(d4, 1), ("data", None, None, None)),
+                          (dec.kv_cache_constraint(d4), ("data", "model", None, None)),
+                          (on.logits(d3), ("data", None, "model"))):
+            # one shard an axis: the same layout as Replicate (compat.spec_placements)
+            assert isinstance(got, DTensor) and tuple(got.placements) == mesh.placements(spec)
+            assert torch.equal(got.full_tensor(), torch.zeros(got.shape))

@@ -11,6 +11,8 @@ held to the reference's logits: each is the reference's argmax, or within
 come from a ``torch.Generator`` and are not the reference's (ROADMAP Queue
 3); they are held to be repeatable under one seed.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +25,12 @@ from repro.serve import engine as jeng
 import repro_torch.models as tm
 from repro_torch import compat, convert
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import rules_for_mesh
 from repro_torch.models import moe as tmoe
 from repro_torch.runtime.validate import SpgemmConfigError
 from repro_torch.serve import ServeEngine, prefill_to_cache
 
-from torch_lm_common import max_err, np_params, to_jax, to_port
+from torch_lm_common import max_err, np_params, one_rank_mesh, to_jax, to_port
 
 LOGIT_TOL = 0.03
 REF_TOL = 0.15  # the reference's tests/test_serve.py bound
@@ -186,21 +189,45 @@ def test_sampled_generate_repeats_under_one_generator():
     assert not torch.equal(runs[0], greedy)
 
 
-def test_mesh_paths_and_enabled_hooks_raise_typed_errors():
+def test_mesh_paths_and_enabled_hooks_raise_typed_errors(tmp_path):
+    """Enabled rules without a data x model mesh, or with unplaced params,
+    raise typed errors; on a one-shard mesh the expert-parallel MoE block,
+    forward and the engine give the plain results."""
     cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
     params = tm.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    params["blocks"][0]["moe"]["router"].normal_(0.0, 0.5, generator=torch.Generator().manual_seed(4))
     toks = torch.from_numpy(_tokens(cfg, 2, 16, 10))
-    mesh = compat.make_mesh((2,), ("data",), device="cpu")
+    local = compat.make_mesh((2,), ("data",), device="cpu")
     p_moe = jax.tree.map(lambda x: x[0], params["blocks"][0]["moe"])
-    x = torch.zeros((2, 16, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(SpgemmConfigError, match="2-D data x model mesh"):
-        tmoe.moe_layer(p_moe, x, cfg, tm.ShardingRules(), mesh=mesh)
+    x = torch.randn((2, 16, cfg.d_model), generator=torch.Generator().manual_seed(5)).to(torch.bfloat16)
+    with pytest.raises(SpgemmConfigError, match="data x model mesh"):
+        tmoe.moe_layer(p_moe, x, cfg, tm.ShardingRules(), mesh=local)
     # without a mesh, or with sharding off, the single-device path runs
-    assert tmoe.moe_layer(p_moe, x, cfg, tm.NO_SHARDING, mesh=mesh).shape == x.shape
-    with pytest.raises(SpgemmConfigError, match="2-D data x model mesh"):
+    want = tmoe.moe_layer(p_moe, x, cfg, tm.NO_SHARDING, mesh=local)
+    assert want.shape == x.shape
+    with pytest.raises(SpgemmConfigError, match="mesh"):
         tm.forward(params, {"tokens": toks}, cfg, tm.ShardingRules(), remat=False)
-    with pytest.raises(SpgemmConfigError, match="2-D data x model mesh"):
+    with pytest.raises(SpgemmConfigError, match="mesh"):
         ServeEngine(params, cfg, rules=tm.ShardingRules(decode=True)).generate(toks, 2)
     cache = tm.init_cache(cfg, 2, 20, device="cpu")
     with pytest.raises(SpgemmConfigError):
         tm.decode_step(params, cache, toks[:, :1], 0, cfg, tm.ShardingRules(), max_len=20)
+    with one_rank_mesh(tmp_path) as mesh:
+        rules = rules_for_mesh(mesh)
+        with pytest.raises(SpgemmConfigError, match="plain"):
+            tmoe.moe_layer(p_moe, x, cfg, rules, mesh=mesh)
+        with pytest.raises(SpgemmConfigError, match="plain tensor"):
+            ServeEngine(params, cfg, rules=rules, mesh=mesh)
+        specs = tm.param_shardings(cfg, rules)
+        placed = tm.place(params, specs, mesh)
+        moe_specs = jax.tree.map(lambda s: s[1:], specs["blocks"][0]["moe"],
+                                 is_leaf=lambda s: isinstance(s, tuple))
+        got = tmoe.moe_layer(tm.place(p_moe, moe_specs, mesh), mesh.distribute(x, (None,) * 3),
+                             cfg, rules, mesh=mesh)
+        assert torch.equal(got.full_tensor(), want)
+        logits, _ = tm.forward(placed, {"tokens": toks}, cfg, rules, mesh=mesh, remat=False)
+        plain, _ = tm.forward(params, {"tokens": toks}, cfg, tm.NO_SHARDING, remat=False)
+        assert torch.equal(logits.full_tensor(), plain)
+        dec = dataclasses.replace(rules, decode=True)
+        got = ServeEngine(placed, cfg, rules=dec, mesh=mesh, max_len=24).generate(toks, 4)
+        assert torch.equal(got, ServeEngine(params, cfg, max_len=24).generate(toks, 4))

@@ -41,9 +41,10 @@ from repro.train import optim as joptim
 from repro.train import step as jstep
 import repro_torch.models as tm
 import repro_torch.models.model as tmm
-from repro_torch import _tree
+from repro_torch import _tree, compat
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset
+from repro_torch.launch.mesh import rules_for_mesh
 from repro_torch.runtime.validate import SpgemmConfigError
 from repro_torch.train import (AdamWConfig, OptState, adamw_init, adamw_update,
                                cross_entropy_loss, make_train_step, train_step,
@@ -51,7 +52,8 @@ from repro_torch.train import (AdamWConfig, OptState, adamw_init, adamw_update,
 from repro_torch.train import optim as toptim
 from repro_torch.train.step import loss_and_grads
 
-from torch_lm_common import assert_close, np_batch, np_params, to_jax, to_port
+from torch_lm_common import (assert_close, np_batch, np_params, one_rank_mesh, to_jax,
+                             to_port)
 
 B, T = 2, 16
 GRAD_RTOL_F32 = 1e-5
@@ -393,18 +395,35 @@ def test_microbatches_match_reference():
     assert worst <= UPDATE_RTOL, (where, worst)
 
 
-def test_mesh_and_enabled_rules_raise_typed_errors():
+def test_mesh_and_enabled_rules_raise_typed_errors(tmp_path):
+    """Enabled rules need a data x model mesh and params placed on it (typed
+    errors otherwise); on a one-shard mesh the step is the plain one."""
     cfg = get_config("llama3.2-1b", smoke=True)
     params = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     batch = _t(_batch(cfg, 1))
+    local = compat.make_mesh((2,), ("data",), device="cpu")
     with pytest.raises(SpgemmConfigError, match="mesh"):
-        make_train_step(cfg, tm.NO_SHARDING, mesh=object())
-    with pytest.raises(SpgemmConfigError):
-        make_train_step(cfg, tm.ShardingRules())
+        make_train_step(cfg, tm.ShardingRules(), mesh=None)
+    with pytest.raises(SpgemmConfigError, match="data x model mesh"):
+        make_train_step(cfg, tm.ShardingRules(), mesh=local)
     with pytest.raises(SpgemmConfigError):
         train_step(params, adamw_init(params), batch, cfg, tm.ShardingRules(), AdamWConfig())
-    with pytest.raises(SpgemmConfigError):
-        loss_and_grads(params, batch, cfg, tm.NO_SHARDING, mesh=object())
+    with pytest.raises(SpgemmConfigError, match="data x model mesh"):
+        loss_and_grads(params, batch, cfg, tm.ShardingRules(), mesh=object())
+    with one_rank_mesh(tmp_path) as mesh:
+        rules = rules_for_mesh(mesh)
+        with pytest.raises(SpgemmConfigError, match="plain tensor"):
+            loss_and_grads(params, batch, cfg, rules, mesh=mesh)
+        specs = tm.param_shardings(cfg, rules)
+        placed = tm.place(_tree.tree_map(torch.clone, params), specs, mesh)
+        zero1 = zero1_shardings(specs, rules.dp_axes, mesh.shape, tm.param_specs(cfg, rules))
+        opt = adamw_init(placed, mesh, zero1)
+        got, _, gm = make_train_step(cfg, rules, AdamWConfig(), mesh=mesh)(placed, opt, batch)
+        want, _, wm = make_train_step(cfg, tm.NO_SHARDING, AdamWConfig())(
+            params, adamw_init(params), batch)
+        assert float(gm["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-6)
+        for a, b in zip(_tree.leaves(got), _tree.leaves(want)):
+            torch.testing.assert_close(a.full_tensor(), b, rtol=1e-5, atol=1e-7)
 
 
 # --------------------------------------------------------------------------

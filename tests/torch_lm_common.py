@@ -1,10 +1,13 @@
 """Shared inputs for the LM substrate's parity tests (``test_torch_models*``,
 ``test_torch_serve_engine``): seeded numpy params and batches that go into
 the reference and, through ``repro_torch.convert``, into the port."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.models.model import _is_template_leaf, model_template
@@ -70,3 +73,18 @@ def assert_close(got, want, rtol: float, what: str = "") -> float:
     bound = rtol * max(scale, 1e-30)
     assert err <= bound, f"{what}: max |diff| {err:.3e} > {rtol:g} x scale {scale:.3e}"
     return err / bound
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path, shape=(1, 1)):
+    """A data x model mesh of ``shape`` (one shard) over a one-rank gloo
+    group in this process, through a ``file://`` rendezvous under
+    ``tmp_path``; the group is destroyed on leaving."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        yield make_test_mesh(shape)
+    finally:
+        dist.destroy_process_group()
