@@ -207,7 +207,21 @@ Phases, in order:
      the plain step's (CUDA events, medians of steps 2-4) and phase 18's, and
      its idle share from one torch.profiler step: DTensor's host cost; (e) no
      kernel launch across the phase (checked);
- 20. one JSON line of the kernels (K1 and K2 with their batched launches'
+ 20. the dry run (repro_torch.launch: op_cost, roofline, cells, dryrun,
+     reanalyze, report), which launches no kernel (checked): (a) op_cost's
+     count of phase 18's own program (the llama3.2-1b train step at 8 x
+     1,024, f32 params) on meta tensors, no mesh: the bf16 GEMM flops within
+     DRYRUN_GEMM_RTOL of lm_train_bound's, the f32 flops at least the
+     attention's live pairs', the predicted peak within DRYRUN_PEAK_RTOL of
+     phase 18's measured peak, the roofline's time at most phase 18's
+     measured step (the ratio logged); (b) python -m
+     repro_torch.launch.dryrun in one subprocess a cell of DRYRUN_CELLS,
+     side by side, no card visible (a fake group cannot live beside phase
+     19's NCCL group), at full width on the 16 x 16 fake mesh: every record
+     ok, report.py's roofline table rendering each, each cell's seconds and
+     per-rank peak against the card's 80 GiB; (c) reanalyze over (b)'s
+     records and op counts: the same roofline columns;
+ 21. one JSON line of the kernels (K1 and K2 with their batched launches'
      times, launches and shape, K1 with its sharded launches); the last
      line is the result.
 
@@ -261,8 +275,20 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the H100's datasheet peaks and the LM paths' bounds: one definition, which
+# the dry run's roofline (phase 20) shares
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_FLOPS_PER_S,
+    F32_FLOPS_PER_S,
+    HBM_BYTES_PER_S,
+    lm_bytes,
+    lm_decode_bound,
+    lm_prefill_bound,
+    lm_train_bound,
+    live_pairs,
+)
+
 F32_TOL = (1e-4, 1e-6)  # |kernel - plain| <= 1e-4 * S + 1e-6 (atomics reorder adds)
 BF16_TOL = (8e-3, 1e-6)  # one bf16 ulp of the result
 
@@ -1712,7 +1738,6 @@ K8_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2, torch.float16: 5e-2}
 # a kernel that drops a key stage. Bounds: 4-10x the worst measured on an
 # H100 (phases 2 and 12): bf16 2.3e-3, f16 2.9e-4, f32 1.1e-6.
 K8_FRO = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (and f16) tensor-core peak
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
@@ -2049,14 +2074,6 @@ def attention_shapes(rt) -> list:
     shapes.append(("llama3.2-1b bf16", lla, dict(causal=True), torch.bfloat16, True))
     shapes.append(("qwen3-moe-30b-a3b bf16", qwe, dict(causal=True), torch.bfloat16, True))
     return shapes
-
-
-def live_pairs(t, causal, window) -> int:
-    """(query, key) pairs that a causal / windowed mask leaves live, T x T."""
-    q = np.arange(t, dtype=np.int64)
-    hi = q if causal else np.full(t, t - 1)
-    lo = np.zeros(t, np.int64) if window is None else np.maximum(0, q - window + 1)
-    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def phase_attention(rt, km, seed: int, out: dict, t=ATTN_T, dev="cuda") -> None:
@@ -3410,93 +3427,11 @@ def lm_params(lm, cfg, seed: int, dev, dtype=torch.bfloat16):
     return params
 
 
-def lm_matmul_flops(cfg, tokens: int) -> int:
-    """bf16 matmul operations of a forward over ``tokens`` tokens (no
-    patches): 2 x the weights each token multiplies, from the config's own
-    count (MoE at its active experts; norms and biases left out)."""
-    n = cfg.active_param_count()
-    if not cfg.tie_embeddings:
-        n -= cfg.vocab_size * cfg.d_model  # the token embedding is a gather
-    if cfg.is_encoder:
-        n -= 32_768 * cfg.d_model  # the learned positions too
-    if cfg.frontend == "vision":
-        n -= cfg.frontend_dim * cfg.d_model  # patches, not tokens
-    return 2 * n * tokens
-
-
-def lm_attention_flops(cfg, b: int, t: int) -> int:
-    """f32 operations of the blockwise attention over the live (query, key)
-    pairs of a T-token forward: q.k and p.v, 2 x head_dim each a pair and a
-    head, summed over the attention layers."""
-    kinds = list(cfg.pattern) * cfg.pattern_repeats + list(cfg.tail)
-    total = 0
-    for kind in kinds:
-        if kind in ("attn", "local", "global", "moe"):
-            window = cfg.window if kind == "local" else None
-            total += (4 * b * cfg.num_heads * cfg.resolved_head_dim
-                      * live_pairs(t, cfg.causal, window))
-    return total
-
-
-def lm_bytes(tree) -> int:
-    return sum(x.numel() * x.element_size() for x in lm_leaves(tree))
-
-
-def lm_read_bytes(cfg, params, rows: int, t: int, expert_share: float) -> int:
-    """Param bytes a pass must read: every weight once, but the gathered
-    tables at the rows gathered (``rows`` distinct tokens of an untied
-    embedding, ``t`` of the encoder's positions; an audio model reads no
-    token row) and the MoE experts at the share the routing used."""
-    total = lm_bytes(params)
-    row = cfg.d_model * params["embed"].element_size()
-    if cfg.frontend == "audio":
-        total -= cfg.vocab_size * row + (params["pos_embed"].shape[0] - t) * row
-    elif not cfg.tie_embeddings:
-        total -= (cfg.vocab_size - rows) * row
-    for kind, blk in zip(cfg.pattern, params["blocks"]):
-        if kind == "moe":
-            total -= (1 - expert_share) * lm_bytes([blk["moe"][w] for w in ("w1", "w3", "w2")])
-    return int(total)
-
-
 def lm_expert_share(cfg, calls) -> float:
     """Mean share of the experts that the recorded routing calls used."""
     if not calls:
         return 1.0
     return sum(int(torch.unique(ids).numel()) for _, ids, _ in calls) / (len(calls) * cfg.num_experts)
-
-
-def lm_prefill_bound(cfg, params, tokens, expert_share=1.0) -> tuple:
-    """(bound ms, 'bytes' or 'operations') of a prefill of ``tokens`` (B, T):
-    the params it reads and the (B, T, V) bf16 logits written at 3.35 TB/s,
-    against the bf16 matmuls at 989 TFLOP/s plus the f32 attention over the
-    live pairs at 67 TFLOP/s."""
-    b, t = tokens.shape[:2]
-    rows = int(torch.unique(tokens).numel()) if tokens.dtype == torch.int32 else 0
-    t_bytes = ((lm_read_bytes(cfg, params, rows, t, expert_share) + b * t * cfg.vocab_size * 2)
-               / HBM_BYTES_PER_S * 1e3)
-    t_ops = (lm_matmul_flops(cfg, b * t) / BF16_FLOPS_PER_S
-             + lm_attention_flops(cfg, b, t) / F32_FLOPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def lm_decode_bound(cfg, params, caches, tok, pos: int, expert_share: float) -> tuple:
-    """(bound ms, kind) of one decode step at ``pos``: the params it reads,
-    the live slots of each KV cache (positions <= pos) and the recurrent
-    states once, the logits written; against the matmuls of B tokens."""
-    b = tok.shape[0]
-    cache = 0
-    for c in caches["blocks"] + caches["tail"]:
-        nbytes = lm_bytes(c)
-        if type(c).__name__ == "AttnCache":  # (..., S, Hkv, hd)
-            s = c.k.shape[-3]
-            nbytes = nbytes * min(pos + 1, s) // s
-        cache += nbytes
-    rows = int(torch.unique(tok).numel())
-    t_bytes = ((lm_read_bytes(cfg, params, rows, 1, expert_share) + cache
-                + b * cfg.vocab_size * 2) / HBM_BYTES_PER_S * 1e3)
-    t_ops = lm_matmul_flops(cfg, b) / BF16_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def lm_decode_logits(lm, eng, prompts, tokens):
@@ -3873,27 +3808,6 @@ TRAIN_RUNS = {"gemma2-9b": (2, 512), "recurrentgemma-9b": (2, 512), "mamba2-2.7b
               "qwen3-moe-235b-a22b": (2, 512), "phi-3-vision-4.2b": (2, 1024),
               "hubert-xlarge": (2, 1024)}
 GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
-ADAMW_BYTES = 28  # a param's AdamW traffic in f32: p, g, m, v read, p, m, v written
-
-
-def lm_train_bound(cfg, params, b: int, t: int) -> tuple:
-    """(bound ms, 'operations' or 'bytes', parts) of one training step on B x
-    T tokens with remat: the blocks' bf16 matmuls forward, recomputed and
-    backward (4 x their forward), the head's (3 x: it is not recomputed) at
-    989 TFLOP/s, the f32 attention over the live pairs 4 x at 67 TFLOP/s,
-    then AdamW's 28 B a param at 3.35 TB/s. The update runs after the
-    backward pass, so the two parts' bounds add; the larger names the kind."""
-    tokens = b * t
-    head = 2 * cfg.vocab_size * cfg.d_model * tokens
-    blocks = lm_matmul_flops(cfg, tokens) - head
-    gemm = (4 * blocks + 3 * head) / BF16_FLOPS_PER_S * 1e3
-    attn = 4 * lm_attention_flops(cfg, b, t) / F32_FLOPS_PER_S * 1e3
-    n = sum(x.numel() for x in lm_leaves(params))
-    adamw = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
-    parts = {"bf16_gemm_ms": gemm, "f32_attention_ms": attn, "adamw_ms": adamw,
-             "bf16_tflop": (4 * blocks + 3 * head) / 1e12,
-             "f32_attention_tflop": 4 * lm_attention_flops(cfg, b, t) / 1e12}
-    return gemm + attn + adamw, ("operations" if gemm + attn >= adamw else "bytes"), parts
 
 
 def timed_call(fn) -> tuple:
@@ -4634,6 +4548,181 @@ def phase_mesh(lm, tr, ms, km, seed: int, smi: str, root: Path, plain_ms_18, dev
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 20: the dry run (launch/op_cost, roofline, cells, dryrun, reanalyze,
+# report) held against the card: op counts of meta runs, no kernel launch
+# ---------------------------------------------------------------------------
+
+# (b)'s cells at full width on the 16 x 16 fake mesh: the llama step and
+# decode, the MoE step (microbatches split from a data-sharded batch), and
+# a batch-1 long-context decode (a batch the data axis does not split)
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"),
+                ("qwen3-moe-30b-a3b", "train_4k"), ("gemma2-9b", "long_500k"))
+DRYRUN_GEMM_RTOL = 0.02  # counted bf16 GEMM flops against lm_train_bound's
+DRYRUN_PEAK_RTOL = 0.10  # predicted peak against phase 18's measured one
+DRYRUN_COLUMNS = ("hlo_flops_per_chip", "hlo_bytes_per_chip", "model_flops", "t_compute_s",
+                  "t_memory_s", "t_collective_s", "dominant", "useful_flops_ratio",
+                  "roofline_fraction", "coll_breakdown")
+CARD_GIB = 80  # the H100's HBM
+
+
+def phase_dryrun_calibrate(lm, tr, dr, llama18: dict, smi: str, smoke, b, t, out):
+    """(a) op_cost.count_ops on phase 18's program on meta, no mesh."""
+    cfg = lm.get_config("llama3.2-1b", smoke=smoke)
+    rules = lm.models.NO_SHARDING
+    params = lm.models.param_specs(cfg, rules, dtype=torch.float32)
+    opt = tr.train.adamw_init(params)
+    batch = {k: torch.empty((b, t), dtype=torch.int32, device="meta") for k in ("tokens", "labels")}
+    step = tr.train.make_train_step(cfg, rules, tr.train.AdamWConfig(lr=1e-3, warmup_steps=2))
+    t0 = time.perf_counter()
+    _, cost = dr.op_cost.count_ops(step, params, opt, batch)
+    secs = time.perf_counter() - t0
+    bound, _, parts = lm_train_bound(cfg, params, b, t)
+    gemm = cost.flops_bf16 / 1e12
+    terms = dr.roofline.terms(cost.flops_bf16, cost.flops_f32, cost.bytes, cost.link_bytes)
+    roof_ms = max(terms) * 1e3
+    peak = cost.peak_bytes / 2**30
+    a = out["calibration"] = {
+        "meta_s": secs, "bf16_tflop": gemm, "bound_bf16_tflop": parts["bf16_tflop"],
+        "f32_tflop": cost.flops_f32 / 1e12, "f32_attention_tflop": parts["f32_attention_tflop"],
+        "peak_gib": peak, "argument_gib": cost.argument_bytes / 2**30,
+        "temp_gib": cost.temp_bytes / 2**30, "measured_peak_gib": llama18["peak_gib"],
+        "terms_ms": [x * 1e3 for x in terms], "roofline_ms": roof_ms,
+        "measured_step_ms": llama18["step_ms"], "bound_ms": bound}
+    log(f"   (a) {cfg.name} train_step at {b} x {t}, f32 params, on meta ({secs:.2f} s): "
+        f"bf16 GEMMs {gemm:.4f} TFLOP against lm_train_bound's {parts['bf16_tflop']:.4f} "
+        f"({gemm / parts['bf16_tflop'] - 1:+.4f}); f32 {a['f32_tflop']:.4f} TFLOP against "
+        f"the live pairs' {parts['f32_attention_tflop']:.4f} (the diagonal blocks' masked "
+        f"pairs are computed)")
+    log(f"      peak {peak:.3f} GiB predicted (arguments {a['argument_gib']:.3f}, temps "
+        f"{a['temp_gib']:.3f}) against {llama18['peak_gib']:.3f} GiB measured in phase 18 "
+        f"({peak / llama18['peak_gib'] - 1:+.4f}; {smi})")
+    log(f"      roofline terms: compute {terms[0] * 1e3:.3f} ms, memory {terms[1] * 1e3:.3f} "
+        f"ms, collective {terms[2] * 1e3:.3f} ms; the step took {llama18['step_ms']:.3f} ms, "
+        f"{llama18['step_ms'] / roof_ms:.3f} x the roofline ({smi})")
+    require(abs(gemm / parts["bf16_tflop"] - 1) <= DRYRUN_GEMM_RTOL,
+            f"the counted bf16 GEMM flops {gemm:.4f} TFLOP are not within {DRYRUN_GEMM_RTOL} "
+            f"of lm_train_bound's {parts['bf16_tflop']:.4f}")
+    require(a["f32_tflop"] >= parts["f32_attention_tflop"],
+            f"the counted f32 flops {a['f32_tflop']:.4f} TFLOP are below the attention's live "
+            f"pairs' {parts['f32_attention_tflop']:.4f}")
+    require(abs(peak / llama18["peak_gib"] - 1) <= DRYRUN_PEAK_RTOL,
+            f"the predicted peak {peak:.3f} GiB is not within {DRYRUN_PEAK_RTOL} of the "
+            f"measured {llama18['peak_gib']:.3f} GiB")
+    require(roof_ms <= llama18["step_ms"], f"the roofline's {roof_ms:.3f} ms is above the "
+                                           f"measured step's {llama18['step_ms']:.3f} ms")
+
+
+def phase_dryrun_survey(dr, root: Path, cells, out, timeout_s=900) -> Path:
+    """(b) python -m repro_torch.launch.dryrun in subprocesses (a fake group
+    cannot live beside phase 19's NCCL group), one a cell, side by side,
+    no card visible; the records ok, python -m repro_torch.launch.report
+    --section roofline renders them. Returns the directory of records and
+    op counts."""
+    import os
+    import shutil
+
+    work = root / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # meta tensors compute nothing: one thread a process, no card
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(root / "src"))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for arch, shape in cells:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape, "--out", str(work / f"{arch}__{shape}.jsonl"), "--ops-dir",
+                   str(work / "ops")]
+            log_file = open(work / f"{arch}__{shape}.log", "w")
+            procs.append((arch, shape, log_file, subprocess.Popen(
+                cmd, cwd=root, env=env, stdout=log_file, stderr=subprocess.STDOUT)))
+        for arch, shape, log_file, p in procs:
+            rc = p.wait(timeout=max(timeout_s - (time.perf_counter() - t0), 1))
+            log_file.close()
+            tail = (work / f"{arch}__{shape}.log").read_text()[-3000:]
+            require(rc == 0, f"the dry run of {arch} x {shape} exited {rc}:\n{tail}")
+    finally:
+        for *_, log_file, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_file.close()
+    wall = time.perf_counter() - t0
+    recs = []
+    for arch, shape in cells:
+        rec = [json.loads(x) for x in (work / f"{arch}__{shape}.jsonl").read_text().splitlines()]
+        require(len(rec) == 1 and rec[0]["status"] == "ok", f"{arch} x {shape}: {rec}")
+        recs.extend(rec)
+    with open(work / "dryrun_results.jsonl", "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in recs)
+    shown = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.report", "--jsonl",
+         str(work / "dryrun_results.jsonl"), "--section", "roofline"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    require(shown.returncode == 0, f"report.py exited {shown.returncode}: {shown.stderr[-2000:]}")
+    table = shown.stdout
+    for arch, shape in cells:
+        require(f"| {arch} | {shape} |" in table, f"report.py's roofline table has no row of "
+                                                  f"{arch} x {shape}:\n{table}")
+    log(f"   (b) python -m repro_torch.launch.dryrun, {len(cells)} cells side by side on the "
+        f"16 x 16 fake mesh at full width: {wall:.1f} s of wall clock")
+    for r in recs:
+        peak = r["bytes_per_chip_peak"] / 2**30
+        fits = "fits" if peak <= CARD_GIB else "does not fit"
+        log(f"      {r['arch']} x {r['shape']}: {r['trace_s']:.1f} s on meta; per-rank peak "
+            f"{peak:.2f} GiB of the card's {CARD_GIB} ({fits}); "
+            f"terms compute {r['t_compute_s']:.4f} s, memory {r['t_memory_s']:.4f} s, "
+            f"collective {r['t_collective_s']:.4f} s ({r['dominant']})")
+    for line in table.strip().splitlines():
+        log(f"      {line}")
+    out["survey"] = {"wall_s": wall, "cells": [
+        {k: r[k] for k in ("arch", "shape", "mesh", "trace_s", "bytes_per_chip_peak",
+                           "t_compute_s", "t_memory_s", "t_collective_s", "dominant")}
+        for r in recs]}
+    return work
+
+
+def phase_dryrun_reanalyze(dr, work: Path, out) -> None:
+    """(c) reanalyze over (b)'s records and op counts: the same columns."""
+    src = work / "dryrun_results.jsonl"
+    again = work / "reanalyzed.jsonl"
+    dr.reanalyze.main(["--jsonl", str(src), "--ops-dir", str(work / "ops"), "--out", str(again)])
+    key = lambda r: (r["arch"], r["shape"], r["mesh"])  # noqa: E731
+    before = {key(r): r for r in map(json.loads, src.read_text().splitlines())}
+    after = {key(r): r for r in map(json.loads, again.read_text().splitlines())}
+    require(before.keys() == after.keys(), f"reanalyze gave {sorted(after)}")
+    for k, r in before.items():
+        diff = [c for c in DRYRUN_COLUMNS if r[c] != after[k][c]]
+        require(not diff, f"reanalyze changed {diff} of {k}")
+    out["reanalyzed"] = len(after)
+    log(f"   (c) reanalyze over (b)'s {len(after)} records: every roofline column the same")
+
+
+def phase_dryrun(lm, tr, dr, km, smi: str, root: Path, llama18: dict, smoke=False,
+                 llama=(8, 1024), cells=DRYRUN_CELLS) -> dict:
+    """Phase 20 (a)-(d): the dry run, as the module docstring says."""
+    out: dict = {"smi": smi}
+    kernels_before = lm_kernel_launches(km)
+    t0 = time.perf_counter()
+    phase_dryrun_calibrate(lm, tr, dr, llama18, smi, smoke, *llama, out)
+    log(f"   (a): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    work = phase_dryrun_survey(dr, root, cells, out)
+    log(f"   (b): {time.perf_counter() - t0:.2f} s")
+    phase_dryrun_reanalyze(dr, work, out)
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    after = lm_kernel_launches(km)
+    require(after == kernels_before, f"the dry run launched a hand-written kernel: "
+                                     f"{kernels_before} -> {after}")
+    log("   (d) kernel launches across phase 20: none (every launch counter as before)")
+    print(json.dumps({"phase20": {k: v for k, v in out.items() if k != "smi"}}, default=str),
+          flush=True)
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4650,7 +4739,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device visible; this script runs only on a card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.core as rt_core
     import repro_torch.sparse as rt_sparse
     import repro_torch.configs as rt_configs
@@ -4718,6 +4806,9 @@ def main(argv=None) -> int:
         from repro_torch import compat
         from repro_torch.compat import NamedSharding
         from torch.distributed.tensor import DTensor
+
+    class dr:  # the dry run: op counts on meta tensors, the roofline, its tools
+        from repro_torch.launch import op_cost, reanalyze, roofline
 
     class km:  # the kernels' modules: wrappers, plain versions, launch counts
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
@@ -4807,6 +4898,9 @@ def main(argv=None) -> int:
                "MoE's local_map path, ZeRO-1, the elastic restore) at world size 1"):
         phase_mesh(lm, tr, ms, km, args.seed, smi, Path(__file__).resolve().parent,
                    train["llama"]["step_ms"])
+    with Phase("phase 20: the dry run (launch/op_cost, roofline, cells, dryrun, reanalyze, "
+               "report) held against the card"):
+        phase_dryrun(lm, tr, dr, km, smi, Path(__file__).resolve().parent, train["llama"])
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     serve_worst = max(serve[k]["worst"] for k in ("pallas", "pallas_lp", "singletons", "chaos"))

@@ -23,7 +23,10 @@ ports ``repro/core/spgemm.py``, and so on):
              and the remat'd training step with microbatches;
   data     — Philox-keyed synthetic and memory-mapped token streams;
   ckpt     — atomic checkpoints in the reference's on-disk layout;
-  launch   — the training launcher (``python -m repro_torch.launch.train``);
+  launch   — the training launcher (``python -m repro_torch.launch.train``),
+             the data x model meshes, and the dry run (``python -m
+             repro_torch.launch.dryrun``: per-rank op counts of every cell
+             on meta tensors under a fake process group, H100 rooflines);
   serve    — the SpGEMM serving tier: bounded admission, deadlines, grouped
              dispatch over pinned plans, the circuit breaker, plan-cache
              warming; and ``ServeEngine``, prefill then decode of the model

@@ -310,7 +310,10 @@ class DTensorMesh(AbstractMesh):
 
     def zeros(self, shape, spec, dtype=torch.float32):
         """A zero DTensor of global ``shape`` at ``spec``, each rank
-        allocating its slice only."""
+        allocating its slice only (on a ``meta`` mesh nothing is
+        allocated)."""
+        if self.device.type == "meta":
+            return self.distribute(torch.zeros(tuple(shape), dtype=dtype, device="meta"), spec)
         return dtensor.zeros(tuple(shape), dtype=dtype, device_mesh=self.device_mesh,
                         placements=self.placements(spec))
 
@@ -332,11 +335,15 @@ class NamedSharding:
         return self.mesh.placements(self.spec)
 
 
-def make_device_mesh(axis_shapes, axis_names) -> DTensorMesh:
+def make_device_mesh(axis_shapes, axis_names, *, device=None) -> DTensorMesh:
     """The data x model mesh: a ``DeviceMesh`` of ``axis_shapes`` over the
     initialised default process group, one rank a shard (NCCL: the card;
     gloo: the CPU). Raises ``SpgemmConfigError`` without a process group or
-    when the world size is not the product of the axes."""
+    when the world size is not the product of the axes.
+
+    ``device="meta"`` keeps the mesh's tensors on the ``meta`` device (a
+    ``"cpu"`` ``DeviceMesh``, under any CPU backend): the dry run's mesh
+    under the fake process group, where nothing is allocated or sent."""
     from torch.distributed.device_mesh import init_device_mesh
 
     axis_shapes, axis_names = tuple(int(s) for s in axis_shapes), tuple(axis_names)
@@ -351,11 +358,16 @@ def make_device_mesh(axis_shapes, axis_names) -> DTensorMesh:
             f"world size {world} is not the {size} shards of the {axis_shapes} "
             f"{axis_names} mesh")
     if dist.get_backend() == "nccl":
-        device_type, device = "cuda", torch.device("cuda", torch.cuda.current_device())
+        device_type, own = "cuda", torch.device("cuda", torch.cuda.current_device())
     else:
-        device_type, device = "cpu", torch.device("cpu")
+        device_type, own = "cpu", torch.device("cpu")
+    if device is not None:
+        if torch.device(device).type != "meta" or device_type != "cpu":
+            raise SpgemmConfigError(f"device={device!r}: a mesh's device is its group's, or "
+                                    f"'meta' under a CPU group (gloo, fake)")
+        own = torch.device("meta")
     dm = init_device_mesh(device_type, axis_shapes, mesh_dim_names=axis_names)
-    return DTensorMesh(axis_shapes, axis_names, dm, device)
+    return DTensorMesh(axis_shapes, axis_names, dm, own)
 
 
 def local_range(x, dim: int) -> tuple:

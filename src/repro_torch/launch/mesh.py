@@ -25,13 +25,15 @@ def production_mesh_shape(*, multi_pod: bool = False) -> tuple:
     return (16, 16), ("data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    return make_device_mesh(*production_mesh_shape(multi_pod=multi_pod))
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The 16 x 16 (2 x 16 x 16) mesh; ``device="meta"`` under the dry run's
+    fake process group (``compat.make_device_mesh``)."""
+    return make_device_mesh(*production_mesh_shape(multi_pod=multi_pod), device=device)
 
 
-def make_test_mesh(shape=(2, 4), axes=("data", "model")):
+def make_test_mesh(shape=(2, 4), axes=("data", "model"), *, device=None):
     """Small mesh for the 8-rank tests (and ``(1, 1)`` on one card)."""
-    return make_device_mesh(shape, axes)
+    return make_device_mesh(shape, axes, device=device)
 
 
 def make_data_mesh(num_devices: int | None = None, axis: str = "data", *, device=None):

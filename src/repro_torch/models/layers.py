@@ -25,7 +25,8 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.compat import local_range, replicated
 from repro_torch.configs.base import ModelConfig
@@ -88,13 +89,15 @@ def repeat_kv(k: torch.Tensor, group: int) -> torch.Tensor:
 
 def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
                         softcap: Optional[float], q_chunk: int = 1024,
-                        k_block: int = 1024) -> torch.Tensor:
+                        k_block: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """q/k/v: (B, T, H, hd), same H (KV pre-repeated) -> (B, Tq, H, hd).
 
     Query chunks in a Python loop, each with its static KV extent (causal and
     window blocks past it are skipped); KV blocks in an inner loop with an
     online softmax, so the largest temporary is a (B, H, q_chunk, k_block)
-    score tile.
+    score tile. The queries are positions ``q_offset`` on of the keys' (a
+    shard of the sequence). Plain tensors: on a mesh ``attention_shards``
+    runs it on each shard's.
     """
     b, tq, h, hd = q.shape
     tk = k.shape[1]
@@ -109,10 +112,10 @@ def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
         s_q = ci * q_chunk
         e_q = min(s_q + q_chunk, tq)
         cq = e_q - s_q
-        kv_end = tk if not causal else min(tk, e_q)
+        kv_end = tk if not causal else min(tk, q_offset + e_q)
         kv_start = 0
         if window is not None:
-            kv_start = (max(0, s_q - window + 1) // k_block) * k_block
+            kv_start = (max(0, q_offset + s_q - window + 1) // k_block) * k_block
         nb = max(-(-(kv_end - kv_start) // k_block), 1)
 
         qc = q[:, s_q:e_q].float() * scale  # (B,cq,H,hd)
@@ -124,17 +127,16 @@ def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
             k_sl = F.pad(k_sl, (0, 0, 0, 0, 0, pad))
             v_sl = F.pad(v_sl, (0, 0, 0, 0, 0, pad))
 
-        qpos = replicated(s_q + torch.arange(cq, dtype=torch.int32, device=dev), q)
-        m_prev = replicated(torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=dev), q)
-        l_prev = replicated(torch.zeros((b, h, cq), dtype=torch.float32, device=dev), q)
-        acc = replicated(torch.zeros((b, h, cq, hd), dtype=torch.float32, device=dev), q)
+        qpos = q_offset + s_q + torch.arange(cq, dtype=torch.int32, device=dev)
+        m_prev = torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=dev)
+        l_prev = torch.zeros((b, h, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, cq, hd), dtype=torch.float32, device=dev)
         for bi in range(nb):
             kblk = k_sl[:, bi * k_block:(bi + 1) * k_block]
             vblk = v_sl[:, bi * k_block:(bi + 1) * k_block]
             s = torch.einsum("bqhd,bkhd->bhqk", qc, kblk.float())
             s = _softcap(s, softcap)
-            kpos = replicated(kv_start + bi * k_block
-                              + torch.arange(k_block, dtype=torch.int32, device=dev), q)
+            kpos = kv_start + bi * k_block + torch.arange(k_block, dtype=torch.int32, device=dev)
             mask = (kpos < tk)[None, :].expand(cq, k_block)  # padding
             if causal:
                 mask = mask & (qpos[:, None] >= kpos[None, :])
@@ -151,6 +153,27 @@ def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
         oc = (acc / l_f[..., None]).transpose(1, 2)  # (B,cq,H,hd)
         out_chunks.append(oc.to(q.dtype))
     return torch.cat(out_chunks, dim=1)
+
+
+def attention_shards(q, k, v, **kw) -> torch.Tensor:
+    """``blockwise_attention`` of DTensors shard by shard (``local_map``):
+    every batch row and head is independent, so each shard runs the plain
+    blockwise attention on the rows and heads it holds; a query shard of
+    the sequence (heads that do not split) starts at its offset, against
+    whole keys, whose gradient is then a partial sum over that axis.
+    DTensor's own batched matmuls would view batch and heads as one dim,
+    which it cannot do when both are split (torch 2.11 refuses it). Plain
+    tensors run as they are."""
+    if not isinstance(q, DTensor):
+        return blockwise_attention(q, k, v, **kw)
+    first, _ = local_range(q, 1)
+    kv_grad = [Partial() if isinstance(a, Shard) and a.dim == 1 and not isinstance(b, Shard)
+               else b for a, b in zip(q.placements, k.placements)]
+    return local_map(
+        lambda ql, kl, vl: blockwise_attention(ql, kl, vl, q_offset=first, **kw),
+        out_placements=list(q.placements), in_placements=(q.placements, k.placements, v.placements),
+        in_grad_placements=(q.placements, kv_grad, kv_grad), device_mesh=q.device_mesh,
+    )(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *, window: Optional[int],
@@ -244,7 +267,7 @@ def attention_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
     the cache, as ``dynamic_update_slice`` clamps), and ``cache`` returned.
     """
     group = cfg.num_heads // cfg.num_kv_heads
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = rules.gathered(rms_norm(x, p["norm"], cfg.norm_eps))
     q = torch.einsum("btd,dhk->bthk", h, p["wq"].to(h.dtype))
     k = torch.einsum("btd,dhk->bthk", h, p["wk"].to(h.dtype))
     v = torch.einsum("btd,dhk->bthk", h, p["wv"].to(h.dtype))
@@ -264,12 +287,11 @@ def attention_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
     if cache is None:
         kr = rules.attn_kv(repeat_kv(k, group), cfg.num_heads)
         vr = rules.attn_kv(repeat_kv(v, group), cfg.num_heads)
-        out = blockwise_attention(
-            q, kr, vr, causal=cfg.causal, window=window,
-            softcap=cfg.attn_softcap,
-        )
-        if return_cache:
-            new_cache = AttnCache(k=k, v=v)
+        out = attention_shards(q, kr, vr, causal=cfg.causal, window=window,
+                               softcap=cfg.attn_softcap)
+        if return_cache:  # at the decode caches' layout: the sequence split
+            spec = rules.kv_cache_spec(k.shape[0], k.shape[2])
+            new_cache = AttnCache(k=rules.constraint(k, spec), v=rules.constraint(v, spec))
     else:
         s = cache.k.shape[1]
         slot = pos % s if ring else pos
@@ -285,7 +307,7 @@ def attention_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
         new_cache = cache
     out = rules.attn_activations(out, cfg.num_heads)
     delta = torch.einsum("bthk,hkd->btd", out, p["wo"].to(out.dtype))
-    return delta, new_cache
+    return rules.gathered(delta), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -310,10 +332,10 @@ def ffn_params_template(cfg: ModelConfig):
 
 
 def ffn_layer(p, x, cfg: ModelConfig, rules: ShardingRules):
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = rules.gathered(rms_norm(x, p["norm"], cfg.norm_eps))
     if cfg.act == "gelu2":
         u = gelu(h @ p["w1"].to(h.dtype))
-        return u @ p["w2"].to(h.dtype)
+        return rules.gathered(u @ p["w2"].to(h.dtype))
     gate_act = F.silu if cfg.act == "silu" else gelu
     u = gate_act(h @ p["w1"].to(h.dtype)) * (h @ p["w3"].to(h.dtype))
-    return u @ p["w2"].to(h.dtype)
+    return rules.gathered(u @ p["w2"].to(h.dtype))

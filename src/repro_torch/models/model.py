@@ -389,7 +389,7 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig, rules: ShardingRules):
 
 
 def lm_logits(params, x, cfg: ModelConfig, rules: ShardingRules):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rules.gathered(rms_norm(x, params["final_norm"], cfg.norm_eps))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
     if cfg.final_softcap is not None:

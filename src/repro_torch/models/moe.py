@@ -65,7 +65,10 @@ def routing_symbolic(logits: torch.Tensor, k: int, capacity: int,
     flat_ids = ids.reshape(-1)  # (T*k,) — assignment stream
     n = flat_ids.shape[0]
     sorted_ids, order = torch.sort(flat_ids, stable=True)
-    counts = torch.bincount(sorted_ids, minlength=num_experts)
+    # a scatter-add of ones, the reference's ``.at[sorted_ids].add(1)``
+    # (``torch.bincount`` has no meta kernel, and the dry run runs on meta)
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=logits.device).scatter_add_(
+        0, sorted_ids, torch.ones_like(sorted_ids))
     starts = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(n, device=logits.device) - starts[sorted_ids]
     slot = torch.empty_like(rank_sorted)

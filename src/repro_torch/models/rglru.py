@@ -94,7 +94,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
                 cache: RGLRUCache | None = None, return_cache: bool = False):
     """Pre-norm recurrent block. x: (B, T, d). Returns (delta, cache|None)."""
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = rules.gathered(rms_norm(x, p["norm"], cfg.norm_eps))
     xs = h @ p["proj_x"].to(h.dtype)  # (B, T, W)
     gate = h @ p["proj_gate"].to(h.dtype)
     if rules.enabled and rules.tp_axis and cache is None:
@@ -125,4 +125,4 @@ def rglru_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
 
     y = y.to(x.dtype) * gelu(gate)
     delta = y @ p["proj_out"].to(y.dtype)
-    return delta, new_cache
+    return rules.gathered(delta), new_cache

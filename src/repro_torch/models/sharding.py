@@ -34,6 +34,24 @@ from repro_torch.compat import DTensorMesh, spec_placements
 from repro_torch.runtime.validate import SpgemmConfigError
 
 
+def even_spec(spec, shape, axis_names, axis_sizes) -> tuple:
+    """``spec`` with every dim that its axes do not split evenly replicated
+    (``None``). GSPMD pads such a dim (a decode batch of 1 over 16 data
+    shards); a DTensor sharded unevenly cannot be viewed or reshaped
+    through that dim, so the port's constraints keep it whole on every
+    shard, as ``batch_spec`` and the reference's ``cells._resolve_dp`` do
+    for inputs."""
+    size = dict(zip(axis_names, axis_sizes))
+    out = []
+    for entry, n in zip(spec, shape):
+        names = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        split = 1
+        for name in names:
+            split *= size.get(name, 1)
+        out.append(entry if n % split == 0 else None)
+    return tuple(out) + tuple(spec[len(out):])
+
+
 def check_mesh(mesh) -> DTensorMesh:
     """``mesh`` if it is a data x model mesh; ``SpgemmConfigError`` if not
     (a local-stack ``compat.Mesh`` is the sharded SpGEMM's)."""
@@ -76,7 +94,8 @@ class ShardingRules:
                 f"placing an activation at {spec!r} needs a DTensor on a data x model "
                 f"mesh, got a plain {tuple(x.shape)} tensor: place the params and inputs "
                 f"(models.place) or use NO_SHARDING")
-        placements = spec_placements(spec, x.device_mesh.mesh_dim_names, x.device_mesh.shape)
+        names, sizes = x.device_mesh.mesh_dim_names, x.device_mesh.shape
+        placements = spec_placements(even_spec(spec, x.shape, names, sizes), names, sizes)
         if tuple(x.placements) == placements:
             return x
         return x.redistribute(x.device_mesh, placements)
@@ -170,6 +189,20 @@ class ShardingRules:
         if seq is not None and x.shape[1] % self.tp_size:
             seq = None
         return self.constraint(x, (self.dp, seq, None))
+
+    def gathered(self, x):
+        """(B, T, d) input or output of a projection, whole along the
+        sequence on every 'model' shard: the sequence-parallel residual's
+        all-gather before a column-parallel matmul (GSPMD inserts it for
+        the reference), and the row-parallel output reduced whole before
+        the residual takes its shard (an all-reduce where GSPMD
+        reduce-scatters: its backward then meets a whole gradient). A
+        matmul flattens batch and sequence into rows, forward and backward,
+        and DTensor cannot view two dims split over two axes as one (torch
+        2.11 refuses it)."""
+        if not self.enabled or x.ndim != 3:
+            return x
+        return self.constraint(x, (self.dp, None, None))
 
     def attn_activations(self, x, n_heads: int):
         """(B, T, H, hd) q/out activations: heads over model when they

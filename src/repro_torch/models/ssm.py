@@ -15,8 +15,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.compat import replicated
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.sharding import ShardingRules
@@ -83,7 +84,7 @@ def ssm_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
     hd = cfg.ssm_head_dim
     b_sz, t, _ = x.shape
 
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = rules.gathered(rms_norm(x, p["norm"], cfg.norm_eps))
     z = h @ p["in_z"].to(h.dtype)  # (B, T, d_in) gate branch
     xs = h @ p["in_x"].to(h.dtype)  # (B, T, d_in)
     bc = h @ p["in_bc"].to(h.dtype)  # (B, T, 2N)
@@ -120,7 +121,7 @@ def ssm_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
             tp_h = rules._tp_if(n_heads)
             dx = rules.constraint(dx, (rules.dp, None, tp_h, None))
             da = rules.constraint(da, (rules.dp, None, tp_h))
-        y, final_state = _ssd_chunked(
+        y, final_state = _ssd_shards(
             dx, da, b_in.float(), c_out.float(), chunk=min(cfg.ssm_chunk, t),
         )
         if return_cache:
@@ -145,7 +146,33 @@ def ssm_layer(p, x, cfg: ModelConfig, rules: ShardingRules, *,
     y = rms_norm(y.to(x.dtype), p["gate_norm"], cfg.norm_eps)
     y = y * F.silu(z.to(y.dtype))
     delta = y @ p["out_proj"].to(y.dtype)
-    return delta, new_cache
+    return rules.gathered(delta), new_cache
+
+
+def _ssd_shards(dx, da, b_in, c_out, chunk: int):
+    """``_ssd_chunked`` of DTensors shard by shard (``local_map``): each
+    batch row and head scans on its own (B and C are shared by the heads,
+    so their gradients are partial sums over a split of the heads).
+    DTensor's own batched matmuls would view batch and heads as one dim,
+    which it cannot do when both are split (torch 2.11 refuses it). Plain
+    tensors run as they are."""
+    if not isinstance(dx, DTensor):
+        return _ssd_chunked(dx, da, b_in, c_out, chunk)
+    mesh = dx.device_mesh
+    # batch and heads as dx has them, the time axis whole, B and C by batch
+    xs_pl = [q if isinstance(q, Shard) and q.dim in (0, 2) else Replicate()
+             for q in dx.placements]
+    bc_pl = [q if q == Shard(0) else Replicate() for q in xs_pl]
+    dx, da = dx.redistribute(mesh, xs_pl), da.redistribute(mesh, xs_pl)
+    b_in, c_out = b_in.redistribute(mesh, bc_pl), c_out.redistribute(mesh, bc_pl)
+    heads = [q == Shard(2) for q in xs_pl]
+    state = [Shard(1) if h else q for h, q in zip(heads, xs_pl)]
+    bc_grad = [Partial() if h else q for h, q in zip(heads, bc_pl)]
+    return local_map(
+        lambda *a: _ssd_chunked(*a, chunk=chunk), out_placements=(xs_pl, state),
+        in_placements=(xs_pl, xs_pl, bc_pl, bc_pl),
+        in_grad_placements=(xs_pl, xs_pl, bc_grad, bc_grad), device_mesh=mesh,
+    )(dx, da, b_in, c_out)
 
 
 def _ssd_chunked(dx, da, b_in, c_out, chunk: int):
@@ -163,10 +190,8 @@ def _ssd_chunked(dx, da, b_in, c_out, chunk: int):
         c_out = F.pad(c_out, (0, 0, 0, pad))
     tp = t + pad
     nc = tp // chunk
-    tri = replicated(torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dx.device)),
-                     dx)
-    state = replicated(torch.zeros((b_sz, n_heads, hd, n), dtype=torch.float32,
-                                   device=dx.device), dx)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dx.device))
+    state = torch.zeros((b_sz, n_heads, hd, n), dtype=torch.float32, device=dx.device)
     ys = []
     for ci in range(nc):
         sl = slice(ci * chunk, (ci + 1) * chunk)

@@ -41,12 +41,37 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     the labels are cast to int64 only for the gather."""
     lf = logits.to(torch.float32)
     m = torch.amax(lf, dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
     if isinstance(lf, DTensor):
+        lse = torch.log(_sum_exp_sharded(lf, m)) + m[..., 0]
         gold = _gather_sharded(lf, labels)
     else:
+        lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
         gold = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
     return torch.mean(lse - gold)
+
+
+def _vocab_placements(lf):
+    """``lf``'s placements with the mesh dims that split its vocab
+    replicated, and with them partial."""
+    v = lf.ndim - 1
+    vocab = [isinstance(q, Shard) and q.dim == v for q in lf.placements]
+    return (tuple(Replicate() if s else q for s, q in zip(vocab, lf.placements)),
+            tuple(Partial() if s else q for s, q in zip(vocab, lf.placements)))
+
+
+def _sum_exp_sharded(lf, m):
+    """``sum(exp(lf - m), -1)`` on DTensor logits, shard-local
+    (``local_map``): each shard sums the vocab range it holds, a partial
+    sum over the vocab's mesh axes, and its backward stays on the shard.
+    Through DTensor's own ops the backward meets a whole gradient with the
+    vocab-sharded exp, and torch 2.11's DTensor gathers the exp over the
+    vocab for it (two f32 (B, T, V) tensors a rank: 31 GiB each at
+    llama3.2-1b ``train_4k`` on 16 x 16)."""
+    whole, part = _vocab_placements(lf)
+    return local_map(lambda lf_l, m_l: torch.sum(torch.exp(lf_l - m_l), dim=-1),
+                     out_placements=list(part), in_placements=(lf.placements, whole),
+                     in_grad_placements=(lf.placements, whole), device_mesh=lf.device_mesh,
+                     )(lf, m.redistribute(lf.device_mesh, whole))
 
 
 def _gather_sharded(lf, labels):
@@ -57,9 +82,7 @@ def _gather_sharded(lf, labels):
     gives a masked partial sum that it fails to reduce into a sharded
     placement: ROADMAP Queue 3 item 11.)"""
     mesh, v = lf.device_mesh, lf.ndim - 1
-    vocab_axes = {i for i, q in enumerate(lf.placements) if isinstance(q, Shard) and q.dim == v}
-    lab_pl = tuple(Replicate() if i in vocab_axes else q for i, q in enumerate(lf.placements))
-    out_pl = tuple(Partial() if i in vocab_axes else q for i, q in enumerate(lf.placements))
+    lab_pl, out_pl = _vocab_placements(lf)
     first, count = local_range(lf, v)
 
     def local(lf_l, lab_l):
@@ -95,12 +118,27 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, rules: ShardingRules, 
     """(loss, grads): the reference's ``value_and_grad`` of the step's loss,
     grads as a tree like ``params`` (the params' dtype; f32 when summed
     over microbatches). On a mesh the loss is whole and each grad a DTensor
-    (a partial sum over the data axes where its param is replicated)."""
+    (a partial sum over the data axes where its param is replicated).
+
+    Microbatch ``i`` is rows ``[i B/n, (i+1) B/n)`` of the batch, the
+    reference's ``reshape(n, B // n, ...)``. On a mesh the batch may come
+    sharded over the data axes, and DTensor cannot reshape a sharded batch
+    into n rows of microbatches unless the data size divides n (GSPMD can).
+    So the split is a redistribution: the batch is gathered whole once a
+    step (its token ids and labels, 8 B a token; an audio model's frames),
+    each microbatch's rows sliced from it and placed over the data axes
+    where they divide (``place_batch``). Splitting each rank's local rows
+    instead would move nothing, but it needs n to divide every rank's rows
+    and groups rows otherwise than the reference; this way any n that
+    divides B works on any mesh, and each microbatch holds the reference's
+    rows, so the sum over microbatches is ``NO_SHARDING``'s with the same
+    n up to the order of f32 adds."""
     mesh = active_mesh(rules, mesh)
     if num_microbatches <= 1:
         loss, grads = _grads_one(params, batch, cfg, rules, mesh)
         return whole(loss), _tree.unflatten(params, grads)
     n = num_microbatches
+    batch = {k: whole(v) for k, v in batch.items()}
     mbs = [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
            for i in range(n)]
     leaves = _tree.leaves(params)

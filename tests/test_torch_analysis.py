@@ -18,9 +18,11 @@ from repro.analysis import all_rule_ids, run_analysis
 PORT_ROOT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 # the port's inline suppressions: the reference's own (a tracing failure
-# degrades silently) and STAGE_COUNTS, registered under the family "trace"
-# in the place of TRACE_COUNTS (eager torch never retraces)
+# degrades silently; the dry run's survey records a failing cell and goes
+# on) and STAGE_COUNTS, registered under the family "trace" in the place
+# of TRACE_COUNTS (eager torch never retraces)
 SUPPRESSED = {("obs/trace.py", "taxonomy.broad-except"),
+              ("launch/dryrun.py", "taxonomy.broad-except"),
               ("core/spgemm.py", "telemetry-key.unknown-family")}
 
 

@@ -40,10 +40,15 @@ against the local path: mean |diff| < 0.05; against the reference's
 ``MOE_MEAN`` and max |diff| < ``MOE_MAX``, bf16 logits on both sides. A
 decode step with ``decode=True`` rules and caches at ``cache_shardings``
 against ``NO_SHARDING`` in f32: 1e-5 relative to the largest logit (the
-layer tests' bound). The elastic restore: saved from ``(4, 2)`` at
-``("data", "model")``, restored onto ``(2, 4)`` at ``("model", "data")``:
-bitwise, at the asked placements, and the checkpoint's files byte for byte
-the reference's.
+layer tests' bound). The same decode at a batch of 1 with ``long_context``
+rules (the caches' sequence over both axes, the batch kept whole: 'data'
+does not split it), logits and caches at that bound. Three microbatches
+of a batch of 6 placed over 'data' (2 shards of 3 rows): the f32 loss and
+grads against ``NO_SHARDING``'s with 3 microbatches at 1e-5 and
+``GRAD_RTOL_F32``, the bf16 step at the reference's bars. The elastic
+restore: saved from ``(4, 2)`` at ``("data", "model")``, restored onto
+``(2, 4)`` at ``("model", "data")``: bitwise, at the asked placements, and
+the checkpoint's files byte for byte the reference's.
 """
 import dataclasses
 import os
@@ -80,6 +85,7 @@ MOE_MEAN, MOE_MAX = 2e-3, FORWARD_TOL
 DECODE_RTOL = 1e-5  # tests/test_torch_models_layers.py, f32
 DECODE_ARCHS = ("llama3.2-1b", "gemma2-9b", "recurrentgemma-9b", "mamba2-2.7b")
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b")
+LONG_ARCHS = ("llama3.2-1b", "gemma2-9b", "recurrentgemma-9b")  # batch-1 long-context decode
 
 
 def _inputs() -> dict:
@@ -94,6 +100,10 @@ def _inputs() -> dict:
         batch = np_batch(cfg, rng, 4, t)
         batch["labels"] = rng.integers(0, cfg.vocab_size, (4, t)).astype(np.int32)
         out[arch] = {"params": np_params(cfg, seed=i), "batch": batch}
+    cfg = get_config("llama3.2-1b", smoke=True)
+    rng = np.random.default_rng(200)
+    out["microbatch"] = {"tokens": rng.integers(0, cfg.vocab_size, (6, 32)).astype(np.int32),
+                         "labels": rng.integers(0, cfg.vocab_size, (6, 32)).astype(np.int32)}
     return out
 
 
@@ -312,10 +322,12 @@ def _case_forward(cx, arch) -> dict:
     return {"plain": want.float(), "mesh": _whole([got])[0], "placements": tuple(got.placements)}
 
 
-def _case_decode(cx, arch) -> dict:
+def _case_decode(cx, arch, rows=None, long_context=False) -> dict:
     """Prefill on the mesh, the caches taken to cache_shardings, 3 decode
     steps (and the engine's greedy tokens), f32 activations, against
-    NO_SHARDING."""
+    NO_SHARDING; ``rows`` of the batch (a batch of 1 is not split over
+    'data') with ``long_context`` rules (the caches' sequence over every
+    axis), the caches after the steps kept."""
     import repro_torch.models as tm
     import repro_torch.models.model as tmm
     from repro_torch import _tree
@@ -324,10 +336,10 @@ def _case_decode(cx, arch) -> dict:
     old = tmm.COMPUTE_DTYPE
     tmm.COMPUTE_DTYPE = torch.float32
     try:
-        rules = dataclasses.replace(cx.rules, decode=True)
+        rules = dataclasses.replace(cx.rules, decode=True, long_context=long_context)
         cfg, params, _, placed = _setup(cx, arch, rules)
-        toks = _batch(cx.inputs[arch]["batch"])["tokens"][:, :12]
-        max_len = 20
+        toks = _batch(cx.inputs[arch]["batch"])["tokens"][:rows, :12]
+        max_len = 24 if long_context else 20  # the sequence splits over 8 shards
         out = {"plain": [], "mesh": [], "cache_placements": []}
         for label, p, r, mesh in (("plain", params, tm.NO_SHARDING, None),
                                   ("mesh", placed, rules, cx.mesh)):
@@ -336,7 +348,8 @@ def _case_decode(cx, arch) -> dict:
                                        return_caches=True, remat=False, max_len=max_len)
                 caches = prefill_to_cache(caches, cfg, toks.shape[1], max_len)
                 if mesh is not None:
-                    specs = tm.cache_shardings(cfg, r, toks.shape[0], max_len)
+                    specs = tm.cache_shardings(cfg, r, toks.shape[0], max_len,
+                                               long_context=long_context)
                     caches = tm.place(caches, specs, mesh)
                     want = [mesh.placements(s) for s in _spec_list(specs, caches)]
                     out["cache_placements"] = [tuple(c.placements)
@@ -347,7 +360,8 @@ def _case_decode(cx, arch) -> dict:
                                                     mesh=mesh, max_len=max_len)
                     out[label].append(_whole([logits])[0])
                     tok = torch.argmax(out[label][-1], dim=-1).to(torch.int32)
-        if arch == "llama3.2-1b":
+                out[f"{label}_caches"] = _whole(caches)
+        if arch == "llama3.2-1b" and rows is None:
             engines = (ServeEngine(params, cfg, max_len=max_len),
                        ServeEngine(placed, cfg, rules=rules, mesh=cx.mesh, max_len=max_len))
             out["tokens"] = tuple(e.generate(toks, 6) for e in engines)
@@ -358,6 +372,40 @@ def _case_decode(cx, arch) -> dict:
         return out
     finally:
         tmm.COMPUTE_DTYPE = old
+
+
+def _case_microbatch(cx) -> dict:
+    """3 microbatches of a batch of 6 placed over 'data' (2 shards of 3
+    rows, which DTensor cannot reshape into 3 x 2; each microbatch then
+    has one row a shard), on the mesh and with
+    NO_SHARDING: the loss and grads with f32 activations, and the bf16
+    step's loss and params (``AdamWConfig()``)."""
+    import repro_torch.models as tm
+    import repro_torch.models.model as tmm
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step, zero1_shardings
+    from repro_torch.train.step import loss_and_grads
+
+    batch = _batch(cx.inputs["microbatch"])
+    sharded = tm.place_batch(batch, cx.rules, cx.mesh)
+    out = {"sharded": tuple(sharded["tokens"].placements)}
+    old = tmm.COMPUTE_DTYPE
+    tmm.COMPUTE_DTYPE = torch.float32
+    try:
+        cfg, params, _, placed = _setup(cx, "llama3.2-1b")
+        l2, g2 = loss_and_grads(placed, sharded, cfg, cx.rules, mesh=cx.mesh, num_microbatches=3)
+        l1, g1 = loss_and_grads(params, batch, cfg, tm.NO_SHARDING, num_microbatches=3)
+        out["f32"] = {"loss": (float(l1), float(l2)), "grads": (_whole(g1), _whole(g2))}
+    finally:
+        tmm.COMPUTE_DTYPE = old
+    cfg, params, specs, placed = _setup(cx, "llama3.2-1b")
+    zero1 = zero1_shardings(specs, cx.rules.dp_axes, cx.mesh.shape, tm.param_specs(cfg, cx.rules))
+    p2, _, m2 = make_train_step(cfg, cx.rules, AdamWConfig(), mesh=cx.mesh, num_microbatches=3)(
+        placed, adamw_init(placed, cx.mesh, zero1), sharded)
+    p1, _, m1 = make_train_step(cfg, tm.NO_SHARDING, AdamWConfig(), num_microbatches=3)(
+        params, adamw_init(params), batch)
+    out["bf16"] = {"loss": (float(m1["loss"]), float(m2["loss"])), "plain": _whole(p1),
+                   "mesh": _whole(p2)}
+    return out
 
 
 def _case_elastic(root: Path) -> dict:
@@ -415,6 +463,9 @@ def _worker(rank: int, init_file: str, result_dir: str, inputs_path: str) -> Non
                                                f32=True) for arch in ARCH_IDS},
                "forward": {arch: _case_forward(cx, arch) for arch in ARCH_IDS},
                "decode": {arch: _case_decode(cx, arch) for arch in DECODE_ARCHS},
+               "long_decode": {arch: _case_decode(cx, arch, rows=1, long_context=True)
+                               for arch in LONG_ARCHS},
+               "microbatch": _case_microbatch(cx),
                "elastic": _case_elastic(Path(result_dir))}
         torch.save(out, os.path.join(result_dir, f"rank{rank}.pt"))
     finally:
@@ -573,6 +624,38 @@ def test_decode_step_on_the_mesh_matches_no_sharding(runs, arch):
     assert got["cache_placements"]
     for a, b in zip(got["mesh"], got["plain"]):
         assert float((a - b).abs().max()) <= DECODE_RTOL * float(b.abs().max())
+
+
+@pytest.mark.parametrize("arch", LONG_ARCHS)
+def test_batch_1_long_context_decode_on_the_mesh_matches_no_sharding(runs, arch):
+    """A decode batch of 1, which the 'data' axis does not split (the
+    reference's long_500k cell), with the caches' sequence over both axes:
+    the activations keep the batch whole (``sharding.even_spec``); logits
+    and caches within DECODE_RTOL of NO_SHARDING's."""
+    got = runs[0][0]["long_decode"][arch]
+    assert got["cache_placements"]
+    for a, b in zip(got["mesh"], got["plain"]):
+        assert a.shape[0] == 1
+        assert float((a - b).abs().max()) <= DECODE_RTOL * float(b.abs().max())
+    for a, b in zip(got["mesh_caches"], got["plain_caches"]):
+        assert float((a - b).abs().max()) <= DECODE_RTOL * max(float(b.abs().max()), 1e-30)
+
+
+def test_microbatches_split_a_data_sharded_batch(runs):
+    """3 microbatches of a batch of 6 placed over 'data': the f32 loss and
+    grads are NO_SHARDING's with 3 microbatches (1e-5, GRAD_RTOL_F32 a
+    leaf); the bf16 step's loss and params meet the reference's bars."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    got = runs[0][0]["microbatch"]
+    assert got["sharded"] == (Shard(0), Replicate())
+    f32 = got["f32"]
+    assert f32["loss"][1] == pytest.approx(f32["loss"][0], rel=1e-5)
+    worst = max(_rel(a, b) for a, b in zip(f32["grads"][1], f32["grads"][0]))
+    assert worst <= GRAD_RTOL_F32, worst
+    bf16 = got["bf16"]
+    np.testing.assert_allclose(bf16["loss"][1], bf16["loss"][0], rtol=LOSS_RTOL)
+    _close_leaves(bf16["mesh"], bf16["plain"], LEAF_RTOL, LEAF_ATOL)
 
 
 def test_serve_engine_on_the_mesh_gives_the_plain_tokens(runs):
