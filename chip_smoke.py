@@ -33,17 +33,25 @@ Phases, in order:
      products reach (the tables fill: those rows run again), and with
      l1_size=65,536 on multigrid 512^2 A*P (no row in device memory);
   3. multigrid Reuse, the paper's R*A*P: galerkin_triple(2048, 2048, 4).
-     Fresh AP = A*P and RAP = R*AP through spgemm(method="sparse"), held
-     against scipy (structure exactly, values in float64), then five time
-     steps replayed through ReuseExecutor(backend="pallas") — kernel K1 —
-     each held against the plain version;
+     Fresh AP = A*P and RAP = R*AP through spgemm(method="sparse"), whose
+     numeric phase is kernel K1, held against scipy (structure exactly,
+     values in float64), then five time steps replayed through
+     ReuseExecutor(backend="pallas") — K1 again — each held against the
+     plain version: 16 K1 launches (the four fresh multiplies, the two
+     executors' pins, which run spgemm, and the ten replays); then two fresh
+     A*P multiplies without a plan cache, bitwise equal (K1 adds in a fixed
+     order) and within F32_TOL of the plain numeric_reuse;
   4. power-law A*A: rmat_csr(16, 8). spgemm(method="lp") and three
      ReuseExecutor(backend="pallas_lp") replays — kernel K2 — held against
-     the plain version and scipy;
+     the plain version and scipy; the executor's pin is a fresh sparse
+     multiply, one K1 launch; then two fresh sparse A*A multiplies, bitwise
+     equal, as in phase 3;
   5. times on the card: each kernel and the plain version at the shapes of
-     phases 3 and 4, each kernel's bound at 3.35 TB/s, a fresh spgemm and a
-     replay end to end, and torch.sparse.mm on the same operands as a
-     yardstick for the fresh multiply (the port never calls it);
+     phases 3 and 4 (and the plain numeric_reuse, which a fresh multiply's
+     numeric phase was before K1 took it), each kernel's bound at 3.35
+     TB/s, a fresh spgemm and a replay end to end, and torch.sparse.mm on
+     the same operands as a yardstick for the fresh multiply (the port never
+     calls it);
   6. the kernel-backed two-phase path (kernels/ops) on the same RMAT-16
      A*A: pallas_spgemm(kernel="auto") runs K5 + K3, numeric_values(kernel=
      "dense_acc") K4 on the same structure; K5's row sizes against the sort
@@ -221,7 +229,16 @@ Phases, in order:
      ok, report.py's roofline table rendering each, each cell's seconds and
      per-rank peak against the card's 80 GiB; (c) reanalyze over (b)'s
      records and op counts: the same roofline columns;
- 21. one JSON line of the kernels (K1 and K2 with their batched launches'
+ 21. the seven examples (examples/torch_*.py), each main() in-process on
+     the card in a fresh directory under build/, removed after: exit 0, the
+     reference's lines logged, wall seconds, and the kernels each must
+     launch (check_example: quickstart K5 and K4 or K3; accumulator_crossover
+     K2 four times and K3 once; multigrid_reuse K1 for its fresh
+     multiplies; serve_spgemm batched K1, K2 only inside its armed
+     kernel:pallas window; dist_multigrid K1 once a live shard a replay;
+     serve_lm and train_lm none); train_lm at its defaults (300 steps),
+     then to 320, resuming from step 300;
+ 22. one JSON line of the kernels (K1 and K2 with their batched launches'
      times, launches and shape, K1 with its sharded launches); the last
      line is the result.
 
@@ -229,7 +246,8 @@ Phase 2 also holds each batched replay launch (K1, K2) against the
 executor's plain _replay_batched at F32_TOL: every edge plan with batch 3,
 A shared, B shared, rows as views at offsets 1-3 right after a NaN-filled
 tensor of the output's size is freed, and a stack of 1; K1's batched rows
-against its single launch bit for bit.
+against its single launch bit for bit, and each single launch against a
+second one bit for bit, on every plan.
 Phase 2 also holds K6, K7 and K8 against their plain versions on synthetic
 inputs (K7 in f32, bf16, f16 and two mixed pairs, so both of its variants:
 "wgmma" for bf16 x bf16 and f16 x f16, "fma" for the others; K8 in f32,
@@ -252,6 +270,9 @@ so does every timed sweep that goes through an entry point (phases 5 and
 0 before each of its runs (a)-(f) and reads them after; the JSON line's
 batched_launches add up its runs. Phase 16 does the same around each counted
 replay, timed sweep and fresh multiply; its sharded_launches add them up.
+Phase 21 reads every counter before and after each example, sets
+FALLBACK_COUNTS to 0 before it, and records the counters as serve_spgemm's
+armed window opens and closes.
 Any failed check raises, so the script exits
 non-zero and prints no result. It needs torch, numpy and scipy; it exits
 non-zero when no CUDA card is visible or when the repo's src/ is missing.
@@ -262,6 +283,8 @@ import argparse
 import contextlib
 import dataclasses
 import importlib
+import importlib.util
+import io
 import json
 import math
 import re
@@ -660,39 +683,22 @@ def stacked_values(n, rows, stacked, offset, dtype, g):
     return random_values(offset + rows * n, dtype, g)[offset:].view(rows, n)
 
 
-def carries_in_fixed_order(seg, nnz_cap: int, tile: int) -> bool:
-    """Whether K1's adds come in a fixed order on this plan: no live segment
-    spans more than two tiles (tiles shifted by seg_ids' misalignment), so
-    no slot takes two carries, whose atomic adds replay_ends makes in no
-    fixed order."""
-    off = (seg.data_ptr() % 16) // 4
-    live = (seg >= 0) & (seg < nnz_cap)
-    tiles = (torch.arange(seg.shape[0], device=seg.device) + off) // tile
-    s, t = seg[live].long(), tiles[live]
-    if s.numel() == 0:
-        return True
-    first = torch.full((nnz_cap,), 2**62, dtype=torch.long, device=seg.device)
-    last = torch.full((nnz_cap,), -1, dtype=torch.long, device=seg.device)
-    first.scatter_reduce_(0, s, t, "amin")
-    last.scatter_reduce_(0, s, t, "amax")
-    return bool(((last - first) <= 1).all())
-
-
 def phase_batched_vs_plain(seg_mod, lp_mod, ex_mod, seed: int) -> dict:
     """Each batched launch against the executor's plain ``_replay_batched``
     at F32_TOL: every edge plan of each kernel in each stacking of
     BATCH_STACKS (A shared, B shared, rows as views at offsets 1-3, a stack
     of 1), f32 and bf16 x f32 values, each call right after a NaN-filled
     tensor of the output's size is freed, and phase 2's 1,000,003-product
-    plan at batch 3. K1's batched rows must equal its single launch on the
-    row's values bit for bit where its adds come in a fixed order
-    (``carries_in_fixed_order``) and its single launch repeats itself bit
-    for bit (checked here); the count of equal rows is logged either way."""
+    plan at batch 3. K1 adds in a fixed order (replay_ends sums a segment's
+    carries in tile order), so each of its batched rows must equal its
+    single launch on the row's values bit for bit, and the single launch
+    must repeat itself bit for bit, on every plan (one segment over many
+    tiles included)."""
     kernels = {"segsum_reuse": (seg_mod.segsum_reuse_batched_arrays, seg_mod.segsum_reuse_arrays),
                "lp_reuse": (lp_mod.lp_reuse_batched_arrays, lp_mod.lp_reuse_arrays)}
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     worst = {f"batched_{name}": 0.0 for name in kernels}
-    bitwise = {"rows": 0, "equal": 0, "fixed_rows": 0, "single_repeats": True}
+    rows_checked = 0
     for name, (batched, single) in kernels.items():
         plans = [(case, a_slot, b_slot, seg, cap, na, nb) for case, a_slot, b_slot, seg, cap, na, nb
                  in edge_plans(REPLAY_TILES[name], g)]
@@ -717,29 +723,23 @@ def phase_batched_vs_plain(seg_mod, lp_mod, ex_mod, seed: int) -> dict:
                                                 scale, F32_TOL))
                     if name != "segsum_reuse":
                         continue
-                    fixed = carries_in_fixed_order(seg, cap, REPLAY_TILES[name])
                     for i in range(rows):
                         x, y = (a[i] if a.ndim == 2 else a), (b[i] if b.ndim == 2 else b)
                         one = single(a_slot, b_slot, seg, x, y, nnz_cap=cap)
                         again = single(a_slot, b_slot, seg, x, y, nnz_cap=cap)
-                        repeats = torch.equal(one, again)
-                        bitwise["single_repeats"] &= repeats
-                        bitwise["rows"] += 1
-                        bitwise["fixed_rows"] += fixed
-                        bitwise["equal"] += torch.equal(got[i], one)
-                        require(torch.equal(got[i], one) or not (fixed and repeats),
+                        require(torch.equal(one, again), f"segsum_reuse {case} {label} row "
+                                                         f"{i}: a launch does not repeat itself")
+                        require(torch.equal(got[i], one),
                                 f"batched segsum_reuse {case} {label} row {i}: not bitwise "
                                 f"the single launch")
+                        rows_checked += 1
             worst[f"batched_{name}"] = max(worst[f"batched_{name}"], *errs)
             log(f"   batched {name} {case}: fm {seg.shape[0]}, nnz_cap {cap}, stackings "
                 f"{[s[0] for s in stacks]}; max |batched - _replay_batched| over f32, "
                 f"bf16 B {max(errs):.3e}")
-    log(f"   K1 batched rows bitwise equal to its single launch: {bitwise['equal']} of "
-        f"{bitwise['rows']} rows ({bitwise['fixed_rows']} rows of plans whose adds come in "
-        f"a fixed order, held to it); single launch repeats itself bit for bit: "
-        f"{bitwise['single_repeats']}")
+    log(f"   K1: each of {rows_checked} batched rows bitwise its single launch, and each "
+        f"single launch bitwise a second one (every plan, long segments included)")
     torch.cuda.synchronize()
-    worst["k1_rows_bitwise"] = bitwise
     return worst
 
 
@@ -747,6 +747,37 @@ def with_values(csr, values):
     from repro_torch.sparse import CSR
 
     return CSR(csr.indptr, csr.indices, values, csr.shape)
+
+
+def fresh_repeats(rt, seg_mod, lp_mod, name, a, b) -> float:
+    """A fresh multiply's values repeat bit for bit on the card: two
+    spgemm(method="sparse") calls without a plan cache, each one K1 launch
+    (stats "pallas") and nothing else, their values equal, and within
+    F32_TOL of the plain ``numeric_reuse`` on the plan (whose f32
+    ``index_add_`` adds in another order each run). Returns the largest
+    |K1 - plain|."""
+    seg_mod.LAUNCHES = lp_mod.LAUNCHES = 0
+    rt.telemetry.FALLBACK_COUNTS.clear()
+    runs = [rt.spgemm(a, b, method="sparse", plan_cache=False) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = {"segsum_reuse": seg_mod.LAUNCHES, "lp_reuse": lp_mod.LAUNCHES}
+    require(launches == {"segsum_reuse": 2, "lp_reuse": 0},
+            f"{name}: two fresh multiplies launched {launches}, not K1 twice")
+    require([x.stats["replay_backend"] for x in runs] == ["pallas", "pallas"],
+            f"{name}: fresh numeric phase {[x.stats['replay_backend'] for x in runs]}")
+    check_fallbacks(rt, f"{name} fresh repeat")
+    first, second = runs
+    require(torch.equal(first.c.values, second.c.values),
+            f"{name}: two fresh multiplies differ in their bits")
+    pl = first.plan
+    want = rt.numeric_reuse(pl, a.values, b.values)
+    scale = rt.numeric_reuse(pl, a.values.abs(), b.values.abs())
+    err = tolerance_check(f"{name} fresh K1 vs plain", first.c.values, want, scale, F32_TOL)
+    plain_again = rt.numeric_reuse(pl, a.values, b.values)
+    log(f"   {name}: two fresh multiplies through K1 bitwise equal ({int(pl.indptr[-1])} "
+        f"values); max |K1 - plain| {err:.3e}; the plain version twice bitwise equal: "
+        f"{torch.equal(want, plain_again)}")
+    return err
 
 
 def phase_multigrid(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
@@ -792,10 +823,17 @@ def phase_multigrid(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
                                                scale, F32_TOL))
     torch.cuda.synchronize()
     launches = {"segsum_reuse": seg_mod.LAUNCHES, "lp_reuse": lp_mod.LAUNCHES}
-    log(f"   launches on the multigrid path: {launches} for {replays} replays")
-    require(launches["segsum_reuse"] == replays,
-            f"segsum_reuse launched {launches['segsum_reuse']} times for {replays} replays")
+    # every fresh multiply's numeric phase is K1 too: the four spgemm calls
+    # and the two executors' pins (from_matrices runs spgemm)
+    fresh = 6
+    log(f"   launches on the multigrid path: {launches} for {fresh} fresh multiplies and "
+        f"{replays} replays")
+    require(launches["segsum_reuse"] == fresh + replays,
+            f"segsum_reuse launched {launches['segsum_reuse']} times for {fresh} fresh "
+            f"multiplies and {replays} replays")
     require(launches["lp_reuse"] == 0, "lp_reuse launched on the multigrid path")
+    require(all(x.stats["replay_backend"] == "pallas" for x in (ap_pos, rap_pos, ap, rap)),
+            "a fresh multiply's numeric phase was not K1")
     check_fallbacks(rt, "multigrid path")
     log(f"   AP: fm {ap.stats['fm']} fm_cap {ap.stats['fm_cap']} nnz {ap.stats['nnz_c']} "
         f"nnz_cap {ap.stats['nnz_cap']} kernel {ap.stats['kernel']}; RAP: fm "
@@ -815,6 +853,7 @@ def phase_multigrid(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
     check_against_scipy("RAP (normal)", rap.c, r_s @ ap_n, abs(r_s) @ abs_ap)
     log(f"   scipy checks: {time.perf_counter() - t0:.2f} s")
 
+    worst = max(worst, fresh_repeats(rt, seg_mod, lp_mod, "multigrid A*P", a_nrm, p))
     out.update(multigrid_launches=launches, multigrid_worst=worst,
                r=r, a=a_nrm, p=p, ap=ap, ex_ap=ex_ap, ex_rap=ex_rap, nnz_a=nnz_a)
 
@@ -839,9 +878,11 @@ def phase_powerlaw(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
         inputs.append(av)
     torch.cuda.synchronize()
     launches = {"segsum_reuse": seg_mod.LAUNCHES, "lp_reuse": lp_mod.LAUNCHES}
-    log(f"   launches on the power-law path: {launches} for 1 lp multiply + 3 replays")
+    log(f"   launches on the power-law path: {launches} for 1 lp multiply + 3 replays "
+        f"(K2) and the executor's pin (a fresh sparse multiply: K1)")
     require(launches["lp_reuse"] == 4, f"lp_reuse launched {launches['lp_reuse']} times, not 4")
-    require(launches["segsum_reuse"] == 0, "segsum_reuse launched on the power-law path")
+    require(launches["segsum_reuse"] == 1,
+            f"segsum_reuse launched {launches['segsum_reuse']} times, not once (the pin)")
     check_fallbacks(rt, "power-law path")
     st = res.stats
     require(st["lp_backend"] == "pallas" and st["kernel"] == "flat_lp",
@@ -863,6 +904,9 @@ def phase_powerlaw(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
     ref, scale = a_s @ a_s, abs(a_s) @ abs(a_s)
     check_against_scipy("A*A (normal)", res.c, ref, scale)
     log(f"   scipy check: {time.perf_counter() - t0:.2f} s")
+    del replays, inputs
+    torch.cuda.empty_cache()
+    out["fresh_worst"] = fresh_repeats(rt, seg_mod, lp_mod, "RMAT-16 A*A", a, a)
     out.update(powerlaw_launches=launches, powerlaw_worst=worst, rmat=a, rmat_res=res,
                rmat_ex=ex, rmat_nnz=nnz, rmat_scipy=(ref, scale))
 
@@ -886,6 +930,7 @@ def phase_times(rt, seg_mod, lp_mod, seed: int, mg: dict, pw: dict) -> dict:
             "segsum_reuse": time_ms(lambda: seg_mod.segsum_reuse_arrays(*args, nnz_cap=nnz_cap)),
             "lp_reuse": time_ms(lambda: lp_mod.lp_reuse_arrays(*args, nnz_cap=nnz_cap)),
             "plain": time_ms(lambda: seg_mod.segsum_reuse_plain(*args, nnz_cap)),
+            "numeric_reuse": time_ms(lambda: rt.numeric_reuse(plan, a_vals, b_vals)),
         }
         bnd, by = bound_ms(st["fm"], na_live, nb_live, st["nnz_c"])
         row.update(bound_ms=bnd, bound_by=by, fm=st["fm"],
@@ -896,6 +941,9 @@ def phase_times(rt, seg_mod, lp_mod, seed: int, mg: dict, pw: dict) -> dict:
             f"plain {row['plain']:.3f} ms; bound {bnd:.3f} ms ({by}: plan of live "
             f"products + operands + C once, at 3.35 TB/s)")
         log(f"   {label}: no single PyTorch call computes the replay (library_ms null)")
+        log(f"   {label}: a fresh multiply's numeric phase is K1 on the card, "
+            f"{row['segsum_reuse']:.3f} ms, where the plain numeric_reuse (index_add_) "
+            f"takes {row['numeric_reuse']:.3f} ms on the same plan")
 
     a, p, r = mg["a"], mg["p"], mg["r"]
     rm = pw["rmat"]
@@ -3242,8 +3290,11 @@ def phase_dist_fresh(rt, km, small_grid, dev, out) -> None:
     torch.cuda.synchronize()
     require(res.stats["cache"] == "miss" and again.stats["cache"] == "hit",
             f"(d) dist cache states {res.stats['cache']}, {again.stats['cache']}")
-    require(km.seg.LAUNCHES == 2 * DIST_SHARDS, f"(d) {km.seg.LAUNCHES} K1 launches for two "
-                                                f"sharded spgemm calls of {DIST_SHARDS} shards")
+    # spgemm(mesh=) replays each shard through K1; distributed_spgemm's
+    # per-shard numeric_fresh is a fresh multiply, K1 a shard too
+    require(km.seg.LAUNCHES == 3 * DIST_SHARDS,
+            f"(d) {km.seg.LAUNCHES} K1 launches for three sharded multiplies of "
+            f"{DIST_SHARDS} shards")
     out["launches"] = out.get("launches", 0) + km.seg.LAUNCHES
     for name, c in (("spgemm(mesh=)", res.c), ("distributed_spgemm", fresh),
                     ("spgemm(mesh=) cache hit", again.c)):
@@ -3285,10 +3336,6 @@ def phase_dist_nccl(rt, km, a, p, av, pv, ref_values, root: Path, dev, out) -> N
             require(km.seg.LAUNCHES == sum(ex.live_shards), f"(e) {placement}: "
                                                             f"{km.seg.LAUNCHES} K1 launches")
             out["launches"] = out.get("launches", 0) + km.seg.LAUNCHES
-            fixed = all(carries_in_fixed_order(ex.plan.seg_ids[i], ex.nnz_cap,
-                                               REPLAY_TILES["segsum_reuse"])
-                        for i in range(ex.plan.num_shards))
-            require(fixed, f"(e) {placement}: a slot takes two carries, K1's order not fixed")
             require(torch.equal(got, want), f"(e) {placement}: the {backend} process-group "
                                             f"replay differs from the single-process one")
             del ex
@@ -4723,6 +4770,181 @@ def phase_dryrun(lm, tr, dr, km, smi: str, root: Path, llama18: dict, smoke=Fals
           flush=True)
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 21: the seven examples (examples/torch_*.py) on the card, each main()
+# in-process, with the kernels each must launch
+# ---------------------------------------------------------------------------
+
+# (example, its arguments) in the order phase 21 runs them; train_lm twice,
+# the second run resuming from the first one's last checkpoint
+EXAMPLE_RUNS = (("quickstart", ()), ("multigrid_reuse", ()), ("accumulator_crossover", ()),
+                ("serve_spgemm", ()), ("dist_multigrid", ()), ("serve_lm", ()),
+                ("train_lm", ("--ckpt-dir", "ckpt")), ("train_lm", ("--ckpt-dir", "ckpt",
+                                                                    "--steps", "320")))
+
+
+def example_launches(km) -> dict:
+    """Every kernel's launch counter, by kernel."""
+    return {"K1": km.seg.LAUNCHES, "K1 batched": km.seg.BATCHED_LAUNCHES,
+            "K2": km.lp.LAUNCHES, "K2 batched": km.lp.BATCHED_LAUNCHES,
+            "K3": km.lp.NUMERIC_LAUNCHES, "K4": km.num.LAUNCHES, "K5": km.sym.LAUNCHES,
+            "K6": km.bsr.LAUNCHES, "K7": km.gm.LAUNCHES, "K8": km.fa.LAUNCHES}
+
+
+def moved_since(before: dict, after: dict) -> dict:
+    return {k: v - before[k] for k, v in after.items() if v != before[k]}
+
+
+def load_example(root: Path, name: str):
+    """``examples/torch_<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  root / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def armed_window_spy(rt, km, window: dict):
+    """Wraps ``faults.failpoint`` so that the launches and fallbacks of each
+    armed window are recorded in ``window`` (entered, left)."""
+    real = rt.faults.failpoint
+
+    @contextlib.contextmanager
+    def spy(name, *args, **kwargs):
+        window.setdefault("names", []).append(name)
+        window["enter"] = (example_launches(km), dict(rt.telemetry.FALLBACK_COUNTS))
+        with real(name, *args, **kwargs):
+            yield
+        window["leave"] = (example_launches(km), dict(rt.telemetry.FALLBACK_COUNTS))
+
+    rt.faults.failpoint = spy
+    try:
+        yield
+    finally:
+        rt.faults.failpoint = real
+
+
+def run_example(rt, km, root: Path, work: Path, name: str, argv) -> dict:
+    """One example's main(argv + --device cuda) in-process, its working
+    directory ``work``: exit 0 (an exception fails the phase), its printed
+    lines logged, its wall seconds, the launches it made; FALLBACK_COUNTS
+    set to 0 first."""
+    mod = load_example(root, name)
+    rt.telemetry.FALLBACK_COUNTS.clear()
+    before = example_launches(km)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.chdir(work), contextlib.redirect_stdout(buf):
+        code = mod.main(list(argv) + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"      | {line}")
+    require(code == 0, f"{name}: main returned {code}")
+    moved = moved_since(before, example_launches(km))
+    log(f"   {name} {' '.join(argv)}: exit 0 in {wall:.2f} s (host clock, synchronised); "
+        f"launches {moved}")
+    return {"wall_s": wall, "launches": moved, "lines": lines}
+
+
+def check_example(rt, name, run, window) -> None:
+    """The kernels each example must launch on the card (none for the LM
+    examples, as in phases 17-18):
+
+    * quickstart: K5 and K4 or K3 (``pallas_spgemm``), K1 once (the one
+      sparse fresh multiply; R*AP and the fresh check take the dense method);
+    * multigrid_reuse: K1 twice (the setup's two sparse fresh multiplies;
+      the "auto" executors replay plain, as the reference's);
+    * accumulator_crossover: K1 twice (step 1's sparse multiplies), K2 four
+      times (the lp multiply and three replays), K3 once (the spill);
+    * serve_spgemm: batched K1 (every group of two or more) and single K1,
+      K2 only inside the armed ``kernel:pallas`` window (two ladder steps,
+      two short circuits), fault keys only there;
+    * dist_multigrid: K1 once a live shard a replay: A*P 11 replays (setup,
+      8 steps, 2 checks), R*AP 9 (setup, 8 steps), and once for the
+      single-device pin's fresh multiply; batched K1 twice a live A*P
+      shard;
+    * serve_lm, train_lm: no launch.
+    """
+    got = run["launches"]
+    if name == "quickstart":
+        require(got.get("K5", 0) >= 1 and got.get("K4", 0) + got.get("K3", 0) >= 1
+                and got.get("K1") == 1 and set(got) <= {"K1", "K3", "K4", "K5"},
+                f"quickstart: launches {got}")
+    elif name == "multigrid_reuse":
+        require(got == {"K1": 2}, f"multigrid_reuse: launches {got}, not K1 twice")
+    elif name == "accumulator_crossover":
+        require(got == {"K1": 2, "K2": 4, "K3": 1}, f"accumulator_crossover: launches {got}")
+    elif name == "serve_spgemm":
+        require(window.get("names") == ["kernel:pallas"], f"serve_spgemm: armed {window}")
+        (enter, fb_in), (leave, fb_out) = window["enter"], window["leave"]
+        inside = moved_since(enter, leave)
+        require(got.get("K1 batched", 0) >= 1 and got.get("K1", 0) >= 1,
+                f"serve_spgemm: launches {got}: no batched or single K1")
+        require(got.get("K2", 0) == inside.get("K2", 0) == 4 and "K2 batched" not in got
+                and set(got) <= {"K1", "K1 batched", "K2"},
+                f"serve_spgemm: launches {got}, inside the armed window {inside}")
+        faults_in = {k: v for k, v in fb_out.items() if k.startswith("fault:")}
+        require(not any(k.startswith("fault:") for k in fb_in)
+                and faults_in == {"fault:pallas->pallas_lp": 2},
+                f"serve_spgemm: fallbacks entering the window {fb_in}, leaving it {fb_out}")
+        after = {k: v for k, v in rt.telemetry.FALLBACK_COUNTS.items() if k.startswith("fault:")}
+        require(after == faults_in, f"serve_spgemm: fault keys after the window {after}")
+        log(f"   serve_spgemm: inside the armed window {inside}, {faults_in}; outside it no "
+            f"K2 launch and no fault key")
+        return
+    elif name == "dist_multigrid":
+        live = re.search(r"live shards: A\*P (\d+), R\*AP (\d+)", "\n".join(run["lines"]))
+        require(live is not None, "dist_multigrid: no live-shard line")
+        ap, rap = (int(x) for x in live.groups())
+        want = {"K1": 11 * ap + 9 * rap + 1, "K1 batched": 2 * ap}
+        require(got == want, f"dist_multigrid: launches {got}, not {want}")
+    else:
+        require(got == {}, f"{name}: launched {got}")
+    check_fallbacks(rt, name)
+
+
+def phase_examples(rt, km, root: Path) -> dict:
+    """Phase 21: each example of EXAMPLE_RUNS through its main() on the card,
+    in a fresh directory under build/ (serve_spgemm's trace and train_lm's
+    checkpoints land there), removed after; train_lm at its defaults (300
+    steps, checkpoints at 100, 200, 300), then to 320, which must resume
+    from step 300. Returns each run's wall seconds and launches."""
+    import shutil
+
+    work = root / "build" / "chip_smoke_examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out: dict = {}
+    try:
+        for name, argv in EXAMPLE_RUNS:
+            window: dict = {}
+            with armed_window_spy(rt, km, window):
+                run = run_example(rt, km, root, work, name, argv)
+            check_example(rt, name, run, window)
+            key = name if name not in out else f"{name} (resumed)"
+            out[key] = {"wall_s": run["wall_s"], "launches": run["launches"]}
+            if key == "train_lm":
+                require(run["lines"][-1] == "done" and "checkpoint @ 300" in run["lines"],
+                        f"train_lm: {run['lines'][-3:]}")
+            elif key == "train_lm (resumed)":
+                require("resumed from step 300" in run["lines"] and run["lines"][-1] == "done",
+                        f"train_lm --steps 320: {run['lines']}")
+            else:
+                require(run["lines"][-1].endswith("OK"), f"{name}: last line {run['lines'][-1]}")
+        require((work / "trace_serve_quickstart.json").exists(),
+                "serve_spgemm wrote no trace")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("   every example exited 0 with its reference lines; wall seconds: "
+        + ", ".join(f"{k} {v['wall_s']:.2f}" for k, v in out.items()))
+    print(json.dumps({"phase21": out}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4901,6 +5123,9 @@ def main(argv=None) -> int:
     with Phase("phase 20: the dry run (launch/op_cost, roofline, cells, dryrun, reanalyze, "
                "report) held against the card"):
         phase_dryrun(lm, tr, dr, km, smi, Path(__file__).resolve().parent, train["llama"])
+    torch.cuda.empty_cache()
+    with Phase("phase 21: the seven examples (examples/torch_*.py) on the card"):
+        phase_examples(rt, km, Path(__file__).resolve().parent)
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     serve_worst = max(serve[k]["worst"] for k in ("pallas", "pallas_lp", "singletons", "chaos"))
@@ -4909,7 +5134,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/segsum_reuse.cu",
          "replaces": "src/repro/kernels/segsum_reuse.py:107",
          "launches": mg_launches["segsum_reuse"],
-         "max_abs_err": max(mg_worst, synth_worst["segsum_reuse"],
+         "max_abs_err": max(mg_worst, pw["fresh_worst"], synth_worst["segsum_reuse"],
                             synth_worst["batched_segsum_reuse"], serve_worst, dist["worst"]),
          "ms": k1["segsum_reuse"], "plain_ms": k1["plain"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None, "shape": "multigrid AP",

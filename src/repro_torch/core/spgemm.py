@@ -7,8 +7,10 @@ and the numeric ``SpgemmPlan``:
   ``expand_and_sort``  -> sorted products + row sizes
   host                 -> nnz(C), bucketed nnz_cap
   ``plan_from_sorted`` -> SpgemmPlan (precomposed slot maps, sentinel seg_ids)
-  ``numeric_reuse``    -> C values (plain torch), or ``lp_replay_values``
-                          -> the CUDA LP-hash replay kernel for method="lp"
+  ``fresh_values``     -> C values: the CUDA segment-sum replay kernel K1 on
+                          the card (``numeric_reuse``, plain torch, on the
+                          CPU), or ``lp_replay_values`` -> the CUDA LP-hash
+                          replay kernel for method="lp"
 
 The plan arrays are bitwise equal to the reference's. Where the reference
 relies on JAX semantics the port spells them out:
@@ -29,6 +31,13 @@ form when the CF <= 0.85 rule fires) and ``numeric_dense_acc``, a dense
 (m, k) accumulator; it has no plan and no Reuse path. Where JAX's
 ``nonzero(size=nnz_cap, fill_value=0)`` returns a fixed size, the port cuts
 or pads ``torch.nonzero``'s output to ``nnz_cap``.
+
+On the card a fresh multiply's values come from K1 (``fresh_values``) where
+the reference sums in f32: K1 adds in a fixed order, so the values repeat
+bit for bit, where the plain ``index_add_``'s atomics add in another order
+each run. On the CPU, and for operands the reference sums in another dtype
+(bf16 x bf16, f16 x f16, f64, integers), it is the plain ``numeric_reuse``,
+bitwise the reference's on the CPU.
 
 ``STAGE_COUNTS`` counts stage *calls*. It takes the place of the reference's
 ``TRACE_COUNTS``, which counts XLA retraces: eager PyTorch never retraces.
@@ -58,8 +67,10 @@ from repro_torch.core.meta import (DEFAULT_PAD_POLICY, choose_kernel,
                                    round_capacity)
 from repro_torch.core.plan_cache import default_plan_cache, structure_key
 from repro_torch.core.utils import popcount, segment_ends, segmented_scan
+from repro_torch.kernels.segsum_reuse import segsum_reuse
 from repro_torch.kernels.spgemm_lp import lp_reuse
 from repro_torch.obs.trace import span, trace_scope
+from repro_torch.runtime import ladder
 from repro_torch.runtime.validate import CapacityOverflowError, SpgemmConfigError
 from repro_torch.sparse.formats import CSR, ELL, csr_row_ids
 
@@ -346,12 +357,13 @@ def symbolic(a: CSR, b: CSR, compress: str = "auto",
 
 def numeric_fresh(a: CSR, b: CSR, fm_cap: int, nnz_cap: int):
     """First numeric run: discovers C's structure and the product->slot map,
-    computes values (plain torch). Returns (CSR C, SpgemmPlan)."""
+    computes values (``fresh_values``: K1 on the card). Returns (CSR C,
+    SpgemmPlan)."""
     _note_stage("numeric_fresh")
     sx = expand_and_sort(a, b, fm_cap)
     plan = plan_from_sorted(sx, b.k, nnz_cap)
     del sx
-    values = numeric_reuse(plan, a.values, b.values)
+    values, _ = fresh_values(plan, a.values, b.values)
     c = CSR(indptr=plan.indptr, indices=plan.indices, values=values, shape=(a.m, b.k))
     return c, plan
 
@@ -428,6 +440,48 @@ def numeric_reuse(plan: SpgemmPlan, a_values: torch.Tensor,
     out = torch.zeros(nnz_cap + 1, dtype=acc_dtype, device=prod.device)
     out.index_add_(0, plan.seg_ids, prod)
     return out[:nnz_cap]
+
+
+# a fresh multiply's rungs on the card: K1, then K2 if K1's launch fails
+FRESH_RUNGS = ("pallas", "pallas_lp")
+
+
+def fresh_backend(a_values: torch.Tensor, b_values: torch.Tensor) -> str:
+    """What sums a fresh multiply's values: "pallas" (K1) for CUDA operands
+    that ``f32_accumulation_ok`` admits and that the reference sums in f32
+    (``promote_types`` float32), else "xla", the plain ``numeric_reuse``:
+    on the CPU, for bf16 x bf16 and f16 x f16 (the reference sums them in
+    their own dtype), and for f64 and integer operands."""
+    if (ladder.kernels_only(a_values.device)
+            and f32_accumulation_ok(a_values.dtype, b_values.dtype)
+            and torch.promote_types(a_values.dtype, b_values.dtype) == torch.float32):
+        return "pallas"
+    return "xla"
+
+
+def fresh_values(plan: SpgemmPlan, a_values: torch.Tensor, b_values: torch.Tensor,
+                 sp=None) -> tuple[torch.Tensor, str]:
+    """The numeric phase of a fresh multiply on its just-built plan; returns
+    (values, the backend that gave them). K1 (``segsum_reuse``) under the
+    card's ladder (``runtime.ladder.walk``: a failed launch or an armed
+    ``kernel:pallas`` steps to K2, never to the plain version; a library
+    that cannot be built raises ``KernelFallbackError``) where
+    ``fresh_backend`` says "pallas"; the plain ``numeric_reuse`` elsewhere.
+    CUDA operands the dtype guard refuses bump
+    ``FALLBACK_COUNTS["dtype:fresh->xla"]``. ``sp``: the caller's span,
+    which gets the ladder's step as ``fallback``."""
+    if fresh_backend(a_values, b_values) == "xla":
+        if ladder.kernels_only(a_values.device) and not f32_accumulation_ok(
+                a_values.dtype, b_values.dtype):
+            from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
+
+            FALLBACK_COUNTS["dtype:fresh->xla"] += 1
+        return numeric_reuse(plan, a_values, b_values), "xla"
+    kernels = {"pallas": segsum_reuse, "pallas_lp": lp_reuse}
+    return ladder.walk(FRESH_RUNGS, lambda name: kernels[name](plan, a_values, b_values),
+                       on_kernel_failure="fallback", site="spgemm",
+                       what="fresh numeric kernel",
+                       on_step=None if sp is None else (lambda step: sp.set("fallback", step)))
 
 
 def lp_replay_values(plan: SpgemmPlan, a_values: torch.Tensor,
@@ -522,12 +576,12 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
            trace: str | bool | None = None) -> SpgemmResult:
     """Full two-phase SpGEMM with the KKSPGEMM meta-algorithm's method choice.
 
-    Runs where the operands' tensors live. ``method``: "sparse" (plain torch
-    values), "lp" (values from the CUDA LP-hash replay kernel; f64/int
-    operands take the plain path and bump ``FALLBACK_COUNTS
-    ["dtype:lp->xla"]``), "dense" (KKDENSE: ``symbolic`` and the dense
-    (m, k) accumulator of ``numeric_dense_acc``, plain torch, ``plan=None``)
-    or "auto" (``choose_method``: dense when k < 250,000 — or the fitted
+    Runs where the operands' tensors live. ``method``: "sparse" (values from
+    ``fresh_values``: K1 on the card, plain torch on the CPU), "lp" (values
+    from the CUDA LP-hash replay kernel; f64/int operands take the plain
+    path and bump ``FALLBACK_COUNTS["dtype:lp->xla"]``), "dense" (KKDENSE:
+    ``symbolic`` and the dense (m, k) accumulator of ``numeric_dense_acc``,
+    plain torch, ``plan=None``) or "auto" (``choose_method``: dense when k < 250,000 — or the fitted
     cutoff — and the accumulator fits 1 GiB).
 
     compress: only the dense method's symbolic phase reads it ("auto" = the
@@ -654,9 +708,9 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
         stats["replay_backend"] = winner
         stats["kernel_source"] = "measured"  # overrides choose_kernel's
     else:
-        with span("numeric.dispatch", kernel="xla", method=method):
-            values = numeric_reuse(plan, a.values, b.values)
-        stats["replay_backend"] = "xla"
+        with span("numeric.dispatch", kernel=fresh_backend(a.values, b.values),
+                  method=method) as sp:
+            values, stats["replay_backend"] = fresh_values(plan, a.values, b.values, sp)
     c = CSR(indptr=plan.indptr, indices=plan.indices, values=values,
             shape=(a.m, b.k))
     stats["cache"] = cache_state

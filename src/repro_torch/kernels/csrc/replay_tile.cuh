@@ -37,6 +37,10 @@
 // (stream order puts every store first) and zeroes [0, first live id) and
 // (last live id, nnz_cap), whose bounds one block of the main kernel finds by
 // a 128-ary search of seg_ids. No slot is written twice except by a carry.
+// A segment over more than two tiles has a carry in each tile after its
+// first, in consecutive tiles: the thread of the first of them sums the run
+// in tile order and adds it once, so every sum comes in a fixed order and a
+// launch repeats itself bit for bit on any plan.
 // (A fill of the output first with atomics at tile edges, a single pass with
 // decoupled look-back, and a persistent grid were measured slower or level:
 // PERF.md.)
@@ -268,15 +272,27 @@ __device__ void find_bounds(const TileArgs& r) {
   }
 }
 
+// Tile t's carry, where it heads a run of carries into one segment: the run
+// summed in tile order, added once. Only the tile after a segment's first
+// tile heads its run (that first tile stores the segment and carries another
+// one, or none), so each slot takes one add, after every store.
+__device__ __forceinline__ void add_carries(const int2* carries, int64_t n_tiles, int64_t t,
+                                            float* out) {
+  const int2 c = carries[t];
+  if (c.x < 0 || (t > 0 && carries[t - 1].x == c.x)) return;
+  float sum = __int_as_float(c.y);
+  for (int64_t u = t + 1; u < n_tiles && carries[u].x == c.x; ++u) {
+    sum += __int_as_float(carries[u].y);
+  }
+  out[c.x] += sum;
+}
+
 // After the main kernel: add the carries and zero the slots before the first
 // live id and past the last.
 __global__ void __launch_bounds__(kThreads) replay_ends(const TileArgs r) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (int64_t t = i0; t < r.n_tiles; t += stride) {
-    const int2 c = r.carries[t];
-    if (c.x >= 0) atomicAdd(r.out + c.x, __int_as_float(c.y));
-  }
+  for (int64_t t = i0; t < r.n_tiles; t += stride) add_carries(r.carries, r.n_tiles, t, r.out);
   const int head_end = r.bounds[0], tail_begin = r.bounds[1];
   for (int64_t s = i0; s < head_end; s += stride) r.out[s] = 0.f;
   for (int64_t s = tail_begin + i0; s < r.nnz_cap; s += stride) r.out[s] = 0.f;
@@ -338,10 +354,7 @@ __global__ void __launch_bounds__(kThreads) replay_ends_batched(const BatchArgs 
   const int2* carries = r.carries + row * r.n_tiles;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (int64_t t = i0; t < r.n_tiles; t += stride) {
-    const int2 c = carries[t];
-    if (c.x >= 0) atomicAdd(out + c.x, __int_as_float(c.y));
-  }
+  for (int64_t t = i0; t < r.n_tiles; t += stride) add_carries(carries, r.n_tiles, t, out);
   const int head_end = r.bounds[0], tail_begin = r.bounds[1];
   for (int64_t s = i0; s < head_end; s += stride) out[s] = 0.f;
   for (int64_t s = tail_begin + i0; s < r.nnz_cap; s += stride) out[s] = 0.f;

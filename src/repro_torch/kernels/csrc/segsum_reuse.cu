@@ -23,9 +23,10 @@
 // tile's span of segments once, in slot order (coalesced: per-thread stores
 // straight to the output were the largest cost at RMAT-16 A*A), each a
 // store, or a carry for the one segment begun in an earlier tile. No
-// atomic touches the output except the carries'. The sums are taken in
-// another order than the plain version's, so results agree with it to f32
-// rounding, not bit for bit.
+// atomic touches the output; replay_ends adds the carries in tile order, so
+// a launch repeats itself bit for bit. The sums are taken in another order
+// than the plain version's, so results agree with it to f32 rounding, not
+// bit for bit.
 #include <climits>
 
 #include "replay_tile.cuh"

@@ -220,8 +220,11 @@ def pallas_spgemm(a: CSR, b: CSR, *,
     in ELL layout; the host decides rC between the phases (two-phase
     contract). K5 sizes C's rows, the core sort path extracts the structure,
     and the numeric kernel follows ``kernel`` (default: the meta-algorithm
-    rule). The name is the reference's; the kernels are CUDA here."""
-    from repro_torch.core.spgemm import host_fm_cap, numeric_fresh
+    rule). The name is the reference's; the kernels are CUDA here. The
+    reference takes the structure from ``numeric_fresh`` and drops its
+    values; the port builds the same plan (``expand_and_sort`` +
+    ``plan_from_sorted``) and runs no numeric phase there."""
+    from repro_torch.core.spgemm import expand_and_sort, host_fm_cap, plan_from_sorted
 
     sizes = symbolic_rowsizes(a, b)
     r_c = max(int(sizes.max()) if sizes.numel() else 0, 1)
@@ -230,10 +233,13 @@ def pallas_spgemm(a: CSR, b: CSR, *,
     fm_cap = host_fm_cap(a, b, fm=fm)
     nnz = int(sizes.sum())
     nnz_cap = max(-(-nnz // 8) * 8, 8)
-    c, _ = numeric_fresh(a, b, fm_cap, nnz_cap)
-    c_ell = csr_to_ell(c, r_pad=r_c)
+    plan = plan_from_sorted(expand_and_sort(a, b, fm_cap), b.k, nnz_cap)
+    structure = CSR(indptr=plan.indptr, indices=plan.indices,
+                    values=torch.zeros(nnz_cap, dtype=a.values.dtype, device=a.device),
+                    shape=(a.m, b.k))
+    c_ell = csr_to_ell(structure, r_pad=r_c)
     c_nnz, c_idx = c_ell.row_nnz, c_ell.indices
-    del c, c_ell  # C's CSR and ELL values: only the structure goes on
+    del plan, structure, c_ell  # only C's structure goes on
     vals = numeric_values(a, b, c_idx, c_nnz, kernel=kernel, fm=fm)
     return c_nnz, c_idx, vals
 

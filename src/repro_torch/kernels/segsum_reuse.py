@@ -254,7 +254,8 @@ def segsum_reuse(plan, a_values, b_values) -> torch.Tensor:
     """Replay a ``SpgemmPlan`` with the kernel. Same structure contract as
     ``core.spgemm.numeric_reuse``, but f32 accumulation: f64/int operands
     belong on the plain path. Select it through
-    ``ReuseExecutor(..., backend="pallas")``."""
+    ``ReuseExecutor(..., backend="pallas")``; on the card a fresh multiply's
+    numeric phase runs it too (``core.spgemm.fresh_values``)."""
     return segsum_reuse_arrays(plan.a_slot_s, plan.b_slot_s, plan.seg_ids,
                                a_values, b_values,
                                nnz_cap=plan.indices.shape[0])

@@ -1045,3 +1045,146 @@ def test_flash_attention_kernel_takes_operands_off_16_byte_alignment(cuda, dtype
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), k8.flash_attention_plain(q, k, v).float(),
                                rtol=5e-2, atol=5e-2)
+
+
+# --------------------------------------------------------------------------
+# a fresh multiply's numeric phase: K1 on the card (core.spgemm.fresh_values)
+# --------------------------------------------------------------------------
+
+FRESH_DTYPES = {  # (A, B) value dtypes -> what sums them on the card, and its dtype key
+    "f32": ((torch.float32, torch.float32), "pallas", None),
+    "bf16xf32": ((torch.bfloat16, torch.float32), "pallas", None),
+    "bf16xf16": ((torch.bfloat16, torch.float16), "pallas", None),
+    "bf16": ((torch.bfloat16, torch.bfloat16), "xla", None),
+    "f16": ((torch.float16, torch.float16), "xla", None),
+    "f64": ((torch.float64, torch.float64), "xla", "dtype:fresh->xla"),
+    "int32": ((torch.int32, torch.int32), "xla", "dtype:fresh->xla"),
+}
+
+
+def _fresh_operands(device, dtypes=(torch.float32, torch.float32)):
+    from repro_torch.sparse import generators
+
+    a = generators.random_csr(120, 90, 5.0, 3, device=device)
+    b = generators.random_csr(90, 110, 5.0, 4, device=device)
+    g = torch.Generator(device=device).manual_seed(5)
+    vals = [(torch.randn(x.nnz_cap, generator=g, device=device) * 4).to(dt)
+            for x, dt in zip((a, b), dtypes)]
+    return (CSR(a.indptr, a.indices, vals[0], a.shape),
+            CSR(b.indptr, b.indices, vals[1], b.shape))
+
+
+def _fresh(a, b):
+    """A fresh sparse multiply, the K1 and K2 launches it made, and the
+    FALLBACK_COUNTS it left."""
+    from repro_torch.core import spgemm
+    from repro_torch.core.telemetry import FALLBACK_COUNTS
+
+    FALLBACK_COUNTS.clear()
+    before = (k1.LAUNCHES, k2.LAUNCHES)
+    res = spgemm(a, b, method="sparse", plan_cache=False)
+    if a.values.device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1]), dict(FALLBACK_COUNTS)
+
+
+@pytest.mark.parametrize("case", sorted(FRESH_DTYPES))
+def test_fresh_multiply_routes_by_dtype_under_the_card_rules(case, monkeypatch):
+    """On the CPU with the card's rules forced (``ladder.kernels_only``): the
+    route of ``FRESH_DTYPES``, values bitwise the plain ``numeric_reuse``
+    (the K1 wrapper runs its plain version on CPU tensors), the dtype key
+    only where the dtype guard refuses the kernels."""
+    from repro_torch.core import numeric_reuse
+    from repro_torch.core.spgemm import fresh_backend
+    from repro_torch.runtime import ladder
+
+    dtypes, backend, key = FRESH_DTYPES[case]
+    a, b = _fresh_operands("cpu", dtypes)
+    assert fresh_backend(a.values, b.values) == "xla"  # the CPU's own rule
+    monkeypatch.setattr(ladder, "kernels_only", lambda device: True)
+    res, _, fallbacks = _fresh(a, b)
+    assert res.stats["replay_backend"] == backend
+    assert fallbacks == ({key: 1} if key else {})
+    assert res.c.values.dtype == torch.promote_types(*dtypes)
+    assert torch.equal(res.c.values, numeric_reuse(res.plan, a.values, b.values))
+
+
+def test_fresh_multiply_steps_k1_to_k2_under_the_card_rules(monkeypatch):
+    """An armed ``kernel:pallas`` steps the fresh multiply to K2 (one
+    ``fault:pallas->pallas_lp``), never to the plain version; both armed
+    raise ``KernelFallbackError``."""
+    from repro_torch.core import spgemm
+    from repro_torch.runtime import faults, ladder
+
+    monkeypatch.setattr(ladder, "kernels_only", lambda device: True)
+    a, b = _fresh_operands("cpu")
+    try:
+        with faults.failpoint("kernel:pallas"):
+            res, _, fallbacks = _fresh(a, b)
+        assert res.stats["replay_backend"] == "pallas_lp"
+        assert fallbacks == {"fault:pallas->pallas_lp": 1}
+        with faults.failpoint("kernel:pallas"), faults.failpoint("kernel:pallas_lp"):
+            with pytest.raises(KernelFallbackError):
+                spgemm(a, b, method="sparse", plan_cache=False)
+    finally:
+        faults.reset_failpoints()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FRESH_DTYPES))
+def test_fresh_multiply_routes_by_dtype_on_the_card(cuda, case):
+    """f32-summed pairs through one K1 launch ("pallas", no plain stage),
+    within F32_TOL of the plain ``numeric_reuse``; bf16 x bf16 and f16 x f16
+    (the reference sums them in their own dtype), f64 and int32 through the
+    plain path, the last two counted under ``dtype:fresh->xla``."""
+    from repro_torch.core import numeric_reuse
+    from repro_torch.core.spgemm import STAGE_COUNTS
+
+    dtypes, backend, key = FRESH_DTYPES[case]
+    a, b = _fresh_operands(cuda, dtypes)
+    STAGE_COUNTS.clear()
+    res, launches, fallbacks = _fresh(a, b)
+    assert res.stats["replay_backend"] == backend
+    assert launches == ((1, 0) if backend == "pallas" else (0, 0))
+    assert fallbacks == ({key: 1} if key else {})
+    assert (STAGE_COUNTS["numeric_reuse"] == 0) == (backend == "pallas")
+    if backend == "pallas":
+        want = numeric_reuse(res.plan, a.values.float(), b.values.float())
+        scale = numeric_reuse(res.plan, a.values.float().abs(), b.values.float().abs())
+        assert res.c.values.dtype == torch.float32
+        assert bool(((res.c.values.double() - want.double()).abs()
+                     <= 1e-4 * scale.double() + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["multigrid A*P", "rmat A*A"])
+def test_fresh_multiply_repeats_bit_for_bit_on_the_card(cuda, shape):
+    """Two fresh multiplies (no plan cache) give the same bits: K1 adds in a
+    fixed order, where the plain ``index_add_``'s atomics do not. One K1
+    launch each; values within F32_TOL of the plain version; the traced
+    ``numeric.dispatch`` span says "pallas"."""
+    from repro_torch import obs
+    from repro_torch.core import numeric_fresh, numeric_reuse
+    from repro_torch.sparse import generators
+
+    if shape == "multigrid A*P":
+        _, a, b = generators.galerkin_triple(256, 256, agg_size=4, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(8)
+        a = CSR(a.indptr, a.indices, torch.randn(a.nnz_cap, generator=g, device=cuda), a.shape)
+    else:
+        a = b = generators.rmat_csr(12, 8, seed=0, device=cuda)
+    obs.reset_obs()
+    with obs.trace_scope("on"):
+        first, launches, fallbacks = _fresh(a, b)
+    kinds = [e["args"].get("kernel") for e in obs.events() if e["name"] == "numeric.dispatch"]
+    obs.reset_obs()
+    second, again, _ = _fresh(a, b)
+    assert launches == again == (1, 0) and fallbacks == {}
+    assert kinds == ["pallas"] and first.stats["replay_backend"] == "pallas"
+    assert torch.equal(first.c.values, second.c.values)
+    want = numeric_reuse(first.plan, a.values, b.values)
+    scale = numeric_reuse(first.plan, a.values.abs(), b.values.abs())
+    assert bool(((first.c.values.double() - want.double()).abs()
+                 <= 1e-4 * scale.double() + 1e-6).all())
+    c, _ = numeric_fresh(a, b, first.stats["fm_cap"], first.stats["nnz_cap"])
+    assert torch.equal(c.values, first.c.values)
