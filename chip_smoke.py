@@ -40,7 +40,11 @@ Phases, in order:
      plain version: 16 K1 launches (the four fresh multiplies, the two
      executors' pins, which run spgemm, and the ten replays); then two fresh
      A*P multiplies without a plan cache, bitwise equal (K1 adds in a fixed
-     order) and within F32_TOL of the plain numeric_reuse;
+     order) and within F32_TOL of the plain numeric_reuse; then the default
+     backend ("auto"): ReuseExecutor(plan) replays twice through K1,
+     bitwise equal, and spgemm_grouped of two multiplies (one batched K1
+     launch) and of one (one K1 launch), no plain stage, the default
+     replay's time beside the explicit K1 executor's and the plain one's;
   4. power-law A*A: rmat_csr(16, 8). spgemm(method="lp") and three
      ReuseExecutor(backend="pallas_lp") replays — kernel K2 — held against
      the plain version and scipy; the executor's pin is a fresh sparse
@@ -77,16 +81,19 @@ Phases, in order:
      2,048, expert width 768, 128 experts, top-8): 4,096 tokens routed by
      seeded router logits, sorted by expert and padded per expert to 128
      rows; one layer's up projection x @ w1 and down projection (768 ->
-     2,048, on x @ w1's output) in bf16, f16 and f32, against the plain
-     version, each with its variant;
+     2,048, on x @ w1's output) for each (x, w) pair of MOE_PAIRS (bf16,
+     f16 and f32, f32 x bf16, bf16 x f32, bf16 x f16), against the plain
+     version, each with its variant and products, padding rows 0;
  12. K8 through ops.attention at T = 8,192: gemma2-9b widths (softcap 50; a
      local layer with its 4,096 window and a global layer; bf16 and f32),
-     llama3.2-1b and qwen3-moe-30b-a3b widths (causal, bf16), against the
-     plain version;
+     llama3.2-1b (causal, bf16 and f32) and qwen3-moe-30b-a3b widths
+     (causal, bf16), against the plain version;
  13. K6, K7 and K8 timed at those shapes beside their plain versions, bounds
      and one PyTorch call where one computes the same function
      (torch.sparse.mm on the scalar CSR for K6, torch.bmm over w[block_expert]
-     for K7, scaled_dot_product_attention for K8 where there is no softcap);
+     for K7 where x and w share a dtype (f32 in full f32), and
+     scaled_dot_product_attention for K8 where there is no softcap, f32 at
+     llama3.2-1b); K7's bound counts its variant's tensor-core products;
      K6 also at bs 16 f32 on the 512^2 plan, against the plain version;
  14. the selection and robustness layer at full data size: (a)
      spgemm(tune="measure") at phase 3's A*P (one micro-bench of the replay
@@ -115,7 +122,8 @@ Phases, in order:
      batched K1 launch, nothing else launched, no plain stage, no fault/
      dtype/nan_guard key, each response within F32_TOL of the plain replay
      of its own values, one per structure against scipy; (b) the same
-     through K2 ("pallas_lp"); (c) singletons at max_batch 1, one single K1
+     through K2 ("pallas_lp"); (a') the same with the default backend
+     ("auto"): batched K1 only; (c) singletons at max_batch 1, one single K1
      launch each; (d) chaos at A*P with kernel:pallas armed, a fake clock
      and breaker_threshold 2, traced: degraded singletons step to K2, the
      open breaker short-circuits a singleton and a batched group to K2, the
@@ -234,7 +242,8 @@ Phases, in order:
      reference's lines logged, wall seconds, and the kernels each must
      launch (check_example: quickstart K5 and K4 or K3; accumulator_crossover
      K2 four times and K3 once; multigrid_reuse K1 for its fresh
-     multiplies; serve_spgemm batched K1, K2 only inside its armed
+     multiplies and the default executors' replays, batched K1 for its
+     batches; serve_spgemm batched K1, K2 only inside its armed
      kernel:pallas window; dist_multigrid K1 once a live shard a replay;
      serve_lm and train_lm none); train_lm at its defaults (300 steps),
      then to 320, resuming from step 300;
@@ -249,8 +258,10 @@ tensor of the output's size is freed, and a stack of 1; K1's batched rows
 against its single launch bit for bit, and each single launch against a
 second one bit for bit, on every plan.
 Phase 2 also holds K6, K7 and K8 against their plain versions on synthetic
-inputs (K7 in f32, bf16, f16 and two mixed pairs, so both of its variants:
-"wgmma" for bf16 x bf16 and f16 x f16, "fma" for the others; K8 in f32,
+inputs (K7 in f32, bf16, f16 and six mixed pairs, so both of its variants:
+"wgmma" for bf16 x bf16 and f16 x f16, "tf32" at 3, 2 and 1 products for
+the others, each named and counted by the library as variant() and
+products() say; K8 in f32,
 bf16 and f16 at every head dim, so each of its variants: "fma" for f32,
 "mma" for bf16/f16 at D 16 and 32, "wgmma" at D 64-256). Every K7 output
 is held to K7_TOL and to a relative Frobenius bound (K7_FRO), every K8
@@ -281,6 +292,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import importlib
 import importlib.util
@@ -305,6 +317,7 @@ from repro_torch.launch.roofline import (  # noqa: E402
     BF16_FLOPS_PER_S,
     F32_FLOPS_PER_S,
     HBM_BYTES_PER_S,
+    TF32_FLOPS_PER_S,
     lm_bytes,
     lm_decode_bound,
     lm_prefill_bound,
@@ -515,11 +528,11 @@ def short_name(mangled: str) -> str:
     ints and dtypes (kernel<D, dtype>, kernel<dtype, dtype>), else the name."""
     types = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
     m = re.search(r"(\w+?)I((?:Li\d+E|f|6__half|13__nv_bfloat16)+)E", mangled)
-    if m:  # the name is the suffix <len><name> of the prefix whose length fits
+    if m:  # the name is the shortest suffix <len><name> of the prefix whose length fits
         args = [d or types[t] for d, t in
                 re.findall(r"Li(\d+)E|(f|6__half|13__nv_bfloat16)", m.group(2))]
         prefix = m.group(1)
-        for i in range(len(prefix)):
+        for i in reversed(range(len(prefix))):
             n = re.match(r"\d+", prefix[i:])
             if n and len(prefix) - i - len(n.group()) == int(n.group()):
                 return f"{prefix[i + len(n.group()):]}<{', '.join(args)}>"
@@ -854,8 +867,67 @@ def phase_multigrid(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
     log(f"   scipy checks: {time.perf_counter() - t0:.2f} s")
 
     worst = max(worst, fresh_repeats(rt, seg_mod, lp_mod, "multigrid A*P", a_nrm, p))
+    worst = max(worst, default_replays(rt, seg_mod, lp_mod, ap, ex_ap, a_nrm, p, g, out))
     out.update(multigrid_launches=launches, multigrid_worst=worst,
                r=r, a=a_nrm, p=p, ap=ap, ex_ap=ex_ap, ex_rap=ex_rap, nnz_a=nnz_a)
+
+
+def default_replays(rt, seg_mod, lp_mod, ap, ex_k1, a, p, g, out: dict) -> float:
+    """The default backend ("auto") at multigrid A*P: ReuseExecutor(plan)
+    replays twice (two K1 launches, bitwise equal, within F32_TOL of the
+    plain version), then spgemm_grouped of two multiplies of the structure
+    (one batched K1 launch) and of one (one K1 launch); no plain stage
+    (numeric_reuse, the plain batched replay) and no fallback key. Logs the
+    default replay's time beside the explicit K1 executor's and the plain
+    version's (CUDA events, median of 7). Returns the largest |K1 - plain|."""
+    ex = rt.ReuseExecutor(ap.plan)
+    pl, cap = ex.plan, ex.nnz_cap
+    av = torch.randn(a.nnz_cap, generator=g, device="cuda")
+    a2 = with_values(a, torch.randn(a.nnz_cap, generator=g, device="cuda"))
+    a3 = with_values(a, torch.randn(a.nnz_cap, generator=g, device="cuda"))
+    torch.cuda.synchronize()
+    seg_mod.LAUNCHES = lp_mod.LAUNCHES = seg_mod.BATCHED_LAUNCHES = lp_mod.BATCHED_LAUNCHES = 0
+    rt.telemetry.FALLBACK_COUNTS.clear()
+    stages0 = dict(rt.stage_counts)
+    first, second = ex.apply(av, p.values), ex.apply(av, p.values)
+    grouped = rt.spgemm_grouped([(a2, p), (a3, p)])
+    single = rt.spgemm_grouped([(a2, p)])
+    torch.cuda.synchronize()
+    launches = {"segsum_reuse": seg_mod.LAUNCHES, "lp_reuse": lp_mod.LAUNCHES,
+                "segsum_reuse_batched": seg_mod.BATCHED_LAUNCHES,
+                "lp_reuse_batched": lp_mod.BATCHED_LAUNCHES}
+    stages = {k: v - stages0.get(k, 0) for k, v in rt.stage_counts.items()
+              if v != stages0.get(k, 0)}
+    want = {"segsum_reuse": 3, "lp_reuse": 0, "segsum_reuse_batched": 1, "lp_reuse_batched": 0}
+    require(launches == want, f"default replays: launches {launches}, not {want}")
+    for key in ("numeric_reuse", "executor_apply_batched"):
+        require(key not in stages, f"default replays: the plain stage {key} ran "
+                                   f"{stages.get(key)} times")
+    require(ex.last_backend == "pallas", f"default replay ran {ex.last_backend}")
+    check_fallbacks(rt, "default replays")
+    require(torch.equal(first, second), "two default replays differ in their bits")
+    args = (pl.a_slot_s, pl.b_slot_s, pl.seg_ids)
+    err = 0.0
+    for name, got, x in (("default replay", first, av), ("grouped, batched 0", grouped[0].values,
+                                                        a2.values),
+                         ("grouped, batched 1", grouped[1].values, a3.values),
+                         ("grouped, single", single[0].values, a2.values)):
+        want_v = seg_mod.segsum_reuse_plain(*args, x, p.values, cap)
+        scale = seg_mod.segsum_reuse_plain(*args, x.abs(), p.values.abs(), cap)
+        err = max(err, tolerance_check(f"multigrid A*P {name}", got, want_v, scale, F32_TOL))
+    require(torch.equal(grouped[0].values, single[0].values),
+            "a batched K1 row differs from its single launch")
+    t_default = time_ms(lambda: ex.apply(av, p.values))
+    t_k1 = time_ms(lambda: ex_k1.apply(av, p.values))
+    t_plain = time_ms(lambda: rt.numeric_reuse(pl, av, p.values))
+    log(f"   default ReuseExecutor(plan) at multigrid A*P: two replays through K1 bitwise "
+        f"equal, max |K1 - plain| {err:.3e}; spgemm_grouped: one batched K1 launch for two "
+        f"multiplies, one K1 launch for one; launches {launches}, no plain stage; the default "
+        f"replay {t_default:.3f} ms, the explicit K1 executor {t_k1:.3f} ms, the plain "
+        f"numeric_reuse {t_plain:.3f} ms")
+    out["default_replay"] = {"ms": t_default, "k1_executor_ms": t_k1, "plain_ms": t_plain,
+                             "launches": launches}
+    return err
 
 
 def phase_powerlaw(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
@@ -1777,9 +1849,12 @@ K7_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
 # 5-8x the worst measured on an H100 (phases 2 and 11): bf16 1.03e-4, f16
 # 4.1e-5, f32 8.5e-7.
 K7_FRO = {torch.float32: 5e-6, torch.bfloat16: 6e-4, torch.float16: 3e-4}
+# phase 2's K7 pairs: both variants, "tf32" at 3, 2 and 1 products in both orders
 K7_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
             (torch.float16, torch.float16), (torch.bfloat16, torch.float32),
-            (torch.float16, torch.bfloat16)]
+            (torch.float16, torch.bfloat16), (torch.float32, torch.bfloat16),
+            (torch.float32, torch.float16), (torch.float16, torch.float32),
+            (torch.bfloat16, torch.float16)]
 K8_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2, torch.float16: 5e-2}
 # ||kernel - plain||_F / ||plain||_F of each K8 output, beside K8_TOL: at T
 # 8,192 a typical |out| is below K8_TOL's atol, so that rule alone would pass
@@ -1863,6 +1938,16 @@ def phase_new_kernels_vs_plain(km, seed: int, dev="cuda") -> dict:
     log(f"   bsr_spgemm == plain (NaN in block 0 not leaked): max |kernel - plain| "
         f"{worst['bsr_spgemm']:.3e}")
     k7_rel = {}
+    lib = km.gm._build.load("grouped_matmul")
+    lib.grouped_matmul_variant.argtypes = lib.grouped_matmul_products.argtypes = [ctypes.c_int] * 2
+    lib.grouped_matmul_variant.restype, lib.grouped_matmul_products.restype = (ctypes.c_char_p,
+                                                                              ctypes.c_int)
+    for xd, wd in K7_PAIRS:  # the library's rule is the one variant() and products() state
+        codes = (km.gm.DTYPE_CODES[xd], km.gm.DTYPE_CODES[wd])
+        named = (lib.grouped_matmul_variant(*codes).decode(), lib.grouped_matmul_products(*codes))
+        require(named == (km.gm.variant(xd, wd), km.gm.products(xd, wd)),
+                f"K7 {pair_name(xd, wd)}: the library runs {named}, variant() and products() "
+                f"say {(km.gm.variant(xd, wd), km.gm.products(xd, wd))}")
     # unsorted expert ids, some out of [0, E) (they clamp); one token block;
     # the MoE projections' (d, f)
     for e, d, f, blocks in ((8, 512, 384, 13), (3, 128, 128, 1), (4, 768, 2048, 5),
@@ -1876,7 +1961,8 @@ def phase_new_kernels_vs_plain(km, seed: int, dev="cuda") -> dict:
                                    km.gm.grouped_matmul(x, w, be),
                                    km.gm.grouped_matmul_plain(x, w, be), K7_TOL[xd], K7_FRO[xd])
             worst["grouped_matmul"] = max(worst["grouped_matmul"], err)
-            key = f"{DT_NAME[xd]}x{DT_NAME[wd]} ({km.gm.variant(xd, wd)})"
+            key = f"{DT_NAME[xd]}x{DT_NAME[wd]} ({km.gm.variant(xd, wd)}, " \
+                  f"{km.gm.products(xd, wd)} products)"
             k7_rel[key] = max(k7_rel.get(key, 0.0), rel)
     log(f"   grouped_matmul == plain: max |kernel - plain| {worst['grouped_matmul']:.3e}; "
         "worst relative Frobenius " + ", ".join(f"{k} {r:.3e}" for k, r in k7_rel.items())
@@ -2051,15 +2137,39 @@ def moe_layout(n_tokens, n_experts, top_k, g, dev):
     return rows, tokens, block_expert, int(padded.sum())
 
 
-MOE_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# phase 11's (x, w) dtype pairs: each variant of K7, the f32 and mixed pairs
+# on "tf32" with 3, 2 and 1 products
+MOE_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+             (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.float32), (torch.bfloat16, torch.float16))
+
+
+def pair_name(xd, wd) -> str:
+    return DT_NAME[xd] if xd == wd else f"{DT_NAME[xd]}x{DT_NAME[wd]}"
+
+
+def k7_bound(gm, x, w, n_rows: int, used: int) -> tuple:
+    """(ms, "bytes" or "operations") of K7 on these inputs: x, the weights of
+    the experts that own a block and y (in x's dtype) once each at 3.35 TB/s,
+    against the variant's tensor-core products (``gm.products``: 2 * T * d *
+    f flops each) at its peak, 989 TFLOP/s on "wgmma", 495 on "tf32"."""
+    t_bytes = ((x.numel() + n_rows * w.shape[2]) * x.element_size()
+               + used * w[0].numel() * w.element_size()) / HBM_BYTES_PER_S * 1e3
+    flops = gm.products(x.dtype, w.dtype) * 2 * n_rows * x.shape[1] * w.shape[2]
+    peak = BF16_FLOPS_PER_S if gm.variant(x.dtype, w.dtype) == "wgmma" else TF32_FLOPS_PER_S
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 
 
 def phase_moe(rt, km, seed: int, out: dict, n_tokens=4096, dev="cuda") -> None:
     """K7 at qwen3-moe-30b-a3b widths through ops.expert_matmul: tokens routed
     top-8 over 128 experts, sorted by expert and padded per expert to 128
     rows; one layer's up projection x @ w1 (d_model -> expert width) and
-    down projection (expert width -> d_model, on x @ w1's output), each in
-    bf16, f16 and f32."""
+    down projection (expert width -> d_model, on x @ w1's output), for each
+    (x, w) dtype pair of MOE_PAIRS (x and the output in the first, both
+    weights in the second)."""
     cfg = rt.get_config("qwen3-moe-30b-a3b")
     d, f, n_exp, top_k = cfg.d_model, cfg.moe_d_ff, cfg.num_experts, cfg.experts_per_token
     g = torch.Generator(device=dev).manual_seed(seed + 40)
@@ -2075,35 +2185,38 @@ def phase_moe(rt, km, seed: int, out: dict, n_tokens=4096, dev="cuda") -> None:
         f"({n_rows // 128} blocks, {used} experts with tokens); each projection "
         f"{2 * n_rows * d * f / 1e12:.3f} TFLOP")
     ins, ys = {}, {}
+    ws = {dt: (w1.to(dt), w2.to(dt)) for dt in dict.fromkeys(wd for _, wd in MOE_PAIRS)}
     reset_new_launches(km)
-    for dt in MOE_DTYPES:  # the main path: up, then down on its output
-        xd, w1d, w2d = x.to(dt), w1.to(dt), w2.to(dt)
-        ys["x@w1", dt] = km.ops.expert_matmul(xd, w1d, be)
-        ys["down", dt] = km.ops.expert_matmul(ys["x@w1", dt], w2d, be)
-        ins["x@w1", dt], ins["down", dt] = (xd, w1d), (ys["x@w1", dt], w2d)
+    for xd, wd in MOE_PAIRS:  # the main path: up, then down on its output
+        xi, (w1d, w2d) = x.to(xd), ws[wd]
+        ys["x@w1", xd, wd] = km.ops.expert_matmul(xi, w1d, be)
+        ys["down", xd, wd] = km.ops.expert_matmul(ys["x@w1", xd, wd], w2d, be)
+        ins["x@w1", xd, wd], ins["down", xd, wd] = (xi, w1d), (ys["x@w1", xd, wd], w2d)
     torch.cuda.synchronize()
     launches = read_new_launches(km)
-    require(launches == {"bsr_spgemm": 0, "grouped_matmul": 2 * len(MOE_DTYPES),
+    require(launches == {"bsr_spgemm": 0, "grouped_matmul": 2 * len(MOE_PAIRS),
                          "flash_attention": 0}, f"launches {launches}")
     check_fallbacks(rt, "MoE path")
-    del x, w1, w2
+    del x, w1, w2, ws
     pad = torch.ones(n_rows, dtype=torch.bool, device=dev)
     pad[rows] = False
-    worst = 0.0
-    for (proj, dt), y in ys.items():
+    worst, rel_worst = 0.0, {}
+    for (proj, xd, wd), y in ys.items():
         width = f if proj == "x@w1" else d
-        require(y.shape == (n_rows, width) and y.dtype == dt,
-                f"K7 {proj} output {y.dtype} {tuple(y.shape)}")
-        require(bool((y[pad] == 0).all()), f"K7 {proj}: padding rows are not 0")
-        err, rel = close_check(f"K7 {proj} {DT_NAME[dt]}", y,
-                               km.gm.grouped_matmul_plain(*ins[proj, dt], be), K7_TOL[dt],
-                               K7_FRO[dt])
+        name = pair_name(xd, wd)
+        require(y.shape == (n_rows, width) and y.dtype == xd,
+                f"K7 {proj} {name} output {y.dtype} {tuple(y.shape)}")
+        require(bool((y[pad] == 0).all()), f"K7 {proj} {name}: padding rows are not 0")
+        err, rel = close_check(f"K7 {proj} {name}", y,
+                               km.gm.grouped_matmul_plain(*ins[proj, xd, wd], be), K7_TOL[xd],
+                               K7_FRO[xd])
         worst = max(worst, err)
-        log(f"   K7 {proj} {DT_NAME[dt]}, variant {km.gm.variant(dt, dt)}: max |kernel - "
-            f"plain| {err:.3e}, relative Frobenius {rel:.3e} (bound {K7_FRO[dt]}); padding "
-            f"rows 0")
+        rel_worst[name] = max(rel_worst.get(name, 0.0), rel)
+        log(f"   K7 {proj} {name}, variant {km.gm.variant(xd, wd)} "
+            f"({km.gm.products(xd, wd)} products): max |kernel - plain| {err:.3e}, relative "
+            f"Frobenius {rel:.3e} (bound {K7_FRO[xd]}); padding rows 0")
     out.update(launches=launches, worst=worst, ins=ins, be=be, n_rows=n_rows,
-               assignments=rows.shape[0], cfg=cfg, used=used)
+               assignments=rows.shape[0], cfg=cfg, used=used, rel_fro=rel_worst)
 
 
 ATTN_T = 8192
@@ -2120,6 +2233,8 @@ def attention_shapes(rt) -> list:
             shapes.append((f"gemma2-9b {layer} {DT_NAME[dt]}", gem, dict(
                 causal=True, window=window, softcap=gem.attn_softcap), dt, False))
     shapes.append(("llama3.2-1b bf16", lla, dict(causal=True), torch.bfloat16, True))
+    # f32 ("fma") beside SDPA in f32: the yardstick of K8's f32 variant
+    shapes.append(("llama3.2-1b f32", lla, dict(causal=True), torch.float32, True))
     shapes.append(("qwen3-moe-30b-a3b bf16", qwe, dict(causal=True), torch.bfloat16, True))
     return shapes
 
@@ -2127,7 +2242,8 @@ def attention_shapes(rt) -> list:
 def phase_attention(rt, km, seed: int, out: dict, t=ATTN_T, dev="cuda") -> None:
     """K8 through ops.attention at full head widths, T = 8192: gemma2-9b
     (softcap 50; a local layer with its 4,096 window and a global layer; bf16
-    and f32), llama3.2-1b and qwen3-moe-30b-a3b (causal, bf16)."""
+    and f32), llama3.2-1b (causal, bf16 and f32) and qwen3-moe-30b-a3b
+    (causal, bf16)."""
     g = torch.Generator(device=dev).manual_seed(seed + 50)
     worst = 0.0
     ins = {}
@@ -2239,29 +2355,28 @@ def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
     # K7
     be, n_rows, cfg = moe["be"], moe["n_rows"], moe["cfg"]
     times["grouped_matmul"] = {}
-    for (proj, dt), (x, w) in moe["ins"].items():
-        label = f"{cfg.name} {n_rows} rows {proj} {DT_NAME[dt]}"
+    for (proj, xd, wd), (x, w) in moe["ins"].items():
+        label = f"{cfg.name} {n_rows} rows {proj} {pair_name(xd, wd)}"
         r = {"ms": time_ms(lambda: km.ops.expert_matmul(x, w, be)),
              "plain_ms": time_ms(lambda: km.gm.grouped_matmul_plain(x, w, be)),
-             "variant": km.gm.variant(x.dtype, w.dtype)}
-        # x, the weights of the experts that own a block and y, each once
-        item = x.element_size()
-        t_bytes = ((x.numel() + moe["used"] * w[0].numel() + n_rows * w.shape[2]) * item
-                   / HBM_BYTES_PER_S * 1e3)
+             "variant": km.gm.variant(xd, wd), "products": km.gm.products(xd, wd)}
+        r["bound_ms"], r["bound_by"] = k7_bound(km.gm, x, w, n_rows, moe["used"])
         flops = 2 * n_rows * x.shape[1] * w.shape[2]
-        peak = F32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S
-        t_ops = flops / peak * 1e3
-        r["bound_ms"], r["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        wg = w[be.long()]  # the yardstick's gather, outside the timing
-        xb = x.view(-1, 128, x.shape[1])
-        r["library_ms"] = time_ms(lambda: torch.bmm(xb, wg))
-        del wg
-        torch.cuda.empty_cache()
+        if xd == wd:  # one torch.bmm computes the same function (f32 in full f32)
+            wg = w[be.long()]  # the yardstick's gather, outside the timing
+            xb = x.view(-1, 128, x.shape[1])
+            r["library_ms"] = time_ms(lambda: torch.bmm(xb, wg))
+            lib_s = f"torch.bmm over w[block_expert] {r['library_ms']:.3f} ms"
+            del wg
+            torch.cuda.empty_cache()
+        else:
+            r["library_ms"] = None
+            lib_s = "library null: no one PyTorch call multiplies mixed dtypes"
         times["grouped_matmul"][label] = r
-        log(f"   K7 {label}: variant {r['variant']}, {r['ms']:.3f} ms ({flops / r['ms'] / 1e9:.1f}"
-            f" TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of the bound), plain {r['plain_ms']:.3f} "
-            f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), torch.bmm over "
-            f"w[block_expert] {r['library_ms']:.3f} ms")
+        log(f"   K7 {label}: variant {r['variant']} ({r['products']} products), {r['ms']:.3f} ms "
+            f"({flops / r['ms'] / 1e9:.1f} TFLOP/s of the contract, {r['bound_ms'] / r['ms']:.3f} "
+            f"of the bound), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), {lib_s}")
     # K8
     times["flash_attention"] = {}
     t = attn["t"]
@@ -2730,12 +2845,13 @@ def serve_traffic(rt, km, structs, g, name, count, **svc_kw):
 
 
 def serve_steady(rt, km, structs, g, backend, cache, out) -> None:
-    """(a)/(b) 16 requests alternating the two structures at max_batch 8,
-    validate="host": every group batched, one batched launch of the
-    backend's kernel a group (none of any other), no plain stage, no
-    fault/dtype/nan_guard key; values against the plain replay, one
-    response per structure against scipy in float64."""
-    kernel = REPLAY_KERNEL[backend]
+    """(a)/(b)/(a') 16 requests alternating the two structures at max_batch
+    8, validate="host": every group batched, one batched launch of the
+    backend's kernel a group (none of any other; K1's for "auto", the
+    default), no plain stage, no fault/dtype/nan_guard key; values against
+    the plain replay, one response per structure against scipy in float64."""
+    served = "pallas" if backend == "auto" else backend  # "auto" replays through K1 here
+    kernel = REPLAY_KERNEL[served]
     name = f"steady load, backend {backend!r}"
     svc, sent, resps, launches, stages, (t_admit, t_drain) = serve_traffic(
         rt, km, structs, g, name, 16, backend=backend, max_batch=8, plan_cache=cache)
@@ -2746,7 +2862,7 @@ def serve_steady(rt, km, structs, g, backend, cache, out) -> None:
     for key in ("executor_apply_batched", "numeric_reuse", "executor_apply"):
         require(key not in stages, f"{name}: stage {key} ran {stages.get(key)} times")
     check_fallbacks(rt, name)
-    err = check_responses(km, name, svc, sent, resps, backend, 4)
+    err = check_responses(km, name, svc, sent, resps, served, 4)
     if backend == "pallas":
         for label in SERVE_LABELS:
             i = SERVE_LABELS.index(label)
@@ -3038,6 +3154,7 @@ def phase_serve(rt, km, seed: int, root: Path, smi: str, grid=2048, rmat_scale=1
     # each run sets the counts to 0 first; its launches are added up after it
     for run in (lambda: serve_steady(rt, km, structs, g, "pallas", cache, out),
                 lambda: serve_steady(rt, km, structs, g, "pallas_lp", cache, out),
+                lambda: serve_steady(rt, km, structs, g, "auto", cache, out),
                 lambda: serve_singletons(rt, km, structs, g, cache, out),
                 lambda: serve_chaos(rt, km, structs, g, cache, root, out),
                 lambda: serve_warming(rt, km, structs, g, out),
@@ -4856,17 +4973,20 @@ def check_example(rt, name, run, window) -> None:
 
     * quickstart: K5 and K4 or K3 (``pallas_spgemm``), K1 once (the one
       sparse fresh multiply; R*AP and the fresh check take the dense method);
-    * multigrid_reuse: K1 twice (the setup's two sparse fresh multiplies;
-      the "auto" executors replay plain, as the reference's);
+    * multigrid_reuse: K1 13 times: the setup's two sparse fresh
+      multiplies, 5 steps of two replays through the default ("auto")
+      executors, and the batch check's replay (the fresh check takes the
+      dense method); batched K1 4 times: 2 batches (the warm-up and the
+      timed one) of two products;
     * accumulator_crossover: K1 twice (step 1's sparse multiplies), K2 four
       times (the lp multiply and three replays), K3 once (the spill);
     * serve_spgemm: batched K1 (every group of two or more) and single K1,
       K2 only inside the armed ``kernel:pallas`` window (two ladder steps,
       two short circuits), fault keys only there;
     * dist_multigrid: K1 once a live shard a replay: A*P 11 replays (setup,
-      8 steps, 2 checks), R*AP 9 (setup, 8 steps), and once for the
-      single-device pin's fresh multiply; batched K1 twice a live A*P
-      shard;
+      8 steps, 2 checks), R*AP 9 (setup, 8 steps), and 3 times for the
+      single-device check (its pin's fresh multiply and its default
+      executor's two replays); batched K1 twice a live A*P shard;
     * serve_lm, train_lm: no launch.
     """
     got = run["launches"]
@@ -4875,7 +4995,8 @@ def check_example(rt, name, run, window) -> None:
                 and got.get("K1") == 1 and set(got) <= {"K1", "K3", "K4", "K5"},
                 f"quickstart: launches {got}")
     elif name == "multigrid_reuse":
-        require(got == {"K1": 2}, f"multigrid_reuse: launches {got}, not K1 twice")
+        want = {"K1": 2 + 5 * 2 + 1, "K1 batched": 2 * 2}
+        require(got == want, f"multigrid_reuse: launches {got}, not {want}")
     elif name == "accumulator_crossover":
         require(got == {"K1": 2, "K2": 4, "K3": 1}, f"accumulator_crossover: launches {got}")
     elif name == "serve_spgemm":
@@ -4900,7 +5021,7 @@ def check_example(rt, name, run, window) -> None:
         live = re.search(r"live shards: A\*P (\d+), R\*AP (\d+)", "\n".join(run["lines"]))
         require(live is not None, "dist_multigrid: no live-shard line")
         ap, rap = (int(x) for x in live.groups())
-        want = {"K1": 11 * ap + 9 * rap + 1, "K1 batched": 2 * ap}
+        want = {"K1": 11 * ap + 9 * rap + 3, "K1 batched": 2 * ap}
         require(got == want, f"dist_multigrid: launches {got}, not {want}")
     else:
         require(got == {}, f"{name}: launched {got}")
@@ -4990,6 +5111,7 @@ def main(argv=None) -> int:
         PlanCache = rt_core.PlanCache
         numeric_reuse = staticmethod(rt_core.numeric_reuse)
         replay_candidates = staticmethod(executor.replay_candidates)
+        spgemm_grouped = staticmethod(rt_core.spgemm_grouped)
 
     # the selection and robustness layer: counters, tuner, faults, obs
     rt.telemetry, rt.autotune, rt.faults, rt.recorder, rt.trace = (
@@ -5069,6 +5191,7 @@ def main(argv=None) -> int:
         with Phase("phase 5b: where the time goes (torch.profiler)"):
             phase_profile(rt, mg, pw)
     mg_launches, mg_worst = mg["multigrid_launches"], mg["multigrid_worst"]
+    mg_default = mg["default_replay"]
     mg.clear()
     for key in ("rmat_res", "rmat_ex"):
         del pw[key]
@@ -5128,7 +5251,8 @@ def main(argv=None) -> int:
         phase_examples(rt, km, Path(__file__).resolve().parent)
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
-    serve_worst = max(serve[k]["worst"] for k in ("pallas", "pallas_lp", "singletons", "chaos"))
+    serve_worst = max(serve[k]["worst"]
+                      for k in ("pallas", "pallas_lp", "auto", "singletons", "chaos"))
     kernels = [
         {"name": "segsum_reuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segsum_reuse.cu",
@@ -5144,7 +5268,10 @@ def main(argv=None) -> int:
          "sharded_launches": dist["launches"],
          "sharded_batched_launches": dist["batched_launches"],
          "sharded_ms": dist["cells"][DIST_LABELS[0]]["runs"][f"S={DIST_SHARDS} replicated"]["ms"],
-         "sharded_shape": f"multigrid A*P, S={DIST_SHARDS} replicated (whole apply)"},
+         "sharded_shape": f"multigrid A*P, S={DIST_SHARDS} replicated (whole apply)",
+         "default_replay_ms": mg_default["ms"],
+         "default_launches": mg_default["launches"]["segsum_reuse"]
+         + mg_default["launches"]["segsum_reuse_batched"]},
         {"name": "lp_reuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lp_reuse.cu",
          "replaces": "src/repro/kernels/spgemm_lp.py:302",

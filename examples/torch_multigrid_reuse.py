@@ -9,10 +9,11 @@ ever) and replays the numeric phase as one dispatch per multiply, or ONE
 batched dispatch for a whole ensemble of timesteps (``apply_batched``).
 
 On the card the setup's two fresh multiplies take their numeric phase from
-the CUDA kernel K1; the executors' "auto" backend replays through the plain
-torch path, as the reference's does (the kernels are an explicit opt-in:
-backend="pallas" or "pallas_lp"). Times are host clock around synchronised
-calls. Runs on the card by default; --device cpu runs it on the CPU:
+the CUDA kernel K1, and the executors' default "auto" backend replays
+through K1 too (a batch through K1's batched launch), as every f32 replay
+on the card does; on the CPU "auto" is the plain torch replay, as the
+reference's. Times are host clock around synchronised calls. Runs on the
+card by default; --device cpu runs it on the CPU:
 
     PYTHONPATH=src python examples/torch_multigrid_reuse.py [--device cpu]
 

@@ -13,13 +13,18 @@ replays it on new operand values:
     group once.
 
 Backends keep the reference's names (``kernels.BACKEND_NAMES`` says what
-each runs here): "xla" is the plain torch ``numeric_reuse`` and what "auto"
-resolves to, "pallas" the CUDA ``segsum_reuse`` kernel, "pallas_lp" the CUDA
-``lp_reuse`` kernel. The kernels accumulate in f32, so f64/int operands take
-the plain path and bump ``FALLBACK_COUNTS["dtype:executor->xla"]``. Batched
-replay runs the plain path on the CPU, as in the reference (whose batched
-replay is always its vmapped XLA formulation); on the card a kernel backend
-runs its batched kernel, under the same ladder as ``apply``.
+each runs here): "xla" is the plain torch ``numeric_reuse``, "pallas" the
+CUDA ``segsum_reuse`` kernel, "pallas_lp" the CUDA ``lp_reuse`` kernel.
+"auto" is the rule of a fresh multiply (``core.spgemm.fresh_backend``),
+taken per replay from the operands (``auto_backend``): K1 ("pallas") for
+CUDA operands that the reference sums in f32, the plain "xla" on the CPU
+(bitwise the reference's, whose "auto" is XLA) and for bf16 x bf16 and f16
+x f16, which the reference sums in their own dtype. The kernels accumulate
+in f32, so f64/int operands take the plain path and bump
+``FALLBACK_COUNTS["dtype:executor->xla"]`` on the card. Batched replay runs
+the plain path on the CPU, as in the reference (whose batched replay is
+always its vmapped XLA formulation); on the card a kernel backend, "auto"
+included, runs its batched kernel, under the same ladder as ``apply``.
 
 The reference's selection and robustness options, with its defaults:
 ``tune="measure"`` times the eligible replay backends on the first
@@ -39,7 +44,8 @@ On the CPU it is the reference's: the next rung after a kernel, a measured
 candidate, and the nan guard's rerun. On the card none of the three: the two
 replay kernels are each the other's rung and rerun, and only they are
 measured; the plain replay runs there only as the backend a caller picks
-("xla", "auto") or where the dtype guard sends f64/int operands.
+("xla"), for the bf16 x bf16 and f16 x f16 that "auto" leaves to it, or
+where the dtype guard sends f64/int operands.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from repro_torch.core.plan_cache import default_plan_cache, structure_key
 from repro_torch.core.spgemm import (
     SpgemmPlan,
     _note_stage,
+    fresh_backend,
     lp_replay_values,
     numeric_reuse,
     prepare_sparse_inputs,
@@ -93,11 +100,26 @@ def reset_dispatch_counts() -> None:
 
 
 def _resolve_backend(backend: str) -> str:
+    """The pinned backend's name: "auto" reads "xla", the reference's, until
+    a replay's operands resolve it (``auto_backend``)."""
     if backend not in BACKENDS:
         raise SpgemmConfigError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    # "auto" stays on the plain path, as in the reference: the kernels are
-    # explicit opt-in
     return "xla" if backend == "auto" else backend
+
+
+def auto_backend(a_values: torch.Tensor, b_values: torch.Tensor) -> str:
+    """What ``backend="auto"`` replays these operands through: the rule of a
+    fresh multiply (``fresh_backend``), "pallas" (K1) for CUDA operands the
+    reference sums in f32, else "xla". CUDA operands that the dtype guard
+    refuses (f64, integers) bump ``FALLBACK_COUNTS["dtype:executor->xla"]``;
+    bf16 x bf16 and f16 x f16 take "xla" with no key."""
+    backend = fresh_backend(a_values, b_values)
+    if backend == "xla" and ladder.kernels_only(a_values.device) and not f32_accumulation_ok(
+            a_values.dtype, b_values.dtype):
+        from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
+
+        FALLBACK_COUNTS["dtype:executor->xla"] += 1
+    return backend
 
 
 def _replay(plan: SpgemmPlan, a_values, b_values, backend: str):
@@ -210,8 +232,12 @@ class ReuseExecutor:
     ``apply`` dispatches the pinned winner. ``kernel_source`` records the
     provenance ("static", then "measured", or "fallback" after a ladder
     step, which ``last_step`` names, e.g. "pallas->pallas_lp"). Requires
-    ``backend="auto"``. ``apply_batched`` takes the pinned backend as it
-    stands: "auto" and "xla" the plain batched formulation.
+    ``backend="auto"``. Without ``tune``, "auto" resolves per replay
+    (``auto_backend``): K1 on the card for f32-summed operands, the plain
+    replay on the CPU; ``backend`` then reads "xla" and ``last_backend``
+    names the backend that gave the last ``apply`` or ``apply_batched``
+    (after a ladder step, the rung that ran). ``apply_batched`` takes the
+    pinned backend as it stands: "xla" the plain batched formulation.
 
     Robustness knobs (see the module docstring): ``validate``,
     ``nan_guard``, ``watchdog``, ``on_kernel_failure``.
@@ -229,9 +255,12 @@ class ReuseExecutor:
         ladder.check_policy(on_kernel_failure)
         self.plan = plan
         self.backend = _resolve_backend(backend)
+        # "auto" without measure: resolved per replay by auto_backend
+        self.auto = backend == "auto" and tune != "measure"
         self.tune = tune
         self.kernel_source = "static"
         self.last_step: str | None = None  # the ladder's last "<failed>-><next>"
+        self.last_backend: str | None = None  # the backend that gave the last replay
         self._needs_measure = tune == "measure"
         # the executor's default is a literal "off", not None: replay is the
         # hot path, and $REPRO_VALIDATE must not change it behind a serving
@@ -324,40 +353,49 @@ class ReuseExecutor:
                 "invalidates")
         if self._guard is not None:
             self._guard.check_values(a_values, b_values, self.validate_mode)
-        out = self._dispatch(a_values, b_values)
+        out, backend = self._dispatch(a_values, b_values)
         if self.nan_guard:
-            out = self._nan_check(out, a_values, b_values)
+            out = self._nan_check(out, a_values, b_values, backend)
         return out
+
+    def _backend_for(self, a_values, b_values) -> str:
+        """The backend this replay dispatches: the pin, or for "auto" the one
+        ``auto_backend`` picks for these operands (which counts the dtype
+        guard's refusals itself)."""
+        if self.auto:
+            return auto_backend(a_values, b_values)
+        if self.backend in OTHER_KERNEL and not f32_accumulation_ok(a_values.dtype,
+                                                                   b_values.dtype):
+            from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
+
+            FALLBACK_COUNTS["dtype:executor->xla"] += 1
+        return self.backend
 
     def _dispatch(self, a_values, b_values):
         """One replay under the degradation ladder and the watchdog. With
         tracing off this is the bare ladder; with it on, a
-        ``numeric.dispatch`` span and a flight-recorder event."""
-        backend = self.backend
-        if backend in ("pallas", "pallas_lp") and not f32_accumulation_ok(
-                a_values.dtype, b_values.dtype):
-            from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
-
-            FALLBACK_COUNTS["dtype:executor->xla"] += 1
+        ``numeric.dispatch`` span and a flight-recorder event, both naming
+        the backend dispatched. Returns (values, that backend)."""
+        backend = self._backend_for(a_values, b_values)
         if not obs_trace.enabled():
-            return self._run_ladder(a_values, b_values, backend)
+            return self._run_ladder(a_values, b_values, backend), backend
         t0 = time.perf_counter()
         with obs_trace.span("numeric.dispatch", kernel=backend,
                             site="executor") as sp:
             out = self._run_ladder(a_values, b_values, backend, sp=sp)
         recorder.record(
-            "dispatch", kernel=self.backend, structure_key=self._skey,
+            "dispatch", kernel=backend, structure_key=self._skey,
             shapes=f"{tuple(a_values.shape)}x{tuple(b_values.shape)}",
             duration_s=time.perf_counter() - t0,
             verdict=("fallback" if sp.attrs.get("fallback") else "ok"),
             trace_id=obs_trace.current_trace_id())
-        return out
+        return out, backend
 
     def _run_ladder(self, a_values, b_values, backend, sp=None, batched=False):
         """The degradation ladder proper (``replay_rungs``), each rung one
         replay (one batched launch for ``apply_batched``). Typed errors (a
         kernel library that cannot be built included) and watchdog verdicts
-        pass through."""
+        pass through. Sets ``last_backend`` to the rung that ran."""
         replay = _replay_batched_kernel if batched else _replay
 
         def stepped(step: str) -> None:
@@ -366,7 +404,7 @@ class ReuseExecutor:
             if sp is not None:
                 sp.set("fallback", step)
 
-        out, _ = ladder.walk(
+        out, self.last_backend = ladder.walk(
             replay_rungs(backend, ladder.kernels_only(a_values.device)),
             lambda name: self._timed(lambda: replay(self.plan, a_values, b_values, name)),
             on_kernel_failure=self.on_kernel_failure, site="executor",
@@ -382,26 +420,27 @@ class ReuseExecutor:
                                 + DISPATCH_COUNTS["apply_batched"]):
             return block_until_ready(run())
 
-    def _nan_check(self, out, a_values, b_values):
-        """Opt-in output guard: on a non-finite output, rerun once and
-        classify — "recovered" (the rerun's output is finite: a kernel-side
-        fault, the rerun is returned) or "data" (the operands carry NaN/Inf:
-        flagged, the rerun is returned). The rerun is the plain replay on
-        the CPU; on the card a replay kernel's rerun is the other kernel."""
+    def _nan_check(self, out, a_values, b_values, backend):
+        """Opt-in output guard: on a non-finite output of a replay dispatched
+        to ``backend``, rerun once and classify — "recovered" (the rerun's
+        output is finite: a kernel-side fault, the rerun is returned) or
+        "data" (the operands carry NaN/Inf: flagged, the rerun is returned).
+        The rerun is the plain replay on the CPU; on the card a replay
+        kernel's rerun is the other kernel."""
         if not out.is_floating_point() or bool(torch.isfinite(out).all()):
             return out
         from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
 
         FALLBACK_COUNTS["nan_guard:rerun"] += 1
-        rungs = replay_rungs(self.backend, ladder.kernels_only(a_values.device))
+        rungs = replay_rungs(backend, ladder.kernels_only(a_values.device))
         oracle = (numeric_reuse(self.plan, a_values, b_values) if rungs[-1] == "xla"
                   else _replay(self.plan, a_values, b_values, rungs[-1]))
         if bool(torch.isfinite(oracle).all()):
             FALLBACK_COUNTS["nan_guard:recovered"] += 1
-            self.nan_events.append(("recovered", self.backend))
+            self.nan_events.append(("recovered", backend))
             return oracle
         FALLBACK_COUNTS["nan_guard:data"] += 1
-        self.nan_events.append(("data", self.backend))
+        self.nan_events.append(("data", backend))
         return oracle
 
     def apply_batched(self, a_values: torch.Tensor,
@@ -410,12 +449,13 @@ class ReuseExecutor:
 
         Either operand may be stacked ``(batch, operand_nnz_cap)`` or shared
         ``(operand_nnz_cap,)``; at least one must be stacked. On the card,
-        with backend "pallas" or "pallas_lp" and operands the dtype guard
-        admits, one batched launch of that kernel under the degradation
-        ladder (K1 <-> K2, ``fault:<k>-><other>``); f64/int operands there
-        take the plain path and bump ``dtype:executor->xla``. Everywhere
-        else (CPU tensors, "xla") the plain batched formulation, as in the
-        reference.
+        with backend "pallas" or "pallas_lp" (or "auto" where it resolves to
+        "pallas") and operands the dtype guard admits, one batched launch of
+        that kernel under the degradation ladder (K1 <-> K2,
+        ``fault:<k>-><other>``); f64/int operands there take the plain path
+        and bump ``dtype:executor->xla``. Everywhere else (CPU tensors,
+        "xla", "auto" for bf16 x bf16 and f16 x f16) the plain batched
+        formulation, as in the reference.
         """
         DISPATCH_COUNTS["apply_batched"] += 1
         if a_values.ndim != 2 and b_values.ndim != 2:
@@ -426,16 +466,18 @@ class ReuseExecutor:
             self._guard.check_values(a_values, b_values, self.validate_mode,
                                      batched=True)
         batch = a_values.shape[0] if a_values.ndim == 2 else b_values.shape[0]
-        kernel = self.backend in OTHER_KERNEL and ladder.kernels_only(a_values.device)
+        backend = auto_backend(a_values, b_values) if self.auto else self.backend
+        kernel = backend in OTHER_KERNEL and ladder.kernels_only(a_values.device)
         if kernel and not f32_accumulation_ok(a_values.dtype, b_values.dtype):
             from repro_torch.core.telemetry import FALLBACK_COUNTS  # cycle-free
 
             FALLBACK_COUNTS["dtype:executor->xla"] += 1
             kernel = False
-        backend = self.backend if kernel else "xla"
+        backend = backend if kernel else "xla"
         with obs_trace.span("numeric.dispatch", kernel=backend, site="executor",
                             batch=batch) as sp:
             if backend == "xla":
+                self.last_backend = "xla"
                 return self._timed(lambda: _replay_batched(self.plan, a_values, b_values))
             return self._run_ladder(a_values, b_values, backend, sp=sp, batched=True)
 
@@ -460,7 +502,8 @@ def spgemm_grouped(pairs: Sequence[tuple[CSR, CSR]], *,
     else the bucket table, else a first-sight measurement, written back to
     the entry), as ``spgemm(tune="measure")`` does. Batched groups replay
     through ``apply_batched`` with the caller's ``backend``: on the card a
-    kernel backend is one batched launch a group. Requires backend="auto".
+    kernel backend, and "auto" for f32-summed operands, is one batched
+    launch a group. Requires backend="auto".
     """
     _check_tune(tune, backend)
     policy = DEFAULT_PAD_POLICY if pad_policy is None else pad_policy

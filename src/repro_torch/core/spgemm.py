@@ -447,8 +447,9 @@ FRESH_RUNGS = ("pallas", "pallas_lp")
 
 
 def fresh_backend(a_values: torch.Tensor, b_values: torch.Tensor) -> str:
-    """What sums a fresh multiply's values: "pallas" (K1) for CUDA operands
-    that ``f32_accumulation_ok`` admits and that the reference sums in f32
+    """What sums a fresh multiply's values, and a default ("auto") replay's
+    (``core.executor.auto_backend``): "pallas" (K1) for CUDA operands that
+    ``f32_accumulation_ok`` admits and that the reference sums in f32
     (``promote_types`` float32), else "xla", the plain ``numeric_reuse``:
     on the CPU, for bf16 x bf16 and f16 x f16 (the reference sums them in
     their own dtype), and for f64 and integer operands."""

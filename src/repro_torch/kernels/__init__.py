@@ -19,8 +19,11 @@ Kernels (``csrc/``, built by ``_build``):
                     shared memory once, streams B blocks through a cp.async
                     ring and sums each C block in registers (f32 FMAs)
                     (``plan_bsr_numeric`` is its symbolic phase, on the device)
-  grouped_matmul  — K7, MoE expert-grouped matmul: a tiled f32 GEMM per
-                    128-token block, the weight tile chosen by block_expert
+  grouped_matmul  — K7, MoE expert-grouped matmul: a tiled GEMM per 128-token
+                    block with f32 sums, the weight tile chosen by
+                    block_expert: "wgmma" for bf16 x bf16 and f16 x f16,
+                    "tf32" for every other pair (mma.sync in split TF32: 3
+                    products for f32 x f32, 2 for f32 with a 16-bit type)
   flash_attention — K8, attention forward with GQA, sliding window and logit
                     softcap (replaces the TPU kernel
                     repro/kernels/flash_attention.py; bound by operations at
@@ -41,7 +44,10 @@ from repro_torch.kernels.grouped_matmul import grouped_matmul
 __all__ = ["BACKEND_NAMES", "NUMERIC_KERNEL_NAMES", "bsr_spgemm_numeric",
            "flash_attention", "grouped_matmul", "plan_bsr_numeric"]
 
-# backend string (the reference's) -> what it runs in the port
+# backend string (the reference's) -> what it runs in the port. "auto" is not
+# a backend of its own: per replay it is "pallas" for CUDA operands that the
+# reference sums in f32 and "xla" elsewhere (core.executor.auto_backend); an
+# explicit "xla" is the plain replay on either device.
 BACKEND_NAMES = {
     "xla": "plain torch core.spgemm.numeric_reuse (batched: executor._replay_batched)",
     "pallas": "CUDA kernel segsum_reuse (kernels/csrc/segsum_reuse.cu), single and batched",

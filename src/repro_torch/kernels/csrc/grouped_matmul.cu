@@ -9,14 +9,16 @@
 // into [0, E).
 //
 // What bounds it: at the MoE widths (d 2,048, f 768, 128 experts, 317 token
-// blocks) the bytes, just: 2 * T * d * f flops (127.6 GFLOP, 0.129 ms at
-// 989 TFLOP/s in bf16) against T * d + E * d * f + T * f values (631 MB,
-// 0.188 ms at 3.35 TB/s). Each weight tile serves the 128 tokens of a block,
-// and the token blocks of one expert are adjacent, so they meet it in L2.
+// blocks) in bf16 the bytes, just: 2 * T * d * f flops (127.6 GFLOP, 0.129 ms
+// at 989 TFLOP/s) against T * d + E * d * f + T * f values (631 MB, 0.188 ms
+// at 3.35 TB/s). In f32 the operations: three TF32 products (below) of 127.6
+// GFLOP each at 495 TFLOP/s, 0.773 ms, against 1.262 GB (0.377 ms). Each
+// weight tile serves the 128 tokens of a block, and the token blocks of one
+// expert are adjacent, so they meet it in L2.
 //
 // Two variants, chosen by the dtype pair in variant_of, the one rule that the
-// launcher and grouped_matmul_variant read; a failed launch is an error, never
-// a fallback:
+// launcher, grouped_matmul_variant and grouped_matmul_products read; a failed
+// launch is an error, never a fallback:
 //
 // "wgmma" -- x and w both bf16 or both f16. A product of two such values is
 // exact in f32, so tensor cores with f32 accumulators keep the contract. One
@@ -40,15 +42,41 @@
 // gathers 8 consecutive columns into each lane of a quad with three
 // shuffles, and writes 16-byte stores.
 //
-// "fma" -- every other pair (f32, mixed types). One thread block per (token
-// block, 128-column f tile) whose loop over d takes the place of the TPU's
-// sequential d axis. Each step stages a 128 x 16 slice of x (transposed) and
-// a 16 x 128 slice of w in shared memory as f32, with 16-byte global loads;
-// 256 threads each keep an 8 x 8 f32 tile of y in registers (rows ty*4 + i
-// and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j, so the shared-memory
-// reads are conflict-free float4s) and add 64 FMAs per pair of fragments.
-// f32 operands would be rounded by TF32 tensor cores; a bf16 x f16 pair is
-// exact in TF32, a later step.
+// "tf32" -- every other pair (f32 x f32, f32 with bf16 or f16 in either
+// order, bf16 x f16 in either order) on tensor cores in split TF32. TF32
+// keeps 11 significant bits, a relative error of about 5e-4 where the f32
+// contract asks for about 1e-6, so each f32 operand v is split into
+// big = cvt.rna.tf32(v) and small = cvt.rna.tf32(v - big), and
+//   y = xs * wb + xb * ws + xb * wb
+// in f32, the small terms first (CUTLASS's 3xTF32; xs * ws is dropped,
+// about 2^-22 of |x * w| a term). A bf16 or f16 value is exact in TF32 and
+// has no small part, so a pair takes 3 products (f32 x f32), 2 (f32 with a
+// 16-bit type) or 1 (bf16 x f16). The tensor cores' own adds truncate: summed
+// over all of d in one accumulator they moved y by a relative 1.4e-5 (K7_FRO
+// is 5e-6), so each stage's products go to a fresh accumulator, added to y
+// in f32 after the stage. wgmma's TF32 form takes both operands K-major,
+// and w is MN-major (f contiguous): so A (x) comes from registers, split
+// there, and each stage of w is rewritten once in shared memory, in the pass
+// that splits it, as K-major panels (big, and small for f32 w) with the
+// 128-byte swizzle. One block of two warpgroups per (token block, 128-column
+// f tile), one block an SM: a ring of kSwStages raw slices of 32 values of d
+// (x's 128 rows, w's 32 rows of 128) filled by 16-byte cp.async two stages
+// ahead; per stage each warpgroup loads and splits its A fragments, issues
+// 12, 8 or 4 wgmma.m64n128k8 on the stage's panels, and rewrites the next
+// stage's w into the other pair of panels while they run. Within a stage
+// the panel's d order is permuted (k_of) so that a lane's x values of the
+// whole stage are 8 consecutive ones.
+//
+// "mma" -- the same split on mma.sync.m16n8k8, fragments gathered from
+// shared memory in any layout and split in registers (8 warps of 64 x 32,
+// two blocks an SM), built only with -DGROUPED_MATMUL_FORCE_VARIANT=2, for
+// scripts/k7_variants.py to time beside the wgmma design.
+//
+// "fma" -- the first f32 FMA kernel (f32 tiles in shared memory, an 8 x 8
+// register tile a thread), built only with -DGROUPED_MATMUL_FORCE_VARIANT=1,
+// which then runs every pair on it. scripts/k7_variants.py compiles such
+// libraries from copies of this file to time the earlier designs against
+// the port's. The port never builds them.
 #include <climits>
 #include <cstring>
 #include <cuda.h>
@@ -75,9 +103,10 @@ __device__ __forceinline__ int64_t block_expert_of(const GroupedArgs& r, int64_t
 }
 
 // ---------------------------------------------------------------------------
-// "fma": f32 FMAs over shared-memory tiles
+// "fma": f32 FMAs over shared-memory tiles (only in a forced build)
 // ---------------------------------------------------------------------------
 
+#if defined(GROUPED_MATMUL_FORCE_VARIANT) && GROUPED_MATMUL_FORCE_VARIANT == 1
 constexpr int kTN = 128;  // f columns per block
 constexpr int kTK = 16;   // d per step
 constexpr int kThreads = 256;
@@ -178,6 +207,7 @@ int launch_fma(const GroupedArgs& r) {
   grouped_matmul_kernel<TX, TW><<<grid, kThreads, 0, r.stream>>>(r);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // GROUPED_MATMUL_FORCE_VARIANT == 1
 
 // ---------------------------------------------------------------------------
 // "wgmma": bf16 x bf16 and f16 x f16 on tensor cores, TMA-fed stages
@@ -423,6 +453,491 @@ __global__ void __launch_bounds__(kWgThreads, kWgMinBlocks)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Split TF32, and "mma": the split on mma.sync.m16n8k8 (only in a forced build)
+// ---------------------------------------------------------------------------
+
+constexpr int kTfN = 128;       // f columns per block
+constexpr int kTfK = 32;        // d per stage
+constexpr int kTfStages = 3;
+constexpr int kTfThreads = 256;  // 8 warps: 2 along the rows x 4 along f, 64 x 32 each
+constexpr int kTfMinBlocks = 2;
+
+// One stage of the ring: x's kTM rows of kTfK values, then w's kTfK rows of
+// kTfN values, each row padded by 16 bytes (x) or 8 values (w), so that the
+// fragment loads of a warp (8 rows x 4 values of x, 4 rows x 8 values of w)
+// fall in 32 banks.
+template <typename TX, typename TW>
+struct TfStage {
+  static constexpr int kXPitch = kTfK + 16 / static_cast<int>(sizeof(TX));
+  static constexpr int kWPitch = kTfN + 8;
+  static constexpr int kXBytes = kTM * kXPitch * static_cast<int>(sizeof(TX));
+  static constexpr int kBytes = kXBytes + kTfK * kWPitch * static_cast<int>(sizeof(TW));
+  static constexpr int kSmem = kTfStages * kBytes;
+  static_assert(kXBytes % 16 == 0 && kBytes % 16 == 0, "16-byte cp.async targets");
+  static_assert(kTfMinBlocks * (kSmem + 1024) <= 233472, "two blocks do not fit an SM");
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// v rounded to TF32, to nearest with ties away from zero, in f32's layout
+// (the 13 low bits of the mantissa cleared).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t out;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(out) : "f"(v));
+  return out & 0xffffe000u;
+}
+
+// (big, small) of v: big = tf32(v), small = tf32(v - big); a 16-bit value is
+// its own big part (exact in TF32) and has no small one.
+template <bool kSplit>
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  if constexpr (kSplit) {
+    big = to_tf32(v);
+    small = to_tf32(v - __uint_as_float(big));
+  } else {
+    big = __float_as_uint(v);
+    small = 0u;
+  }
+}
+
+// D (16 x 8, f32) += A (16 x 8, row) * B (8 x 8, col), TF32 operands.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// D = A * B (no addend).
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
+}
+
+// Stage kt's slices of x and w into ring slot kt % kTfStages: 16-byte
+// cp.asyncs, a few a thread.
+template <typename TX, typename TW>
+__device__ __forceinline__ void tf_load(unsigned char* ring, const TX* x, const TW* w, int64_t d,
+                                        int64_t f, int kt, int tid) {
+  using S = TfStage<TX, TW>;
+  unsigned char* stage = ring + (kt % kTfStages) * S::kBytes;
+  TX* xs = reinterpret_cast<TX*>(stage);
+  TW* ws = reinterpret_cast<TW*>(stage + S::kXBytes);
+  const int64_t k0 = static_cast<int64_t>(kt) * kTfK;
+  constexpr int kXv = 16 / static_cast<int>(sizeof(TX));  // values a copy
+  constexpr int kXc = kTfK / kXv;                         // copies a row
+  constexpr int kWv = 16 / static_cast<int>(sizeof(TW));
+  constexpr int kWc = kTfN / kWv;
+  static_assert((kTM * kXc) % kTfThreads == 0 && (kTfK * kWc) % kTfThreads == 0,
+                "every thread issues the same copies");
+#pragma unroll
+  for (int i = 0; i < kTM * kXc / kTfThreads; ++i) {
+    const int c = tid + i * kTfThreads;
+    const int row = c / kXc, col = (c % kXc) * kXv;
+    cp_async16(xs + row * S::kXPitch + col, x + row * d + k0 + col);
+  }
+#pragma unroll
+  for (int i = 0; i < kTfK * kWc / kTfThreads; ++i) {
+    const int c = tid + i * kTfThreads;
+    const int row = c / kWc, col = (c % kWc) * kWv;
+    cp_async16(ws + row * S::kWPitch + col, w + (k0 + row) * f + col);
+  }
+}
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kTfThreads, kTfMinBlocks)
+    grouped_matmul_mma(const GroupedArgs r) {
+  using S = TfStage<TX, TW>;
+  constexpr bool kSplitX = std::is_same<TX, float>::value;
+  constexpr bool kSplitW = std::is_same<TW, float>::value;
+  extern __shared__ __align__(16) unsigned char tf_ring[];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;  // the fragments' group and thread in group
+  const int wm = warp / 4, wn = warp % 4;  // rows wm * 64 .., columns wn * 32 ..
+  const int64_t tb = blockIdx.y;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kTfN;
+  const int64_t e = block_expert_of(r, tb);
+  const TX* x = static_cast<const TX*>(r.x) + tb * kTM * r.d;
+  const TW* w = static_cast<const TW*>(r.w) + e * r.d * r.f + n0;
+  const int nk = static_cast<int>(r.d / kTfK);
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTfStages - 1; ++s) {
+    if (s < nk) tf_load(tf_ring, x, w, r.d, r.f, s, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kTfStages - 2>();  // stage kt has landed (this thread's copies)
+    __syncthreads();  // ... everyone's; and stage kt - 1 is no longer read
+    if (kt + kTfStages - 1 < nk) tf_load(tf_ring, x, w, r.d, r.f, kt + kTfStages - 1, tid);
+    cp_async_commit();
+    const unsigned char* stage = tf_ring + (kt % kTfStages) * S::kBytes;
+    // A fragment i: row g + 8 (i & 1), column q + 4 (i >> 1); B fragment h:
+    // row q + 4 h, column g
+    const TX* xs = reinterpret_cast<const TX*>(stage) + (wm * 64 + g) * S::kXPitch + q;
+    const TW* ws = reinterpret_cast<const TW*>(stage + S::kXBytes) + q * S::kWPitch + wn * 32 + g;
+#pragma unroll
+    for (int kk = 0; kk < kTfK; kk += 8) {
+      uint32_t wb[4][2], wsm[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          split_tf32<kSplitW>(as_f32(ws[(kk + 4 * h) * S::kWPitch + nt * 8]), wb[nt][h],
+                              wsm[nt][h]);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t xb[4], xsm[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32<kSplitX>(
+              as_f32(xs[(mt * 16 + 8 * (i & 1)) * S::kXPitch + kk + 4 * (i >> 1)]), xb[i],
+              xsm[i]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {  // the small terms first
+          if constexpr (kSplitX) {
+            // an f32 output: the step's products summed in a fresh tile, then
+            // added in f32 (the tensor cores' own adds truncate; summed over
+            // all of d they moved a relative 1.4e-5 of y where K7_FRO is 5e-6)
+            float part[4];
+            mma_tf32_first(part, xsm, wb[nt]);
+            if constexpr (kSplitW) mma_tf32(part, xb, wsm[nt]);
+            mma_tf32(part, xb, wb[nt]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[mt][nt][c] += part[c];
+          } else {
+            if constexpr (kSplitW) mma_tf32(acc[mt][nt], xb, wsm[nt]);
+            mma_tf32(acc[mt][nt], xb, wb[nt]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc[mt][nt][2 h + c]: row wm * 64 + 16 mt + g + 8 h, column wn * 32 + 8 nt + 2 q + c
+  TX* out = static_cast<TX*>(r.out) + tb * kTM * r.f + n0;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = wm * 64 + mt * 16 + g + 8 * h;
+        store2(out + row * r.f + wn * 32 + nt * 8 + 2 * q, acc[mt][nt][2 * h],
+               acc[mt][nt][2 * h + 1]);
+      }
+}
+
+template <typename TX, typename TW>
+int launch_mma(const GroupedArgs& r) {
+  if (r.d % kTfK || r.f % kTfN) return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(r.x) | reinterpret_cast<uintptr_t>(r.w) |
+       reinterpret_cast<uintptr_t>(r.out)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  constexpr int smem = TfStage<TX, TW>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(grouped_matmul_mma<TX, TW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(r.f / kTfN), static_cast<unsigned>(r.t / kTM));
+  grouped_matmul_mma<TX, TW><<<grid, kTfThreads, smem, r.stream>>>(r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// "tf32": split TF32 on wgmma, A (x) from registers, B (w) rewritten K-major
+// ---------------------------------------------------------------------------
+
+constexpr int kSwThreads = 256;  // two warpgroups of 64 token rows
+constexpr int kSwStages = 3;     // the ring of raw x and w slices (cp.async)
+constexpr int kPanelBytes = kTfN * 128;  // 128 rows of f, 32 TF32 values of d each
+
+// Position P (0..31) of a K-major panel row holds d offset k_of(P) of the
+// stage: wgmma step s = P / 8 reads positions 8 s .. 8 s + 7, and the A
+// fragment of lane q takes positions 8 s + q and 8 s + q + 4, so lane q
+// needs d offsets 8 q + 2 s and 8 q + 2 s + 1: its x values of all four
+// steps are 8 consecutive ones, two float4 loads (one for 16-bit x).
+__host__ __device__ constexpr int k_of(int p) {
+  return 8 * ((p % 8) % 4) + 2 * (p / 8) + (p % 8) / 4;
+}
+
+// One stage of the raw ring: x's kTM rows of kTfK values (f32 rows padded
+// to 36 values so that a quarter-warp's 16-byte loads hit 32 banks), then
+// w's kTfK rows of kTfN values, both as they lie in memory; then the two
+// panel buffers, each a big and (for f32 w) a small panel.
+template <typename TX, typename TW>
+struct SwSmem {
+  static constexpr bool kSmallW = std::is_same<TW, float>::value;
+  static constexpr int kXPitch = std::is_same<TX, float>::value ? kTfK + 4 : kTfK;
+  static constexpr int kXBytes = kTM * kXPitch * static_cast<int>(sizeof(TX));
+  static constexpr int kStageBytes = kXBytes + kTfK * kTfN * static_cast<int>(sizeof(TW));
+  static constexpr int kPanelsBytes = (kSmallW ? 2 : 1) * kPanelBytes;  // one buffer
+  static constexpr int kSmem = 1024 + 2 * kPanelsBytes + kSwStages * kStageBytes;
+  static_assert(kStageBytes % 16 == 0 && kXBytes % 16 == 0, "16-byte cp.async targets");
+  static_assert(kSmem <= 232448, "the block does not fit an SM");
+};
+
+#define K7_WGMMA_TF32_M64N128K8                                                                  \
+  asm volatile(                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "                                    \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "    \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "     \
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, "   \
+      "1, 1;\n}\n"                                                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),               \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),            \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),            \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),            \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),            \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),            \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),            \
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),            \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),            \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+// D (64 x 128, f32) (+)= A (64 x 8, TF32, registers: the m16n8k8 fragment of
+// each warp's 16 rows) * B (8 x 128, TF32, shared memory K-major with the
+// 128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  K7_WGMMA_TF32_M64N128K8;
+}
+#undef K7_WGMMA_TF32_M64N128K8
+
+// 16 bytes at p as 4 f32 (8 16-bit values: the first or second 4).
+__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+
+// Lane q's 8 x values of one row for the stage (d offsets 8 q .. 8 q + 7), as f32.
+__device__ __forceinline__ void x_row8(const float* row, int q, float (&v)[8]) {
+  float lo[4], hi[4];
+  lds4(row + 8 * q, lo);
+  lds4(row + 8 * q + 4, hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) { v[i] = lo[i]; v[4 + i] = hi[i]; }
+}
+template <typename T16>
+__device__ __forceinline__ void x_row8(const T16* row, int q, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * q);
+  const T16* h = reinterpret_cast<const T16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = as_f32(h[i]);
+}
+
+// Rewrite the raw w slice of a stage (kTfK rows of kTfN values, f
+// contiguous) as K-major panels: row n of f holds w[k_of(P)][n] at position
+// P, TF32 big parts in `big`, small parts in `small` (f32 w only), 16-byte
+// chunk c of row n at chunk c ^ (n % 8) (the 128-byte swizzle). Thread tid
+// takes row n = tid % 128 and chunks 4 (tid / 128) .. + 3.
+template <typename TW>
+__device__ __forceinline__ void rewrite_w(const TW* raw, unsigned char* big, unsigned char* small,
+                                          int tid) {
+  constexpr bool kSplit = std::is_same<TW, float>::value;
+  const int n = tid % kTfN;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = 4 * (tid / kTfN) + i;
+    uint32_t b[4], sm[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split_tf32<kSplit>(as_f32(raw[k_of(4 * c + j) * kTfN + n]), b[j], sm[j]);
+    const int off = n * 128 + ((c ^ (n % 8)) * 16);
+    *reinterpret_cast<uint4*>(big + off) = make_uint4(b[0], b[1], b[2], b[3]);
+    if constexpr (kSplit) *reinterpret_cast<uint4*>(small + off) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+  }
+}
+
+// Stage kt's raw x and w slices into ring slot kt % kSwStages: 16-byte
+// cp.asyncs, the same number for every thread.
+template <typename TX, typename TW>
+__device__ __forceinline__ void sw_load(unsigned char* ring, const TX* x, const TW* w, int64_t d,
+                                        int64_t f, int kt, int tid) {
+  using S = SwSmem<TX, TW>;
+  unsigned char* stage = ring + (kt % kSwStages) * S::kStageBytes;
+  TX* xs = reinterpret_cast<TX*>(stage);
+  TW* ws = reinterpret_cast<TW*>(stage + S::kXBytes);
+  const int64_t k0 = static_cast<int64_t>(kt) * kTfK;
+  constexpr int kXv = 16 / static_cast<int>(sizeof(TX));
+  constexpr int kXc = kTfK / kXv;
+  constexpr int kWv = 16 / static_cast<int>(sizeof(TW));
+  constexpr int kWc = kTfN / kWv;
+  static_assert((kTM * kXc) % kSwThreads == 0 && (kTfK * kWc) % kSwThreads == 0,
+                "every thread issues the same copies");
+#pragma unroll
+  for (int i = 0; i < kTM * kXc / kSwThreads; ++i) {
+    const int c = tid + i * kSwThreads;
+    const int row = c / kXc, col = (c % kXc) * kXv;
+    cp_async16(xs + row * S::kXPitch + col, x + row * d + k0 + col);
+  }
+#pragma unroll
+  for (int i = 0; i < kTfK * kWc / kSwThreads; ++i) {
+    const int c = tid + i * kSwThreads;
+    const int row = c / kWc, col = (c % kWc) * kWv;
+    cp_async16(ws + row * kTfN + col, w + (k0 + row) * f + col);
+  }
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kSwThreads, 1) grouped_matmul_tf32(const GroupedArgs r) {
+  using S = SwSmem<TX, TW>;
+  constexpr bool kSplitX = std::is_same<TX, float>::value;
+  constexpr bool kSplitW = S::kSmallW;
+  extern __shared__ unsigned char sw_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows
+  unsigned char* panels = sw_raw + ((1024 - (smem_u32(sw_raw) & 1023)) & 1023);
+  unsigned char* ring = panels + 2 * S::kPanelsBytes;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wg = warp / 4;  // the warpgroup: token rows wg * 64 ..
+  const int64_t tb = blockIdx.y;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kTfN;
+  const int64_t e = block_expert_of(r, tb);
+  const TX* x = static_cast<const TX*>(r.x) + tb * kTM * r.d;
+  const TW* w = static_cast<const TW*>(r.w) + e * r.d * r.f + n0;
+  const int nk = static_cast<int>(r.d / kTfK);
+  // this lane's two x rows: g and g + 8 of its warp's 16
+  const int xrow = wg * 64 + (warp % 4) * 16 + g;
+
+  auto raw_x = [&](int kt) {
+    return reinterpret_cast<const TX*>(ring + (kt % kSwStages) * S::kStageBytes);
+  };
+  auto raw_w = [&](int kt) {
+    return reinterpret_cast<const TW*>(ring + (kt % kSwStages) * S::kStageBytes + S::kXBytes);
+  };
+  auto big_panel = [&](int kt) { return panels + (kt % 2) * S::kPanelsBytes; };
+
+  sw_load(ring, x, w, r.d, r.f, 0, tid);
+  cp_async_commit();
+  if (nk > 1) sw_load(ring, x, w, r.d, r.f, 1, tid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  rewrite_w(raw_w(0), big_panel(0), big_panel(0) + kPanelBytes, tid);
+  fence_async_smem();
+  __syncthreads();
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    // A fragments of the four steps: a0 (g, 8 s + q), a1 (g + 8, 8 s + q),
+    // a2 (g, 8 s + q + 4), a3 (g + 8, 8 s + q + 4) in panel positions
+    float v0[8], v1[8];
+    x_row8(raw_x(kt) + xrow * S::kXPitch, q, v0);
+    x_row8(raw_x(kt) + (xrow + 8) * S::kXPitch, q, v1);
+    uint32_t xb[4][4], xs[4][4];
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      split_tf32<kSplitX>(v0[2 * st], xb[st][0], xs[st][0]);
+      split_tf32<kSplitX>(v1[2 * st], xb[st][1], xs[st][1]);
+      split_tf32<kSplitX>(v0[2 * st + 1], xb[st][2], xs[st][2]);
+      split_tf32<kSplitX>(v1[2 * st + 1], xb[st][3], xs[st][3]);
+    }
+    const uint32_t pb = smem_u32(big_panel(kt));
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {  // the small terms first; 8 d offsets, 32 bytes, a step
+      const uint64_t db = gmma_desc(pb + st * 32, 16, 1024);
+      if constexpr (kSplitX) wgmma_tf32(part, xs[st], db, st > 0);
+      if constexpr (kSplitW)
+        wgmma_tf32(part, xb[st], gmma_desc(pb + kPanelBytes + st * 32, 16, 1024),
+                   kSplitX || st > 0);
+      wgmma_tf32(part, xb[st], db, kSplitX || kSplitW || st > 0);
+    }
+    wgmma_commit();
+    if (kt + 2 < nk) sw_load(ring, x, w, r.d, r.f, kt + 2, tid);  // into the slot of kt - 1
+    cp_async_commit();
+    if (kt + 1 < nk) {  // the next panels, while this stage's wgmmas run
+      cp_async_wait<1>();
+      __syncthreads();
+      rewrite_w(raw_w(kt + 1), big_panel(kt + 1), big_panel(kt + 1) + kPanelBytes, tid);
+      fence_async_smem();
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+    // the stage's products summed in `part`, then added in f32 (the tensor
+    // cores' own adds truncate: over all of d they moved y by a relative
+    // 1.4e-5 in one accumulator, where K7_FRO is 5e-6)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    __syncthreads();  // the next panels are whole; this stage's slot and panels are free
+  }
+  cp_async_wait<0>();
+
+  // acc[4j + 2h + c]: row xrow + 8h, column 8j + 2q + c
+  TX* out = static_cast<TX*>(r.out) + tb * kTM * r.f + n0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < kTfN / 8; ++j)
+      store2(out + static_cast<int64_t>(xrow + 8 * h) * r.f + 8 * j + 2 * q, acc[4 * j + 2 * h],
+             acc[4 * j + 2 * h + 1]);
+}
+
+template <typename TX, typename TW>
+int launch_tf32(const GroupedArgs& r) {
+  if (r.d % kTfK || r.f % kTfN || r.d > INT_MAX || r.f > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(r.x) | reinterpret_cast<uintptr_t>(r.w) |
+       reinterpret_cast<uintptr_t>(r.out)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  constexpr int smem = SwSmem<TX, TW>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(grouped_matmul_tf32<TX, TW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(r.f / kTfN), static_cast<unsigned>(r.t / kTM));
+  grouped_matmul_tf32<TX, TW><<<grid, kSwThreads, smem, r.stream>>>(r);
+  return static_cast<int>(cudaGetLastError());
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -485,37 +1000,72 @@ int launch_wg(const GroupedArgs& r) {
   return static_cast<int>(cudaGetLastError());
 }
 
-enum class Variant { kNone, kFma, kWgmma };
+enum class Variant { kNone, kFma, kWgmma, kTf32, kMma };
+
+template <typename T>
+constexpr int code_of() {
+  return std::is_same<T, float>::value ? replay::kF32
+                                       : (std::is_same<T, __half>::value ? replay::kF16
+                                                                        : replay::kBF16);
+}
 
 // The variant for (x's dtype code, w's), the one rule: both bf16 or both f16
-// -> wgmma; every other pair of known codes -> fma. A build with
-// -DGROUPED_MATMUL_FORCE_VARIANT=1 runs bf16 and f16 on fma instead:
-// scripts/k7_variants.py compiles such a library under another name to time
-// the variants against each other; the port never builds or loads it.
+// -> wgmma; every other pair of known codes -> tf32. Builds for
+// scripts/k7_variants.py, which compiles copies of this file to time the
+// designs against each other (the port never builds or loads them):
+// -DGROUPED_MATMUL_FORCE_VARIANT=1 runs every pair on fma,
+// -DGROUPED_MATMUL_FORCE_VARIANT=2 runs the tf32 pairs on mma.
 constexpr Variant variant_of(int x_code, int w_code) {
   const auto known = [](int c) {
     return c == replay::kF32 || c == replay::kF16 || c == replay::kBF16;
   };
   if (!known(x_code) || !known(w_code)) return Variant::kNone;
-  if (x_code != w_code || x_code == replay::kF32) return Variant::kFma;
 #if defined(GROUPED_MATMUL_FORCE_VARIANT) && GROUPED_MATMUL_FORCE_VARIANT == 1
   return Variant::kFma;
 #else
-  return Variant::kWgmma;
+  if (x_code == w_code && x_code != replay::kF32) return Variant::kWgmma;
+#if defined(GROUPED_MATMUL_FORCE_VARIANT) && GROUPED_MATMUL_FORCE_VARIANT == 2
+  return Variant::kMma;
+#else
+  return Variant::kTf32;
+#endif
 #endif
 }
 
-template <typename TX, int kX>
+// Tensor-core products a block of the pair's variant issues for each product
+// of the contract: 1 on wgmma, 1 + one for each f32 operand on tf32 and mma
+// (its small part), 0 on fma and for what the launcher refuses.
+constexpr int products_of(int x_code, int w_code) {
+  switch (variant_of(x_code, w_code)) {
+    case Variant::kWgmma: return 1;
+    case Variant::kTf32:
+    case Variant::kMma: return 1 + (x_code == replay::kF32) + (w_code == replay::kF32);
+    default: return 0;
+  }
+}
+
+template <typename TX, typename TW>
+int launch_pair(const GroupedArgs& r) {
+#if defined(GROUPED_MATMUL_FORCE_VARIANT) && GROUPED_MATMUL_FORCE_VARIANT == 1
+  return launch_fma<TX, TW>(r);
+#else
+  constexpr Variant v = variant_of(code_of<TX>(), code_of<TW>());
+  if constexpr (v == Variant::kWgmma) {
+    return launch_wg<TX>(r);
+  } else if constexpr (v == Variant::kMma) {
+    return launch_mma<TX, TW>(r);
+  } else {
+    return launch_tf32<TX, TW>(r);
+  }
+#endif
+}
+
+template <typename TX>
 int launch_x(const GroupedArgs& r, int w_code) {
   switch (w_code) {
-    case replay::kF32: return launch_fma<TX, float>(r);
-    case replay::kF16:
-      if constexpr (variant_of(kX, replay::kF16) == Variant::kWgmma) return launch_wg<__half>(r);
-      else return launch_fma<TX, __half>(r);
-    case replay::kBF16:
-      if constexpr (variant_of(kX, replay::kBF16) == Variant::kWgmma)
-        return launch_wg<__nv_bfloat16>(r);
-      else return launch_fma<TX, __nv_bfloat16>(r);
+    case replay::kF32: return launch_pair<TX, float>(r);
+    case replay::kF16: return launch_pair<TX, __half>(r);
+    case replay::kBF16: return launch_pair<TX, __nv_bfloat16>(r);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -524,36 +1074,44 @@ int launch_x(const GroupedArgs& r, int w_code) {
 
 // int grouped_matmul_launch(x, x_code, w, w_code, block_expert, out, t, d, f,
 //                           e, stream) -> cudaGetLastError();
-//   cudaErrorInvalidValue unless t % 128 == 0, f % 128 == 0, e >= 1, d % 16
+//   cudaErrorInvalidValue unless t % 128 == 0, f % 128 == 0, e >= 1, d % 32
 //   == 0 (d % 64 == 0 on the wgmma variant) and t / 128 <= 65,535, or for an
-//   unknown dtype code; cudaErrorMisalignedAddress for a wgmma operand that is
-//   not 16-byte aligned.
+//   unknown dtype code; cudaErrorMisalignedAddress for an operand that is not
+//   16-byte aligned.
 extern "C" int grouped_matmul_launch(const void* x, int x_code, const void* w,
                                      int w_code, const int32_t* block_expert,
                                      void* out, int64_t t, int64_t d, int64_t f,
                                      int64_t e, void* stream) {
-  if (t % kTM || f % kTN || e < 1 || d < kTK || t / kTM > 65535)
+  if (t % kTM || f % 128 || e < 1 || d < kTfK || t / kTM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (t == 0 || f == 0) return static_cast<int>(cudaGetLastError());
   const GroupedArgs r{x, w, block_expert, out, t, d, f, e,
                       static_cast<cudaStream_t>(stream)};
   switch (x_code) {
-    case replay::kF32: return launch_x<float, replay::kF32>(r, w_code);
-    case replay::kF16: return launch_x<__half, replay::kF16>(r, w_code);
-    case replay::kBF16: return launch_x<__nv_bfloat16, replay::kBF16>(r, w_code);
+    case replay::kF32: return launch_x<float>(r, w_code);
+    case replay::kF16: return launch_x<__half>(r, w_code);
+    case replay::kBF16: return launch_x<__nv_bfloat16>(r, w_code);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The variant that grouped_matmul_launch runs for (x's dtype code, w's):
-// "wgmma", "fma", or "none" for what it refuses (variant_of).
+// "wgmma", "tf32", "mma" or "fma" (forced builds), or "none" for what it
+// refuses (variant_of).
 extern "C" const char* grouped_matmul_variant(int x_code, int w_code) {
   switch (variant_of(x_code, w_code)) {
     case Variant::kFma: return "fma";
     case Variant::kWgmma: return "wgmma";
+    case Variant::kTf32: return "tf32";
+    case Variant::kMma: return "mma";
     case Variant::kNone: break;
   }
   return "none";
+}
+
+// The tensor-core products that variant takes for the pair (products_of).
+extern "C" int grouped_matmul_products(int x_code, int w_code) {
+  return products_of(x_code, w_code);
 }
 
 extern "C" const char* grouped_matmul_error_string(int code) {

@@ -8,15 +8,20 @@ phase. Tokens arrive sorted by expert and padded so that no block of
 ``TM = 128`` rows spans two experts: ``y[t] = x[t] @ w[block_expert[t //
 128]]`` with f32 products and sums, out in ``x.dtype``.
 
-What bounds it on the H100: at the MoE widths the bytes (x, the experts'
-weights and y, each once), just above the 2 * T * d * f flops on tensor
-cores. The C launcher picks the variant by the dtype pair (``variant``); a
-failed build or launch raises, nothing falls back. "wgmma" for x and w both
-bf16 or both f16 (a product of two such values is exact in f32, so tensor
-cores with f32 accumulators keep the contract): one block per (token block,
-128-column tile of f), a producer warp feeding a ring of TMA stages, two
-consumer warpgroups on ``wgmma`` (see the source's header). "fma" for every other pair: f32 tiles in shared memory
-and an 8 x 8 f32 register tile per thread.
+What bounds it on the H100: at the MoE widths in bf16 the bytes (x, the
+experts' weights and y, each once), just above the 2 * T * d * f flops on
+tensor cores; in f32 the three TF32 products of the split below. The C
+launcher picks the variant by the dtype pair (``variant``); a failed build
+or launch raises, nothing falls back. "wgmma" for x and w both bf16 or both
+f16 (a product of two such values is exact in f32, so tensor cores with f32
+accumulators keep the contract): one block per (token block, 128-column
+tile of f), a producer warp feeding a ring of TMA stages, two consumer
+warpgroups on ``wgmma`` (see the source's header). "tf32" for every other
+pair: ``mma.sync`` on tensor cores in split TF32, each f32 operand v as
+big = tf32(v) and small = tf32(v - big), y = xs * wb + xb * ws + xb * wb in
+f32; a bf16 or f16 operand is exact in TF32 and has no small part, so a pair
+takes ``products`` of 3 (f32 x f32), 2 (f32 with a 16-bit type) or 1 (bf16
+x f16).
 
 Beside the kernel: ``grouped_matmul_plain``, the reference's
 ``ref.grouped_matmul_ref`` in plain torch, one f32 product per expert (the
@@ -49,12 +54,23 @@ _ARGTYPES = [_P, _INT, _P, _INT, _P, _P, _I64, _I64, _I64, _I64, _P]
 def variant(x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
     """The kernel variant that a CUDA launch runs for (x's dtype, w's), as
     ``variant_of`` in the C launcher chooses it: "wgmma" where both are bf16
-    or both f16, "fma" for every other pair the kernel takes, "none" where
+    or both f16, "tf32" for every other pair the kernel takes, "none" where
     it refuses a dtype (the card tests hold the library's
     ``grouped_matmul_variant`` to this)."""
     if x_dtype not in DTYPE_CODES or w_dtype not in DTYPE_CODES:
         return "none"
-    return "wgmma" if x_dtype == w_dtype and x_dtype in TENSOR_CORE_DTYPES else "fma"
+    return "wgmma" if x_dtype == w_dtype and x_dtype in TENSOR_CORE_DTYPES else "tf32"
+
+
+def products(x_dtype: torch.dtype, w_dtype: torch.dtype) -> int:
+    """Tensor-core products that ``variant`` takes for each product of the
+    contract, as the library's ``grouped_matmul_products`` counts them: 1 on
+    "wgmma"; on "tf32" 1 and one more for each f32 operand (its small
+    part); 0 where the kernel refuses a dtype."""
+    name = variant(x_dtype, w_dtype)
+    if name == "none":
+        return 0
+    return 1 if name == "wgmma" else 1 + (x_dtype == torch.float32) + (w_dtype == torch.float32)
 
 
 def check_grouped_args(x, w, block_expert) -> None:

@@ -37,6 +37,7 @@ from repro_torch.launch.op_cost import OpCost
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (and f16) tensor-core peak
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 NVLINK_BYTES_PER_S = 450e9  # NVLink 4, one direction a GPU (H100 SXM5 datasheet)
 NETWORK_BYTES_PER_S = 50e9  # one 400 Gb/s NDR port a GPU (DGX H100 datasheet)

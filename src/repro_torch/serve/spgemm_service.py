@@ -55,9 +55,13 @@ The CPU and the card route differently; nothing else differs:
   * **CPU tensors, or the "xla" backend: the reference's rules.** An open
     breaker routes singletons to "xla", the plain replay; batched groups
     take the plain batched replay and never consult the breaker; a degraded
-    dispatch's ``serve.dispatch`` span says ``fallback="<k>->xla"``.
+    dispatch's ``serve.dispatch`` span says ``fallback="<k>->xla"``. "auto"
+    is "xla" there, as the reference's.
   * **CUDA tensors with a kernel backend** ("pallas" = K1, "pallas_lp" =
-    K2; ``runtime.ladder.kernels_only``): every request is served by a
+    K2; ``runtime.ladder.kernels_only``), or with "auto" where
+    ``executor.auto_backend`` picks K1 (operands the reference sums in f32;
+    bf16 x bf16 and f16 x f16 take the plain replay, f64 and integers too,
+    counted ``dtype:executor->xla``): every request is served by a
     replay kernel. A group of one runs ``apply``, a batched group ONE
     batched launch of the kernel (``apply_batched``), both under the
     breaker: one ``allow()`` and one verdict per group, so a broken kernel
@@ -85,7 +89,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.executor import BACKENDS, OTHER_KERNEL, ReuseExecutor
+from repro_torch.core.executor import BACKENDS, OTHER_KERNEL, ReuseExecutor, auto_backend
 from repro_torch.core.meta import DEFAULT_PAD_POLICY
 from repro_torch.core.plan_cache import PlanCache, structure_key
 from repro_torch.core.spgemm import prepare_sparse_inputs, resolve_plan
@@ -166,12 +170,13 @@ class _Pending:
 class SparseService:
     """Bounded-queue, deadline-aware SpGEMM serving over pinned plans.
 
-    backend: the fast replay path ("auto" resolves to "xla"; "pallas"/
-        "pallas_lp" opt into the replay kernels K1/K2, guarded by a
-        per-kernel circuit breaker). On the CPU batched groups take the
-        plain batched replay and the breaker governs singletons, as in the
-        reference; on the card batched groups run the batched kernel under
-        the breaker too (module docstring).
+    backend: the fast replay path ("pallas"/"pallas_lp" the replay kernels
+        K1/K2, guarded by a per-kernel circuit breaker; "auto" K1 on the
+        card for operands the reference sums in f32, under K1's breaker,
+        and "xla" elsewhere, the reference's "auto"). On the CPU batched
+        groups take the plain batched replay and the breaker governs
+        singletons, as in the reference; on the card batched groups run the
+        batched kernel under the breaker too (module docstring).
     validate: admission-time operand validation mode (default "host" — the
         serving tier rejects corruption at the door; "off" is the caller's
         risk).
@@ -212,6 +217,7 @@ class SparseService:
                 f"max_queue and max_batch must be >= 1, got "
                 f"max_queue={max_queue}, max_batch={max_batch}")
         self.fast_backend = "xla" if backend == "auto" else backend
+        self.auto = backend == "auto"  # resolved per group by auto_backend
         self.validate_mode = resolve_mode(validate)
         self.max_queue = max_queue
         self.max_batch = max_batch
@@ -228,11 +234,11 @@ class SparseService:
         self.traffic_log = TrafficLog(self.pad_policy) if traffic_log is None \
             else traffic_log
         self._breakers: dict[str, CircuitBreaker] = {}
+        self._breaker_kw = dict(failure_threshold=breaker_threshold,
+                                window_s=breaker_window_s, cooldown_s=breaker_cooldown_s,
+                                clock=clock)
         if self.fast_backend != "xla":
-            self._breakers[self.fast_backend] = CircuitBreaker(
-                self.fast_backend, failure_threshold=breaker_threshold,
-                window_s=breaker_window_s, cooldown_s=breaker_cooldown_s,
-                clock=clock)
+            self._breaker(self.fast_backend)
         self._queue: list[_Pending] = []
         self._executors: OrderedDict[str, ReuseExecutor] = OrderedDict()
         self._seq = 0
@@ -375,7 +381,8 @@ class SparseService:
             return ex
         plan, _, _ = resolve_plan(p.a, p.b, p.fm_cap, self.pad_policy,
                                   self.plan_cache, key=p.skey)
-        ex = ReuseExecutor(plan, backend="auto", watchdog=self.watchdog,
+        # the backend is set by each dispatch's route (_route)
+        ex = ReuseExecutor(plan, backend="xla", watchdog=self.watchdog,
                            on_kernel_failure="fallback")
         self._executors[p.skey] = ex
         while len(self._executors) > self.max_executors:
@@ -401,25 +408,36 @@ class SparseService:
                                 structure_key=items[0].skey) as sp:
                 return self._dispatch_group_inner(items, sp)
 
+    def _breaker(self, name: str) -> CircuitBreaker:
+        """The circuit breaker of fast kernel ``name``, made at first use
+        ("auto" meets K1 only on the card)."""
+        breaker = self._breakers.get(name)
+        if breaker is None:
+            breaker = self._breakers[name] = CircuitBreaker(name, **self._breaker_kw)
+        return breaker
+
     def _route(self, items: list[_Pending]) -> tuple[CircuitBreaker | None, str]:
         """(the breaker this dispatch answers to, or None; the backend it
         takes). The CPU's rules are the reference's; on the card the breaker
         also governs batched groups and an open one routes to the other
-        replay kernel."""
-        if self.fast_backend == "xla":
+        replay kernel. "auto" takes the fast kernel ``auto_backend`` picks
+        for the group's operands."""
+        p = items[0]
+        fast = auto_backend(p.a.values, p.b.values) if self.auto else self.fast_backend
+        if fast == "xla":
             return None, "xla"
-        on_card = ladder.kernels_only(items[0].a.values.device)
+        on_card = ladder.kernels_only(p.a.values.device)
         if len(items) > 1 and not on_card:
             return None, "xla"
-        breaker = self._breakers[self.fast_backend]
+        breaker = self._breaker(fast)
         if breaker.allow():
-            return breaker, self.fast_backend
-        return breaker, OTHER_KERNEL[self.fast_backend] if on_card else "xla"
+            return breaker, fast
+        return breaker, OTHER_KERNEL[fast] if on_card else "xla"
 
     def _dispatch_group_inner(self, items: list[_Pending], sp) -> None:
         ex = self._executor_for(items[0])
         breaker, backend = self._route(items)
-        took_fast = breaker is not None and backend == self.fast_backend
+        took_fast = breaker is not None and backend == breaker.name
         ex.backend = backend
         ex.kernel_source = "static"
         ex.last_step = None

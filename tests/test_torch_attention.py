@@ -66,16 +66,23 @@ def test_grouped_matmul_matches_the_reference_kernel(e, d, f, blocks, dtype):
 
 
 def test_grouped_matmul_variant_follows_the_dtype_pair():
-    """"wgmma" (tensor cores) where x and w are both bf16 or both f16, "fma"
-    for every other pair the kernel takes, "none" for a dtype it refuses; the
-    card test holds the C launcher's choice to it."""
+    """"wgmma" (tensor cores) where x and w are both bf16 or both f16, "tf32"
+    (tensor cores in split TF32) for every other pair the kernel takes,
+    "none" for a dtype it refuses; ``products`` counts 1 on "wgmma" and 1
+    more for each f32 operand on "tf32". The card test holds the C
+    launcher's choice and count to these."""
     takes = (torch.float32, torch.float16, torch.bfloat16)
     for xd in takes:
         for wd in takes:
-            want = "wgmma" if xd == wd and xd != torch.float32 else "fma"
+            want = "wgmma" if xd == wd and xd != torch.float32 else "tf32"
             assert k7.variant(xd, wd) == want
+            n_f32 = (xd == torch.float32) + (wd == torch.float32)
+            assert k7.products(xd, wd) == (1 if want == "wgmma" else 1 + n_f32)
+    assert k7.products(torch.float32, torch.float32) == 3
+    assert k7.products(torch.bfloat16, torch.float16) == 1
     assert k7.variant(torch.float64, torch.float64) == "none"
     assert k7.variant(torch.bfloat16, torch.float64) == "none"
+    assert k7.products(torch.float64, torch.float32) == 0
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas", "xla"])

@@ -304,3 +304,168 @@ def test_plans_keep_the_order_the_replay_kernels_rely_on(case, path):
     steps = np.diff(seg[:n_live].astype(np.int64))
     assert seg[0] == 0 and steps.min() >= 0 and steps.max() <= 1
     assert seg[n_live - 1] == nnz - 1  # every slot of C's structure is reached
+
+
+# (A, B) value dtypes -> what "auto" replays them through under the card's
+# rules, and the dtype key it leaves: the fresh multiply's routes
+# (tests/test_torch_kernels.py FRESH_DTYPES), under the executor's key
+AUTO_DTYPES = {
+    "f32": ((torch.float32, torch.float32), "pallas", None),
+    "bf16xf32": ((torch.bfloat16, torch.float32), "pallas", None),
+    "bf16xf16": ((torch.bfloat16, torch.float16), "pallas", None),
+    "bf16": ((torch.bfloat16, torch.bfloat16), "xla", None),
+    "f16": ((torch.float16, torch.float16), "xla", None),
+    "f64": ((torch.float64, torch.float64), "xla", "dtype:executor->xla"),
+    "int32": ((torch.int32, torch.int32), "xla", "dtype:executor->xla"),
+}
+# the replays the executor can reach, spied on by card_rules
+REPLAY_FNS = ("numeric_reuse", "_replay_batched", "segsum_reuse", "segsum_reuse_batched",
+              "lp_replay_values", "lp_reuse_batched")
+
+
+@pytest.fixture
+def card_rules(monkeypatch):
+    """The card's routing on CPU tensors (``ladder.kernels_only`` forced):
+    counts each call of the executor's replays, plain and kernel wrappers
+    (which run their plain versions on the CPU), by name."""
+    from collections import Counter
+
+    from repro_torch.runtime import ladder
+
+    monkeypatch.setattr(ladder, "kernels_only", lambda device: True)
+    calls = Counter()
+    for name in REPLAY_FNS:
+        real = getattr(texec, name)
+
+        def spy(*args, _name=name, _real=real, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(texec, name, spy)
+    return calls
+
+
+def _auto_operands(dtypes, seed=1):
+    """A random A (40 x 50) and B (50 x 30) on the CPU, values of ``dtypes``."""
+    a = tgen.random_csr(40, 50, 3.0, seed, device="cpu")
+    b = tgen.random_csr(50, 30, 2.5, seed + 1, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    vals = [(torch.randn(x.nnz_cap, generator=g) * 4).to(dt) for x, dt in zip((a, b), dtypes)]
+    return TCSR(a.indptr, a.indices, vals[0], a.shape), TCSR(b.indptr, b.indices, vals[1], b.shape)
+
+
+@pytest.mark.parametrize("case", sorted(AUTO_DTYPES))
+def test_default_apply_routes_by_dtype_under_the_card_rules(case, card_rules):
+    """``ReuseExecutor(plan).apply`` under the card's rules: K1 ("pallas")
+    where ``fresh_backend`` says so, never the plain ``numeric_reuse`` for
+    f32-summed operands; bitwise the plain replay; the dtype key only where
+    the guard refuses the kernels; the traced span names what ran."""
+    from repro_torch import obs
+
+    dtypes, route, key = AUTO_DTYPES[case]
+    a, b = _auto_operands(dtypes)
+    assert tsp.fresh_backend(a.values, b.values) == route
+    ex = texec.ReuseExecutor(tsp.spgemm(a, b, method="sparse", plan_cache=False).plan)
+    assert ex.backend == "xla" and ex.auto
+    ttelemetry.FALLBACK_COUNTS.clear()
+    card_rules.clear()
+    obs.reset_obs()
+    with obs.trace_scope("on"):
+        got = ex.apply(a.values, b.values)
+    kinds = [e["args"].get("kernel") for e in obs.events() if e["name"] == "numeric.dispatch"]
+    obs.reset_obs()
+    assert ex.last_backend == route and kinds == [route]
+    assert dict(card_rules) == {"segsum_reuse" if route == "pallas" else "numeric_reuse": 1}
+    assert dict(ttelemetry.FALLBACK_COUNTS) == ({key: 1} if key else {})
+    assert got.dtype == torch.promote_types(*dtypes)
+    assert torch.equal(got, tsp.numeric_reuse(ex.plan, a.values, b.values))
+
+
+@pytest.mark.parametrize("case", sorted(AUTO_DTYPES))
+def test_default_apply_batched_routes_by_dtype_under_the_card_rules(case, card_rules):
+    """``apply_batched`` on a default executor under the card's rules: one
+    batched K1 call for f32-summed operands (A stacked, B shared), the
+    plain ``_replay_batched`` for the rest; rows bitwise the plain batched
+    replay; the dtype key once where the guard refuses the kernels."""
+    dtypes, route, key = AUTO_DTYPES[case]
+    a, b = _auto_operands(dtypes, seed=3)
+    ex = texec.ReuseExecutor(tsp.spgemm(a, b, method="sparse", plan_cache=False).plan)
+    g = torch.Generator().manual_seed(4)
+    a_stack = (torch.randn(3, a.nnz_cap, generator=g) * 4).to(dtypes[0])
+    ttelemetry.FALLBACK_COUNTS.clear()
+    card_rules.clear()
+    got = ex.apply_batched(a_stack, b.values)
+    assert ex.last_backend == route
+    assert dict(card_rules) == {"segsum_reuse_batched" if route == "pallas"
+                                else "_replay_batched": 1}
+    assert dict(ttelemetry.FALLBACK_COUNTS) == ({key: 1} if key else {})
+    assert got.shape == (3, ex.nnz_cap)
+    for i in range(3):  # each row bitwise the plain single replay
+        assert torch.equal(got[i], tsp.numeric_reuse(ex.plan, a_stack[i], b.values))
+
+
+def test_default_replay_steps_k1_to_k2_under_the_card_rules(card_rules):
+    """An armed ``kernel:pallas`` steps the default replay, single and
+    batched, to K2 (one ``fault:pallas->pallas_lp`` each), never to the
+    plain version; both armed raise ``KernelFallbackError``."""
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.validate import KernelFallbackError
+
+    a, b = _auto_operands((torch.float32, torch.float32), seed=5)
+    ex = texec.ReuseExecutor(tsp.spgemm(a, b, method="sparse", plan_cache=False).plan)
+    a_stack = torch.stack([a.values, -a.values])
+    ttelemetry.FALLBACK_COUNTS.clear()
+    card_rules.clear()
+    try:
+        with faults.failpoint("kernel:pallas"):
+            got = ex.apply(a.values, b.values)
+            assert (ex.last_backend, ex.last_step) == ("pallas_lp", "pallas->pallas_lp")
+            batched = ex.apply_batched(a_stack, b.values)
+            assert ex.last_backend == "pallas_lp"
+        assert dict(ttelemetry.FALLBACK_COUNTS) == {"fault:pallas->pallas_lp": 2}
+        assert dict(card_rules) == {"lp_replay_values": 1, "lp_reuse_batched": 1}
+        assert torch.equal(got, tsp.numeric_reuse(ex.plan, a.values, b.values))
+        assert torch.equal(batched[0], got)
+        with faults.failpoint("kernel:pallas"), faults.failpoint("kernel:pallas_lp"):
+            with pytest.raises(KernelFallbackError):
+                ex.apply(a.values, b.values)
+            with pytest.raises(KernelFallbackError):
+                ex.apply_batched(a_stack, b.values)
+    finally:
+        faults.reset_failpoints()
+    assert card_rules["numeric_reuse"] == card_rules["_replay_batched"] == 0
+
+
+def test_default_grouped_replays_through_k1_under_the_card_rules(card_rules):
+    """``spgemm_grouped(pairs)`` under the card's rules: a group of two
+    shares one batched K1 call, a singleton one K1 call, and nothing
+    reaches the plain replays; each result bitwise the plain replay."""
+    a, b = _auto_operands((torch.float32, torch.float32), seed=7)
+    a2 = TCSR(a.indptr, a.indices, -2.0 * a.values, a.shape)
+    c, d = _auto_operands((torch.float32, torch.float32), seed=9)
+    card_rules.clear()
+    got = texec.spgemm_grouped([(a, b), (c, d), (a2, b)], plan_cache=False)
+    assert dict(card_rules) == {"segsum_reuse_batched": 1, "segsum_reuse": 1}
+    assert not ttelemetry.FALLBACK_COUNTS
+    for (x, y), res in zip([(a, b), (c, d), (a2, b)], got):
+        plan = tsp.spgemm(x, y, method="sparse", plan_cache=False).plan
+        assert torch.equal(res.values, tsp.numeric_reuse(plan, x.values, y.values))
+
+
+@pytest.mark.parametrize("problem", sorted(PROBLEMS))
+def test_default_replay_on_the_cpu_is_the_plain_replay(problem):
+    """Without the card's rules "auto" is the plain replay, as the
+    reference's: bitwise an explicit "xla" executor, single and batched,
+    and within RTOL of the reference's replay."""
+    ja, jb, ta, tb, jex = _pinned(problem)
+    tex = texec.ReuseExecutor.from_matrices(ta, tb, plan_cache=False)
+    xla = texec.ReuseExecutor(tex.plan, backend="xla")
+    av, bv = _values(ja.nnz_cap, 11), _values(jb.nnz_cap, 12)
+    got = tex.apply(torch.from_numpy(av), torch.from_numpy(bv))
+    assert tex.last_backend == "xla"
+    assert torch.equal(got, xla.apply(torch.from_numpy(av), torch.from_numpy(bv)))
+    stack = torch.from_numpy(_values(ja.nnz_cap, 13, batch=2))
+    assert torch.equal(tex.apply_batched(stack, torch.from_numpy(bv)),
+                       xla.apply_batched(stack, torch.from_numpy(bv)))
+    np.testing.assert_allclose(np.asarray(jex.apply(jnp.asarray(av), jnp.asarray(bv))),
+                               got.numpy(), rtol=RTOL, atol=ATOL)

@@ -737,11 +737,97 @@ def test_new_c_interfaces_match_their_ctypes_signatures(name):
 
 
 def test_k7_comparison_build_is_never_the_ports():
-    """scripts/k7_variants.py builds K7 with bf16/f16 on "fma" through a
+    """scripts/k7_variants.py builds K7 with every pair on "fma" through a
     macro that the port's flags never set."""
     src = (_build.CSRC_DIR / "grouped_matmul.cu").read_text()
     assert "defined(GROUPED_MATMUL_FORCE_VARIANT)" in src
     assert not any("GROUPED_MATMUL_FORCE_VARIANT" in flag for flag in _build.NVCC_FLAGS)
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on f32 values, emulated on their int32 view:
+    round the 13 low mantissa bits to nearest, ties away from zero (adding
+    half a TF32 ulp to the magnitude bits), then clear them."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(v: torch.Tensor) -> tuple:
+    """(big, small) as the "tf32" variant of K7 splits an f32 operand; a
+    16-bit operand is exact in TF32 and has no small part."""
+    if v.dtype != torch.float32:
+        return v.float(), None
+    big = _tf32_rna(v)
+    return big, _tf32_rna(v - big)
+
+
+def _grouped_f64(x, w, be) -> torch.Tensor:
+    """y[t] = x[t] @ w[be[t // 128]] in f64, block by block."""
+    e = w.shape[0]
+    rows = [x[i * 128:(i + 1) * 128].double() @ w[int(ex)].double()
+            for i, ex in enumerate(be.clamp(0, e - 1).tolist())]
+    return torch.cat(rows)
+
+
+def _split_tf32_product(x, w, be, passes: str = "split") -> torch.Tensor:
+    """K7's "tf32" arithmetic on the CPU: each product of TF32 parts exact
+    (in f64), the small terms first, xs @ ws dropped; ``passes="one"`` is a
+    single TF32 product of the big parts. Returns f64."""
+    (xb, xs), (wb, ws) = _tf32_split(x), _tf32_split(w)
+    terms = [(xb, wb)] if passes == "one" else \
+        [(p, q) for p, q in ((xs, wb), (xb, ws), (xb, wb)) if p is not None and q is not None]
+    return sum(_grouped_f64(p, q, be) for p, q in terms)
+
+
+def test_tf32_emulation_rounds_to_nearest_ties_away():
+    """The emulated ``cvt.rna.tf32.f32``: below half a TF32 ulp rounds down,
+    a tie rounds away from zero in either sign, above rounds up; the 13 low
+    bits come out clear and the error is at most half a TF32 ulp."""
+    ulp = 2.0 ** -10  # TF32 keeps 10 explicit mantissa bits
+    v = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23,
+                      1 + ulp / 2 + 2.0 ** -23, 1 + 1.5 * ulp, 3.0, -0.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + ulp, 1 + 2 * ulp, 3.0, -0.0])
+    got = _tf32_rna(v)
+    assert torch.equal(got, want) and torch.equal(got.view(torch.int32) & 0x1FFF,
+                                                  torch.zeros(7, dtype=torch.int32))
+    r = torch.randn(100_000, generator=torch.Generator().manual_seed(0)) * 1e3
+    big = _tf32_rna(r)
+    assert bool(((r - big).abs() <= r.abs() * 2.0 ** -11).all())
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    small = _tf32_rna(r - big)  # the split's second part: at most 2^-11 of big
+    assert bool((small.abs() <= big.abs() * 2.0 ** -11).all())
+
+
+@pytest.mark.parametrize("pair", ["f32", "f32xbf16", "f32xf16", "bf16xf32", "bf16xf16"])
+def test_split_tf32_keeps_the_f32_bound_where_one_pass_does_not(pair):
+    """K7's "tf32" arithmetic emulated on the CPU at narrow MoE widths: the
+    split's 3 (f32 x f32) or 2 (one f32 operand) exact TF32 products, or 1
+    (bf16 x f16), stay within K7_FRO[f32] of the f64 product of the
+    operands as given; one pass of TF32 over f32 operands misses it by two
+    orders of magnitude, so the bound tells the two designs apart. The
+    products counted are ``products``'s."""
+    import importlib
+
+    k7 = importlib.import_module("repro_torch.kernels.grouped_matmul")
+    xd, wd = K7_PAIRS[pair]
+    g = torch.Generator().manual_seed(len(pair))
+    e, d, f, blocks = 4, 512, 256, 5
+    be = torch.randint(0, e, (blocks,), generator=g, dtype=torch.int32)
+    x = torch.randn(blocks * 128, d, generator=g).to(xd)
+    w = (torch.randn(e, d, f, generator=g) * 0.05).to(wd)
+    exact = _grouped_f64(x, w, be)
+    split = _split_tf32_product(x, w, be)
+    n_terms = 1 + (xd == torch.float32) + (wd == torch.float32)
+    assert k7.products(xd, wd) == n_terms
+
+    def rel(y):
+        return float((y - exact).norm() / exact.norm())
+
+    assert rel(split) <= K7_FRO[torch.float32] / 10
+    if torch.float32 in (xd, wd):
+        assert rel(_split_tf32_product(x, w, be, passes="one")) > 10 * K7_FRO[torch.float32]
+    else:  # two 16-bit operands: one pass is the exact product
+        assert rel(split) == 0.0
 
 
 def _synthetic_bsr_plan(nnzb_a, nnzb_b, nnzb_c, t_max, seed, device):
@@ -892,7 +978,9 @@ K7_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
 K7_FRO = {torch.float32: 5e-6, torch.bfloat16: 6e-4, torch.float16: 3e-4}
 K7_PAIRS = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
             "f16": (torch.float16, torch.float16), "bf16xf32": (torch.bfloat16, torch.float32),
-            "f16xbf16": (torch.float16, torch.bfloat16)}
+            "f16xbf16": (torch.float16, torch.bfloat16), "f32xbf16": (torch.float32, torch.bfloat16),
+            "f32xf16": (torch.float32, torch.float16), "f16xf32": (torch.float16, torch.float32),
+            "bf16xf16": (torch.bfloat16, torch.float16)}
 
 
 def _k7_check(k7, x, w, be):
@@ -912,18 +1000,23 @@ def _k7_check(k7, x, w, be):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(K7_PAIRS), ids=list(K7_PAIRS))
 def test_grouped_matmul_kernel_matches_plain_on_the_card(cuda, dtype):
-    """Each variant ("wgmma" for bf16 and f16 pairs, "fma" for the others) on
+    """Each variant ("wgmma" for bf16 and f16 pairs, "tf32" for the others) on
     several widths, the MoE projections' (d, f) = (768, 2048) and (2048,
     768) among them, and one token block; the library names the variant
-    that ``variant`` names."""
+    that ``variant`` names and counts the products that ``products``
+    counts."""
     import importlib
 
     k7 = importlib.import_module("repro_torch.kernels.grouped_matmul")
 
     xd, wd = K7_PAIRS[dtype]
-    fn = _build.load("grouped_matmul").grouped_matmul_variant
+    lib = _build.load("grouped_matmul")
+    fn, n_products = lib.grouped_matmul_variant, lib.grouped_matmul_products
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_char_p
-    assert fn(k1.DTYPE_CODES[xd], k1.DTYPE_CODES[wd]).decode() == k7.variant(xd, wd)
+    n_products.argtypes, n_products.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    codes = (k1.DTYPE_CODES[xd], k1.DTYPE_CODES[wd])
+    assert fn(*codes).decode() == k7.variant(xd, wd)
+    assert n_products(*codes) == k7.products(xd, wd)
     for e, d, f, blocks in ((4, 256, 256, 6), (8, 128, 384, 4), (16, 512, 128, 9),
                             (3, 768, 2048, 5), (3, 2048, 768, 5), (2, 256, 128, 1)):
         g = torch.Generator(device=cuda).manual_seed(d + f)
@@ -1188,3 +1281,40 @@ def test_fresh_multiply_repeats_bit_for_bit_on_the_card(cuda, shape):
                  <= 1e-4 * scale.double() + 1e-6).all())
     c, _ = numeric_fresh(a, b, first.stats["fm_cap"], first.stats["nnz_cap"])
     assert torch.equal(c.values, first.c.values)
+
+
+@pytest.mark.cuda
+def test_default_replay_runs_k1_and_repeats_bit_for_bit_on_the_card(cuda):
+    """``ReuseExecutor(plan)`` ("auto") on the card: an f32 A*P replay is one
+    K1 launch (no K2, no plain ``numeric_reuse``), two replays are bitwise
+    equal and within F32_TOL of the plain version; ``apply_batched`` is one
+    batched K1 launch whose rows are the single launch's bits; bf16 x bf16
+    takes the plain replay (the reference sums it in bf16) with no launch
+    and no key."""
+    from repro_torch.core import ReuseExecutor, numeric_reuse, spgemm
+    from repro_torch.core.spgemm import STAGE_COUNTS
+    from repro_torch.core.telemetry import FALLBACK_COUNTS
+    from repro_torch.sparse import generators
+
+    _, a, p = generators.galerkin_triple(256, 256, agg_size=4, device=cuda)
+    ex = ReuseExecutor(spgemm(a, p, method="sparse", plan_cache=False).plan)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    av = torch.randn(a.nnz_cap, generator=g, device=cuda)
+    FALLBACK_COUNTS.clear()
+    before = (k1.LAUNCHES, k2.LAUNCHES, k1.BATCHED_LAUNCHES, STAGE_COUNTS["numeric_reuse"])
+    first, second = ex.apply(av, p.values), ex.apply(av, p.values)
+    batched = ex.apply_batched(torch.stack([av, -av]), p.values)
+    torch.cuda.synchronize()
+    after = (k1.LAUNCHES, k2.LAUNCHES, k1.BATCHED_LAUNCHES, STAGE_COUNTS["numeric_reuse"])
+    assert [y - x for x, y in zip(before, after)] == [2, 0, 1, 0]
+    assert ex.last_backend == "pallas" and not FALLBACK_COUNTS
+    assert torch.equal(first, second) and torch.equal(batched[0], first)
+    want = numeric_reuse(ex.plan, av, p.values)
+    scale = numeric_reuse(ex.plan, av.abs(), p.values.abs())
+    assert bool(((first.double() - want.double()).abs() <= 1e-4 * scale.double() + 1e-6).all())
+    launches = k1.LAUNCHES
+    got = ex.apply(av.bfloat16(), p.values.bfloat16())
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == launches and ex.last_backend == "xla" and not FALLBACK_COUNTS
+    assert got.dtype == torch.bfloat16  # summed in bf16 by index_add_, in any order
+    assert bool(((got.double() - want.double()).abs() <= 2e-2 * scale.double() + 1e-2).all())

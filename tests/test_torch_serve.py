@@ -1080,3 +1080,89 @@ def test_port_serve_imports_neither_jax_nor_repro():
         assert hasattr(tserve, name)
     assert tservice.RETRY_LABEL == importlib.import_module(
         "repro.serve.spgemm_service").RETRY_LABEL
+
+
+# (A, B) value dtypes -> the backend a default service serves them with under
+# the card's rules, and the dtype key each group dispatch leaves
+DEFAULT_ROUTES = {
+    "f32": ((torch.float32, torch.float32), "pallas", None),
+    "bf16xf32": ((torch.bfloat16, torch.float32), "pallas", None),
+    "bf16": ((torch.bfloat16, torch.bfloat16), "xla", None),
+    "f16": ((torch.float16, torch.float16), "xla", None),
+    "f64": ((torch.float64, torch.float64), "xla", "dtype:executor->xla"),
+    "int32": ((torch.int32, torch.int32), "xla", "dtype:executor->xla"),
+}
+
+
+def _typed_pair(dtypes, seed=1, scale=1.0):
+    a, b = _port_pair(seed)
+    g = torch.Generator().manual_seed(seed)
+    vals = [(torch.randn(x.nnz_cap, generator=g) * 4 * scale).to(dt)
+            for x, dt in zip((a, b), dtypes)]
+    return (tservice.CSR(a.indptr, a.indices, vals[0], a.shape),
+            tservice.CSR(b.indptr, b.indices, vals[1], b.shape))
+
+
+@pytest.mark.parametrize("case", sorted(DEFAULT_ROUTES))
+def test_card_default_service_serves_through_k1(card_rules, monkeypatch, case):
+    """``SparseService()`` ("auto") under the card's rules: f32-summed
+    requests are served by K1, a group of two by one batched K1 call and a
+    singleton by K1, under K1's breaker; bf16 x bf16 and f16 x f16 by the
+    plain replay with no key, f64 and int32 with ``dtype:executor->xla``
+    once a group. Values bitwise the plain replay; nothing f32-summed
+    reaches ``numeric_reuse`` or ``_replay_batched``."""
+    dtypes, route, key = DEFAULT_ROUTES[case]
+    plain = []
+    for name in ("numeric_reuse", "_replay_batched"):
+        real = getattr(texec, name)
+
+        def spy(*args, _name=name, _real=real, **kwargs):
+            plain.append(_name)
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(texec, name, spy)
+    a, b = _typed_pair(dtypes)
+    a2, _ = _typed_pair(dtypes, seed=1, scale=-0.5)
+    c, d = _typed_pair(dtypes, seed=3)
+    svc = tserve.SparseService(max_batch=4, clock=FakeClock(), sleep=lambda _: None)
+    rs = [svc.submit(a, b), svc.submit(c, d), svc.submit(a2, b)]
+    svc.step()
+    assert all(r.ok and r.backend == route and not r.degraded for r in rs)
+    assert [r.group_size for r in rs] == [2, 1, 2]
+    if route == "pallas":
+        assert card_rules == [("pallas", 2, 2)] and plain == []
+        assert set(svc._breakers) == {"pallas"}
+    else:
+        assert card_rules == [] and sorted(plain) == ["_replay_batched", "numeric_reuse"]
+        assert svc._breakers == {}
+    assert dict(ttelemetry.FALLBACK_COUNTS) == ({key: 2} if key else {})
+    for r, (x, y) in zip(rs, [(a, b), (c, d), (a2, b)]):
+        plan = tspgemm_mod.spgemm(x, y, method="sparse", plan_cache=False).plan
+        assert torch.equal(r.value.values, tspgemm_mod.numeric_reuse(plan, x.values, y.values))
+
+
+def test_card_default_service_steps_k1_to_k2(card_rules):
+    """An armed ``kernel:pallas`` steps a default service's dispatch to K2
+    (degraded, ``fault:pallas->pallas_lp``) under K1's breaker, never to
+    the plain replay; with both kernels armed the ladder's
+    ``KernelFallbackError`` fails the request once its retry is spent."""
+    a, b = _port_pair()
+    svc = tserve.SparseService(max_batch=1, clock=FakeClock(), sleep=lambda _: None,
+                               breaker_threshold=5)
+    try:
+        with tfaults.failpoint("kernel:pallas"):
+            r = svc.submit(a, b)
+            svc.step()
+            assert r.ok and r.degraded and r.backend == "pallas"
+            assert ttelemetry.FALLBACK_COUNTS == {"fault:pallas->pallas_lp": 1}
+            with tfaults.failpoint("kernel:pallas_lp"):
+                r2 = svc.submit(a, b)
+                svc.step()
+        assert not r2.ok and isinstance(r2.error, tretry.RetryExhaustedError)
+        assert "KernelFallbackError" in str(r2.error) and "pallas -> pallas_lp" in str(r2.error)
+    finally:
+        tfaults.reset_failpoints()
+    torch.testing.assert_close(r.value.values, _other_kernel_values(a, b, "pallas_lp"),
+                               rtol=RTOL, atol=ATOL)
+    assert ttelemetry.STAGE_COUNTS["numeric_reuse"] == 0
+    assert svc._breakers["pallas"].snapshot()["recent_failures"] == 2
