@@ -93,7 +93,8 @@ Phases, in order:
      (torch.sparse.mm on the scalar CSR for K6, torch.bmm over w[block_expert]
      for K7 where x and w share a dtype (f32 in full f32), and
      scaled_dot_product_attention for K8 where there is no softcap, f32 at
-     llama3.2-1b); K7's bound counts its variant's tensor-core products;
+     llama3.2-1b); K7's bound counts its variant's tensor-core products,
+     K8's its variant's (k8_bound: three TF32 products on "tf32");
      K6 also at bs 16 f32 on the 512^2 plan, against the plain version;
  14. the selection and robustness layer at full data size: (a)
      spgemm(tune="measure") at phase 3's A*P (one micro-bench of the replay
@@ -262,15 +263,16 @@ inputs (K7 in f32, bf16, f16 and six mixed pairs, so both of its variants:
 "wgmma" for bf16 x bf16 and f16 x f16, "tf32" at 3, 2 and 1 products for
 the others, each named and counted by the library as variant() and
 products() say; K8 in f32,
-bf16 and f16 at every head dim, so each of its variants: "fma" for f32,
-"mma" for bf16/f16 at D 16 and 32, "wgmma" at D 64-256). Every K7 output
+bf16 and f16 at every head dim, so each of its variants: "tf32" for f32 at
+D 64-256, "fma" for f32 at D 16 and 32, "mma" for bf16/f16 at D 16 and 32,
+"wgmma" at D 64-256). Every K7 output
 is held to K7_TOL and to a relative Frobenius bound (K7_FRO), every K8
 output to K8_TOL and K8_FRO; where q and k are scaled by 8 under a softcap,
 the output without the softcap must fail that check.
 Phases 11-13 log the K7 and K8 variant of each shape and, in 13, its share
 of the bound. Phase 1 logs ptxas's registers and spills per K7 and K8
-instantiation. f32 products on the card keep allow_tf32 off (checked), so the
-plain versions' matmuls are full f32.
+instantiation, and fails if K8's "tf32" spills. f32 products on the card
+keep allow_tf32 off (checked), so the plain versions' matmuls are full f32.
 
 The launch counters are set to 0 just before phases 3, 4, 6, 7 and 10-12
 drive the main path and read just after, and so is FALLBACK_COUNTS: with the
@@ -511,6 +513,11 @@ def phase_device(build):
         if name in ("flash_attention", "grouped_matmul"):  # one line per instantiation
             for fn, regs, spills in ptxas_functions(text):
                 log(f"   nvcc[{name}]: {fn}: {regs} registers, {spills}")
+                # K8's f32 variant (and its pre-pass) was designed to its
+                # register budget: a spill means the budget broke
+                require(not fn.startswith(("flash_attention_tf32", "split_kv_tf32"))
+                        or "0 bytes spill stores, 0 bytes spill loads" in spills,
+                        f"nvcc[{name}]: {fn} spills: {spills}")
             for code, what, fn in dict.fromkeys(re.findall(
                     r"\((C75\d\d)\) Potential Performance Loss: (.*?) (?:in|for) the function "
                     r"'(\w+)'", text)):
@@ -1859,7 +1866,8 @@ K8_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2, torch.float16: 5e-2}
 # ||kernel - plain||_F / ||plain||_F of each K8 output, beside K8_TOL: at T
 # 8,192 a typical |out| is below K8_TOL's atol, so that rule alone would pass
 # a kernel that drops a key stage. Bounds: 4-10x the worst measured on an
-# H100 (phases 2 and 12): bf16 2.3e-3, f16 2.9e-4, f32 1.1e-6.
+# H100 (phases 2 and 12): bf16 2.3e-3, f16 2.9e-4, f32 1.1e-6 on "fma"
+# (2.4e-6 on "tf32" since PR 30: three TF32 products a product).
 K8_FRO = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
@@ -2163,6 +2171,23 @@ def k7_bound(gm, x, w, n_rows: int, used: int) -> tuple:
 
 
 
+def k8_bound(fa, q, k, v, flops: float) -> tuple:
+    """(ms, "bytes" or "operations") of K8 on these inputs: q, k, v and the
+    output (in q's dtype) once each at 3.35 TB/s, against ``flops`` (4 * D a
+    live (query, key) pair of each head) at the variant's rate: three TF32
+    products at 495 TFLOP/s on "tf32", one pass at 67 TFLOP/s of f32 FMAs on
+    "fma", 989 TFLOP/s on the bf16/f16 variants."""
+    t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S * 1e3
+    ran = fa.variant(q.dtype, q.shape[2])
+    if ran == "tf32":
+        t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    elif ran == "fma":
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+    else:
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_moe(rt, km, seed: int, out: dict, n_tokens=4096, dev="cuda") -> None:
     """K7 at qwen3-moe-30b-a3b widths through ops.expert_matmul: tokens routed
     top-8 over 128 experts, sorted by expert and padded per expert to 128
@@ -2233,7 +2258,7 @@ def attention_shapes(rt) -> list:
             shapes.append((f"gemma2-9b {layer} {DT_NAME[dt]}", gem, dict(
                 causal=True, window=window, softcap=gem.attn_softcap), dt, False))
     shapes.append(("llama3.2-1b bf16", lla, dict(causal=True), torch.bfloat16, True))
-    # f32 ("fma") beside SDPA in f32: the yardstick of K8's f32 variant
+    # f32 ("tf32") beside SDPA in f32: the yardstick of K8's f32 variant
     shapes.append(("llama3.2-1b f32", lla, dict(causal=True), torch.float32, True))
     shapes.append(("qwen3-moe-30b-a3b bf16", qwe, dict(causal=True), torch.bfloat16, True))
     return shapes
@@ -2385,10 +2410,8 @@ def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
         r = {"ms": time_ms(lambda: km.ops.attention(q, k, v, **kw)),
              "plain_ms": time_ms(lambda: km.fa.flash_attention_plain(q, k, v, **kw))}
         flops = 4 * q.shape[0] * q.shape[2] * live_pairs(t, kw["causal"], kw.get("window"))
-        peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
-        t_ops = flops / peak * 1e3
-        t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S * 1e3
-        r["bound_ms"], r["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        r["bound_ms"], r["bound_by"] = k8_bound(km.fa, q, k, v, flops)
+        r["variant"] = km.fa.variant(dt, q.shape[2])
         if sdpa:
             r["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=True, enable_gqa=True))
@@ -2397,7 +2420,7 @@ def phase_new_times(rt, km, bsr: dict, moe: dict, attn: dict) -> dict:
             r["library_ms"] = None
             lib_s = "null: scaled_dot_product_attention has no softcap"
         times["flash_attention"][label] = r
-        log(f"   K8 {label}: variant {km.fa.variant(dt, q.shape[2])}, {r['ms']:.3f} ms "
+        log(f"   K8 {label}: variant {r['variant']}, {r['ms']:.3f} ms "
             f"({flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of the bound), "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
             f"library {lib_s}")

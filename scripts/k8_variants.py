@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """Time K8 flash attention's variants against each other on one CUDA card.
 
-    python3 scripts/k8_variants.py [--out results.json]
+    python3 scripts/k8_variants.py [--f32-only] [--out results.json]
 
 The port's library runs the variant that flash_attention.cu's launcher picks
 by dtype and head dim ("wgmma" for bf16/f16 at D 64-256, "mma" at D 16 and
-32). This script also compiles the same source twice more, with
--DFLASH_ATTENTION_FORCE_VARIANT=1 (bf16/f16 on the f32-tile "fma" kernel at
-every D, which is how every dtype ran before the tensor-core variants) and
-=2 (bf16/f16 on "mma" at every D), under other library names that the port
-never loads. At the bf16 attention shapes of chip_smoke.py's phase 12 (T
-8,192), at D 32 and 16 with llama3.2-1b's heads, and at gemma2-9b global
-widths with q and k scaled by 8 (scores in the hundreds, so the softcap's
-tanh saturates), it holds each variant's output against the plain version
-(chip_smoke.py's K8_TOL and K8_FRO) and times it (CUDA events, median of 7)
-beside scaled_dot_product_attention where there is no softcap. Prints the
-card's name and power limit, one line per (shape, variant), and last a JSON
-object of the results. Exits non-zero without a card or on a failed check.
+32, "tf32" for f32 at D 64-256). This script also compiles the same source
+twice more, with -DFLASH_ATTENTION_FORCE_VARIANT=1 (every dtype on the
+f32-tile "fma" kernel at every D, which is how every dtype ran before the
+tensor-core variants and how f32 ran before "tf32") and =2 (bf16/f16 on
+"mma" at every D), under other library names that the port never loads.
+
+f32: at chip_smoke.py phase 12's three f32 shapes (T 8,192: gemma2-9b local
+and global, llama3.2-1b) and at qwen3-moe-30b-a3b widths (D 128), the
+port's build and the "fma" build in turns (port, fma, fma, port), beside
+scaled_dot_product_attention in f32 where there is no softcap, with both
+bounds: three TF32 products at 495 TFLOP/s and one pass of f32 FMAs at 67
+TFLOP/s. bf16 (skipped with
+--f32-only): the phase 12 bf16 shapes, D 32 and 16 with llama3.2-1b's
+heads, and gemma2-9b global widths with q and k scaled by 8 (scores in the
+hundreds, so the softcap's tanh saturates), each build once, beside SDPA
+where there is no softcap. Every output is held against the plain version
+(chip_smoke.py's K8_TOL and K8_FRO) and timed (CUDA events, median of 7).
+Prints the card's name and power limit, one line per (shape, build), and
+last a JSON object of the results. Exits non-zero without a card or on a
+failed check.
 """
 from __future__ import annotations
 
@@ -75,7 +83,10 @@ def forced_call(lib, fa):
         hq, tq, d = q.shape
         hkv, tk, _ = k.shape
         out = torch.empty_like(q)
+        nbytes = fa.scratch_bytes(lib, q.dtype, hkv, tk, d)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
                  fa.DTYPE_CODES[q.dtype], hq, hkv, tq, tk, d, 1.0 / math.sqrt(d), int(causal),
                  int(window is not None), 0 if window is None else int(window),
                  0.0 if softcap is None else float(softcap),
@@ -94,6 +105,8 @@ def variant_name(lib, fa, dtype, d) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--f32-only", action="store_true",
+                    help="only the f32 shapes (port and fma builds in turns)")
     ap.add_argument("--out", help="also write the JSON results to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -129,8 +142,51 @@ def main(argv=None) -> int:
                    gem.resolved_head_dim, dict(causal=True, window=None,
                                                softcap=gem.attn_softcap), 8.0, False))
     g = torch.Generator(device="cuda").manual_seed(14)
-    dt = torch.bfloat16
     results = []
+
+    def check(label, name, ran, got, want, dt):
+        err, rel, ok = cs.close_excess(got, want, cs.K8_TOL[dt], cs.K8_FRO[dt])
+        if not ok:
+            raise SystemExit(f"{label} {name} ({ran}): max |kernel - plain| {err:.3e}, "
+                             f"relative Frobenius {rel:.3e}: outside K8_TOL / K8_FRO")
+        return err, rel
+
+    qwe = rt.get_config("qwen3-moe-30b-a3b")
+    f32_shapes = [(label, cfg, kw, sdpa) for label, cfg, kw, dt, sdpa in cs.attention_shapes(rt)
+                  if dt == torch.float32]
+    # D 128, which no phase 12 f32 shape has
+    f32_shapes.append(("qwen3-moe-30b-a3b f32", qwe, dict(causal=True), True))
+    for label, cfg, kw, sdpa in f32_shapes:
+        dt = torch.float32
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, k, v = (torch.randn(h, T, d, generator=g, device="cuda") for h in (hq, hkv, hkv))
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        flops = 4 * d * hq * cs.live_pairs(T, kw.get("causal", True), kw.get("window"))
+        bound_tf32 = 3 * flops / cs.TF32_FLOPS_PER_S * 1e3
+        bound_fma = flops / cs.F32_FLOPS_PER_S * 1e3
+        sdpa_ms = None
+        if sdpa:
+            sdpa_ms = cs.time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True, enable_gqa=True))
+        for turn, name in enumerate(("port", "fma", "fma", "port")):  # in turns
+            call = calls[name]
+            ran = fa.variant(dt, d) if name == "port" else variant_name(libs[name], fa, dt, d)
+            err, rel = check(label, name, ran, call(q, k, v, **kw), want, dt)
+            ms = cs.time_ms(lambda: call(q, k, v, **kw))
+            results.append({"shape": label, "hq": hq, "hkv": hkv, "d": d, "kw": kw, "amp": 1.0,
+                            "dtype": "f32", "turn": turn, "build": name, "variant": ran,
+                            "ms": ms, "bound_ms": bound_tf32, "fma_bound_ms": bound_fma,
+                            "sdpa_ms": sdpa_ms, "max_abs_err": err, "rel_fro": rel})
+            sdpa_s = f", SDPA f32 {sdpa_ms:.3f} ms" if sdpa_ms is not None else ""
+            print(f"{label}: turn {turn}, {name} build, variant {ran}: {ms:.3f} ms (split-TF32 "
+                  f"bound {bound_tf32:.3f} ms, share {bound_tf32 / ms:.3f}; f32-FMA bound "
+                  f"{bound_fma:.3f} ms{sdpa_s}); max |kernel - plain| {err:.3e}, relative "
+                  f"Frobenius {rel:.3e}", flush=True)
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    if args.f32_only:
+        shapes = []
+    dt = torch.bfloat16
     for label, hq, hkv, d, kw, amp, sdpa in shapes:
         q, k, v = ((torch.randn(h, T, d, generator=g, device="cuda") * a).to(dt)
                    for h, a in ((hq, amp), (hkv, amp), (hkv, 1.0)))
@@ -143,14 +199,10 @@ def main(argv=None) -> int:
                 q[None], k[None], v[None], is_causal=True, enable_gqa=True))
         for name, call in calls.items():
             ran = fa.variant(dt, d) if name == "port" else variant_name(libs[name], fa, dt, d)
-            got = call(q, k, v, **kw)
-            err, rel, ok = cs.close_excess(got, want, cs.K8_TOL[dt], cs.K8_FRO[dt])
-            if not ok:
-                raise SystemExit(f"{label} {name} ({ran}): max |kernel - plain| {err:.3e}, "
-                                 f"relative Frobenius {rel:.3e}: outside K8_TOL / K8_FRO")
+            err, rel = check(label, name, ran, call(q, k, v, **kw), want, dt)
             ms = cs.time_ms(lambda: call(q, k, v, **kw))
             row = {"shape": label, "hq": hq, "hkv": hkv, "d": d, "kw": kw, "amp": amp,
-                   "build": name, "variant": ran, "ms": ms, "bound_ms": bound,
+                   "dtype": "bf16", "build": name, "variant": ran, "ms": ms, "bound_ms": bound,
                    "sdpa_ms": sdpa_ms, "max_abs_err": err, "rel_fro": rel}
             results.append(row)
             sdpa_s = f", SDPA {sdpa_ms:.3f} ms" if sdpa_ms is not None else ""

@@ -22,9 +22,11 @@
 //
 // What bounds it: operations, 4 * D flops per live (query, key) pair of each
 // head against (Hq * Tq + 2 * Hkv * Tk) * D values read once and Hq * Tq * D
-// written; in bf16/f16 at 989 TFLOP/s of tensor cores, in f32 at 67 TFLOP/s.
+// written; in bf16/f16 at 989 TFLOP/s of tensor cores, in f32 three TF32
+// products of that work at 495 TFLOP/s ("tf32", below; f32 FMAs at 67 TFLOP/s
+// on "fma").
 //
-// Three variants, chosen by (dtype, D) in variant_of, the one rule that the
+// Four variants, chosen by (dtype, D) in variant_of, the one rule that the
 // launcher and flash_attention_variant read; a failed launch is an error,
 // never a fallback:
 //
@@ -69,13 +71,45 @@
 // relative Frobenius error of 1e-2 in bf16 and 2e-3 in f16, with q and k
 // scaled by 8 in some cases so that the softcap's tanh saturates.
 //
-// "fma" -- f32 at every head dim: the port's f32 contract is full-f32
-// products, so no tensor cores (TF32 would round the operands). One block of
-// 256 threads per (64-row query tile, head); the Q, K, V and score tiles sit
-// in shared memory as f32, rows padded by one word (210 KiB at D = 256); per
-// KV tile S = Q K^T (4 x 4 scores a thread), scale, softcap and mask, four
-// threads per row for the row max and sum, O = alpha O + P V with f32 FMAs
-// (4 rows x D / 16 columns a thread in registers).
+// "tf32" -- f32 at D = 64, 128, 256, on tensor cores in split TF32
+// (tf32_split.cuh): each f32 operand v is big = tf32(v) plus small =
+// tf32(v - big), and a product is three TF32 products, small terms first,
+// as * bb + ab * bs + ab * bb, for S = Q K^T and for P V alike; the scores,
+// the softmax and O stay f32. wgmma's TF32 form takes both operands K-major:
+// K is (for S), V is not. So a pre-pass kernel (split_kv_tf32, in the same
+// launch) splits K and V once a call into device scratch: K's big and small
+// parts as K lies, V^T's transposed, with each 8-key group of a row in
+// kv_perm order so that the S accumulator's registers are P's A fragment as
+// they stand. The attention kernel then copies each key stage's panels with
+// TMA (128-byte swizzle) into single K and V^T buffers in shared memory, a
+// stage ahead on mbarriers: K for stage i + 1 once every S of stage i is
+// done, V^T for i + 1 once every P V of i is. (Splitting each stage in every
+// block instead, from global loads or a cp.async staging area, was slower at
+// every D: every 64 or 128 query rows re-split the same K and V; PERF.md.) The
+// tensor cores' own adds truncate, so no accumulator sums for long: S is
+// summed a 32-column panel of D at a time into a fresh accumulator (12
+// products) and the parts added in f32, and each key stage's P V goes to a
+// fresh accumulator folded as O = alpha O + P V in f32 (one accumulator
+// across the stages moved K7's f32 outputs by 1.4e-5, PR 29). Q sits in
+// shared memory as f32, laid out so that a lane's A-fragment values of a
+// panel are 8 consecutive floats, and is split into registers panel by panel
+// each stage (A from registers). Two warpgroups a block, one block an SM.
+// D = 64 and 128 ("rows"): each warpgroup takes 64 query rows of a 128-row
+// tile and all of D; 64 keys a stage. D = 256 ("pair"): O alone takes 128
+// registers a thread for 64 rows and all of D, so both warpgroups take the
+// same 64 rows, each half of D for S (the partial scores added through
+// shared memory, so that both hold the same scores and run the same
+// softmax) and half of O's columns; 32 keys a stage, 222,224 bytes of shared
+// memory. The softcap is cap_tanh (below), as in bf16/f16. No instantiation
+// spills (chip_smoke.py phase 1 fails if one does).
+//
+// "fma" -- f32 at D = 16 and 32 (PR 13's design, and every dtype at every
+// D in a build with -DFLASH_ATTENTION_FORCE_VARIANT=1): f32 FMAs, no tensor
+// cores. One block of 256 threads per (64-row query tile, head); the Q, K, V
+// and score tiles sit in shared memory as f32, rows padded by one word (210
+// KiB at D = 256); per KV tile S = Q K^T (4 x 4 scores a thread), scale,
+// softcap and mask, four threads per row for the row max and sum, O = alpha O
+// + P V with f32 FMAs (4 rows x D / 16 columns a thread in registers).
 #include <climits>
 #include <cmath>
 #include <cstring>
@@ -83,6 +117,7 @@
 #include <type_traits>
 
 #include "replay_common.cuh"
+#include "tf32_split.cuh"
 
 namespace {
 
@@ -450,14 +485,11 @@ __device__ __forceinline__ void to_logits(float (&s)[kNt][4], const AttnArgs& r,
 // One step of the online softmax for a 16-row tile of log2-domain logits
 // pre * s (pre = 1: s are logits already): the row max over this lane's keys
 // (a tree) and the four lanes of the row (shuffles), alpha = 2^(m_old - m)
-// (by which O must be scaled), p = 2^(pre * s - m) in one FMA, this lane's
-// part of the row sum; P rounded to T and packed as m16n8k16 A fragments
-// (score tiles 2 kk and 2 kk + 1 form fragment kk; the same layout serves
-// wgmma's register A).
-template <typename T, int kNt>
-__device__ __forceinline__ void online_softmax(float (&s)[kNt][4], float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2], uint32_t (&pf)[kNt / 2][4],
-                                               float pre = 1.f) {
+// (by which O must be scaled), p = 2^(pre * s - m) in one FMA, left in s,
+// and this lane's part of the row sum.
+template <int kNt>
+__device__ __forceinline__ void softmax_rows(float (&s)[kNt][4], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float pre = 1.f) {
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float t[kNt];
@@ -484,6 +516,16 @@ __device__ __forceinline__ void online_softmax(float (&s)[kNt][4], float (&m)[2]
       for (int j = 0; j < w; ++j) t[j] += t[j + w];
     l[hf] = l[hf] * alpha[hf] + t[0];
   }
+}
+
+// softmax_rows, then P rounded to T and packed as m16n8k16 A fragments
+// (score tiles 2 kk and 2 kk + 1 form fragment kk; the same layout serves
+// wgmma's register A).
+template <typename T, int kNt>
+__device__ __forceinline__ void online_softmax(float (&s)[kNt][4], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], uint32_t (&pf)[kNt / 2][4],
+                                               float pre = 1.f) {
+  softmax_rows(s, m, l, alpha, pre);
 #pragma unroll
   for (int kk = 0; kk < kNt / 2; ++kk) {
     pf[kk][0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
@@ -726,6 +768,11 @@ __device__ __forceinline__ void fence_regs(float (&x)[N][M]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < M; ++j) asm volatile("" : "+f"(x[i][j])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
 }
 template <int N, int M>
 __device__ __forceinline__ void fence_regs(uint32_t (&x)[N][M]) {
@@ -1068,6 +1115,389 @@ __global__ void __launch_bounds__(WgTile<D>::kThreads, WgTile<D>::kMinBlocks)
                 hk);
 }
 
+// ---------------------------------------------------------------------------
+// f32 at D = 64, 128, 256: split TF32 on wgmma
+// ---------------------------------------------------------------------------
+
+// D (64 x N, f32) (+)= A (64 x 8, TF32, registers: the m16n8k8 A fragment of
+// each warp's 16 rows) * B (8 x N, TF32, shared memory K-major with the
+// 128-byte swizzle); scale_d = 0 overwrites D. N = 32, 64, 128.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int D>
+struct TfTile {
+  // "pair" (D = 256): both warpgroups take the same 64 query rows, each half
+  // of D for S (the partial scores exchanged through shared memory) and half
+  // of O's columns, so that O takes 64 registers a thread; "rows" (D <= 128):
+  // each warpgroup takes 64 rows of its own and all of D
+  static constexpr bool kPair = D == 256;
+  static constexpr int kBQ = kPair ? 64 : 128;     // query rows a block
+  static constexpr int kBK = D == 256 ? 32 : 64;  // keys a stage
+  static constexpr int kThreads = 256;
+  static constexpr int kPanels = D / 32;            // 32-column panels of Q and K
+  static constexpr int kOCols = kPair ? D / 2 : D;  // a warpgroup's columns of O
+  static constexpr int kQPitch = 36;  // floats a row of a Q panel: 32 + 4 of padding
+  static constexpr int kKBytes = kBK * D * 4;  // one set (big or small) of a stage's K panels
+  static constexpr int kVBytes = kBK * D * 4;  // the same of V^T
+  static constexpr int kXBytes = kPair ? 2 * kBQ * kBK * 4 : 0;  // both warpgroups' partial scores
+  static constexpr int kQBytes = kPanels * kBQ * kQPitch * 4;
+  static constexpr int kSmem = 1024 + 2 * kKBytes + 2 * kVBytes + kXBytes + kQBytes + 16;
+  static_assert(kSmem <= 232448, "the block does not fit an SM");
+};
+
+// Position p (0..7) of each 8-key group of a V^T row holds key kv_perm(p) of
+// the group: lane q's P values of keys 2q and 2q + 1, where the S
+// accumulator leaves them, are then the A fragment's positions q and q + 4.
+__host__ __device__ constexpr int kv_perm(int p) { return p < 4 ? 2 * p : 2 * (p - 4) + 1; }
+
+// The pre-pass of "tf32": K and V of every KV head split once a call into
+// the arrays that the attention kernel's TMA loads copy into its panels as
+// they stand. kb and ks (hkv, tk, D): K's big and small parts; vtb and vts
+// (hkv, D, tkp): V^T's, each 8-key group of a row in kv_perm order, keys
+// past tk 0 (tkp: tk rounded up to 32). One block per (32 keys, KV head);
+// V's 32 rows pass through shared memory to be written transposed.
+template <int D>
+__global__ void __launch_bounds__(256) split_kv_tf32(const float* k, const float* v, int64_t tk,
+                                                     int64_t tkp, uint32_t* kb, uint32_t* ks,
+                                                     uint32_t* vtb, uint32_t* vts) {
+  __shared__ float tile[32][D + 1];  // padded: a column read hits 32 banks
+  const int64_t h = blockIdx.y;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * 32;
+  const int tid = static_cast<int>(threadIdx.x);
+  for (int idx = tid; idx < 32 * D / 4; idx += 256) {
+    const int n = idx / (D / 4), c = idx % (D / 4);
+    const int64_t key = k0 + n;
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < tk) {
+      const int64_t at = (h * tk + key) * D;
+      const float4 x = __ldg(reinterpret_cast<const float4*>(k + at) + c);
+      const float kx[4] = {x.x, x.y, x.z, x.w};
+      uint32_t b[4], sm[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tf32::split_tf32<true>(kx[j], b[j], sm[j]);
+      reinterpret_cast<uint4*>(kb + at)[c] = make_uint4(b[0], b[1], b[2], b[3]);
+      reinterpret_cast<uint4*>(ks + at)[c] = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+      y = __ldg(reinterpret_cast<const float4*>(v + at) + c);
+    }
+    tile[n][4 * c] = y.x;
+    tile[n][4 * c + 1] = y.y;
+    tile[n][4 * c + 2] = y.z;
+    tile[n][4 * c + 3] = y.w;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < D * 32; idx += 256) {
+    const int d = idx / 32, p = idx % 32;
+    uint32_t b, sm;
+    tf32::split_tf32<true>(tile[8 * (p / 8) + kv_perm(p % 8)][d], b, sm);
+    const int64_t at = (h * D + d) * tkp + k0 + p;
+    vtb[at] = b;
+    vts[at] = sm;
+  }
+}
+
+// The scores of a warp's 16 rows (the m16n8 tile layout of to_logits) become
+// log2-domain logits: s * scale, the softcap c tanh(x / c) (cap_tanh), then
+// the masks (-1e30 masked, -inf past Tk).
+template <int kNt>
+__device__ __forceinline__ void to_logits_f32(float (&s)[kNt][4], const AttnArgs& r, bool whole,
+                                              int64_t row, int64_t key) {
+#pragma unroll
+  for (int j = 0; j < kNt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * r.scale;
+      if (r.softcap != 0.f) x = cap_tanh(x * (2.f * kLog2e / r.softcap), r.softcap);
+      x *= kLog2e;
+      if (!whole) {
+        const int64_t qi = row + (e / 2) * 8;
+        const int64_t kj = key + j * 8 + (e % 2);
+        if (kj >= r.tk) {
+          x = -INFINITY;
+        } else if ((r.causal && qi < kj) || (r.has_window && qi - kj >= r.window)) {
+          x = kMasked;
+        }
+      }
+      s[j][e] = x;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TfTile<D>::kThreads, 1)
+    flash_attention_tf32(const __grid_constant__ AttnArgs r,
+                         const __grid_constant__ CUtensorMap kb_map,
+                         const __grid_constant__ CUtensorMap ks_map,
+                         const __grid_constant__ CUtensorMap vb_map,
+                         const __grid_constant__ CUtensorMap vs_map) {
+  using Tile = TfTile<D>;
+  constexpr int kBQ = Tile::kBQ;
+  constexpr int kBK = Tile::kBK;
+  constexpr int kNt = kBK / 8;                // 8-key steps of a stage
+  constexpr bool kPair = Tile::kPair;
+  constexpr int kOCols = Tile::kOCols;  // a warpgroup's columns of O
+  constexpr int kChunks = kPair ? Tile::kPanels / 2 : Tile::kPanels;  // its Q/K panels
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows
+  unsigned char* kb = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = kb + Tile::kKBytes;
+  unsigned char* vb = ks + Tile::kKBytes;
+  unsigned char* vsm = vb + Tile::kVBytes;
+  float4* xch = reinterpret_cast<float4*>(vsm + Tile::kVBytes);
+  float* qs = reinterpret_cast<float*>(vsm + Tile::kVBytes + Tile::kXBytes);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(vsm + Tile::kVBytes + Tile::kXBytes + Tile::kQBytes);
+  uint64_t* v_full = k_full + 1;
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid % 32, g = lane / 4, q = lane % 4;
+  // the warpgroup, warp-uniform as far as the compiler can tell
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int t = tid % 128;  // thread of the warpgroup
+  // this lane's rows of the block, r0 and r0 + 8
+  const int r0 = (kPair ? 0 : wg * 64) + (t / 32) * 16 + g;
+  const int64_t h = blockIdx.x;
+  const int64_t hk = h / (r.hq / r.hkv);
+  // query tiles in reverse: under a causal mask the last tiles see the most keys
+  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kBQ;
+  const float* qh = static_cast<const float*>(r.q) + h * r.tq * D;
+
+  // the block's KV stages (the rule of the other variants)
+  const int64_t n_tiles = (r.tk + kBK - 1) / kBK;
+  const int64_t q_last = (q0 + kBQ < r.tq ? q0 + kBQ : r.tq) - 1;
+  int64_t t_lo = 0, t_hi = n_tiles;
+  if (has_live(r, q0) && has_live(r, q_last)) {
+    t_lo = live_lo(r, q0) / kBK;
+    t_hi = live_hi(r, q_last) / kBK + 1;
+  }
+  // the keys that every row of this warpgroup sees
+  const int64_t g0 = q0 + (kPair ? 0 : wg * 64);
+  const int64_t g1 = g0 + 63 < r.tq ? g0 + 63 : (g0 < r.tq ? r.tq - 1 : g0);
+  const int64_t whole_lo = live_lo(r, g1), whole_hi = live_hi(r, g0);
+
+  // one thread copies a stage's K panels (K's 32-column slices) and V^T
+  // panels (32-key slices of V^T's rows), big and small, from the pre-pass's
+  // arrays with TMA, each set counted on its "full" mbarrier; keys past tk
+  // read as 0
+  auto load_k = [&](int64_t i) {
+    mbar_expect_tx(k_full, 2 * Tile::kKBytes);
+    for (int p = 0; p < Tile::kPanels; ++p) {
+      tma_load(kb + p * kBK * 128, &kb_map, 32 * p, static_cast<int>(i * kBK), static_cast<int>(hk),
+               k_full);
+      tma_load(ks + p * kBK * 128, &ks_map, 32 * p, static_cast<int>(i * kBK), static_cast<int>(hk),
+               k_full);
+    }
+  };
+  auto load_v = [&](int64_t i) {
+    mbar_expect_tx(v_full, 2 * Tile::kVBytes);
+    for (int kp = 0; kp < kBK / 32; ++kp) {
+      tma_load(vb + kp * D * 128, &vb_map, static_cast<int>(i * kBK) + 32 * kp, 0,
+               static_cast<int>(hk), v_full);
+      tma_load(vsm + kp * D * 128, &vs_map, static_cast<int>(i * kBK) + 32 * kp, 0,
+               static_cast<int>(hk), v_full);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_k(t_lo);
+    load_v(t_lo);
+  }
+  // Q into shared memory once, f32, so that lane q's A-fragment values of
+  // one panel's four k steps are 8 consecutive floats of each of its rows:
+  // Q[row][32 p + 8 st + q + 4 hh] at (p * kBQ + row) * kQPitch + 8 q + 2 st + hh
+  for (int idx = tid; idx < kBQ * D / 4; idx += Tile::kThreads) {
+    const int row = idx / (D / 4), d0 = 4 * (idx % (D / 4));
+    const float4 x = q0 + row < r.tq
+                         ? __ldg(reinterpret_cast<const float4*>(qh + (q0 + row) * D) + d0 / 4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float val[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + e, col = d % 32;
+      qs[((d / 32) * kBQ + row) * Tile::kQPitch + 8 * (col % 4) + 2 * (col / 8) + (col % 8) / 4] =
+          val[e];
+    }
+  }
+  __syncthreads();
+
+  float o[kOCols / 2];  // this warpgroup's columns of O (o_col on) at its rows
+#pragma unroll
+  for (int j = 0; j < kOCols / 2; ++j) o[j] = 0.f;
+  float m[2] = {kMasked, kMasked};
+  float l[2] = {0.f, 0.f};  // this lane's part of the row sums
+  const int o_col = kPair ? wg * kOCols : 0;  // this warpgroup's first column of O
+  // descriptors of the panels' starts; an operand's is its panel's plus its
+  // offset in 16-byte units (the address field does not carry over)
+  uint64_t dkb = gmma_desc(smem_u32(kb), 16, 1024), dks = gmma_desc(smem_u32(ks), 16, 1024);
+  uint64_t dvb = gmma_desc(smem_u32(vb) + o_col * 128, 16, 1024);
+  uint64_t dvs = gmma_desc(smem_u32(vsm) + o_col * 128, 16, 1024);
+
+  for (int64_t i = t_lo; i < t_hi; ++i) {
+    const int64_t k0 = i * kBK;
+    const uint32_t parity = static_cast<uint32_t>((i - t_lo) & 1);
+    // pair: opaque to the compiler, else it computes every wgmma's descriptor
+    // once, outside the loop, and holds them all in registers (they spilled;
+    // at D <= 128 that is the faster choice)
+    if constexpr (kPair) asm volatile("" : "+l"(dkb), "+l"(dks), "+l"(dvb), "+l"(dvs));
+    // S = Q K^T over this warpgroup's panels of D, a 32-column panel (four k
+    // steps of 8, three TF32 products each, the small terms first) at a time
+    // into a fresh part, each part added to s in f32. (part and pv are not
+    // initialised: each chain of wgmmas starts with scale_d = 0, and values
+    // carried across stages would hold registers.)
+    float s[kNt][4];
+    float part[2][kBK / 2];
+    mbar_wait(k_full, parity);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int p = (kPair ? wg * kChunks : 0) + c;
+      const float4* qrow =
+          reinterpret_cast<const float4*>(qs + (p * kBQ + r0) * Tile::kQPitch + 8 * q);
+      const float4 y0 = qrow[0], y1 = qrow[1];                                      // row r0
+      const float4 y2 = qrow[2 * Tile::kQPitch], y3 = qrow[2 * Tile::kQPitch + 1];  // row r0 + 8
+      const float x0[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+      const float x1[8] = {y2.x, y2.y, y2.z, y2.w, y3.x, y3.y, y3.z, y3.w};
+      // A fragments of step st: (r0, q), (r0 + 8, q), (r0, q + 4), (r0 + 8, q + 4)
+      uint32_t ab[4][4], as[4][4];
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        tf32::split_tf32<true>(x0[2 * st], ab[st][0], as[st][0]);
+        tf32::split_tf32<true>(x1[2 * st], ab[st][1], as[st][1]);
+        tf32::split_tf32<true>(x0[2 * st + 1], ab[st][2], as[st][2]);
+        tf32::split_tf32<true>(x1[2 * st + 1], ab[st][3], as[st][3]);
+      }
+      float(&acc)[kBK / 2] = part[c % 2];
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const uint32_t off = (p * kBK * 128 + st * 32) >> 4;
+        wgmma_tf32(acc, as[st], dkb + off, st > 0);
+        wgmma_tf32(acc, ab[st], dks + off, 1);
+        wgmma_tf32(acc, ab[st], dkb + off, 1);
+      }
+      wgmma_commit();
+      if (c > 0) {  // fold the previous part while this one runs
+        wgmma_wait<1>();
+        fence_regs(part[(c - 1) % 2]);
+        float* sf = reinterpret_cast<float*>(s);
+#pragma unroll
+        for (int j = 0; j < kBK / 2; ++j)
+          sf[j] = c == 1 ? part[0][j] : sf[j] + part[(c - 1) % 2][j];
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(part[(kChunks - 1) % 2]);
+    {
+      float* sf = reinterpret_cast<float*>(s);
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j)
+        sf[j] = kChunks == 1 ? part[0][j] : sf[j] + part[(kChunks - 1) % 2][j];
+      // pair: the other warpgroup's half of D; both warpgroups then hold the
+      // same scores (f32 addition commutes) and run the same softmax
+      if constexpr (kPair) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j)
+          xch[(wg * (kBK / 8) + j) * 128 + t] =
+              make_float4(sf[4 * j], sf[4 * j + 1], sf[4 * j + 2], sf[4 * j + 3]);
+      }
+      __syncthreads();  // the partial scores written; every wgmma on K's panels done
+      if (tid == 0 && i + 1 < t_hi) load_k(i + 1);
+      if constexpr (kPair) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          const float4 y = xch[((1 - wg) * (kBK / 8) + j) * 128 + t];
+          sf[4 * j] += y.x;
+          sf[4 * j + 1] += y.y;
+          sf[4 * j + 2] += y.z;
+          sf[4 * j + 3] += y.w;
+        }
+      }
+    }
+    // the softmax; a stage that every row sees whole, with no softcap,
+    // takes the scale inside the exponent
+    float alpha[2];
+    const bool whole = k0 + kBK <= r.tk && whole_lo <= k0 && whole_hi >= k0 + kBK - 1;
+    if (whole && r.softcap == 0.f) {
+      softmax_rows(s, m, l, alpha, r.scale * kLog2e);
+    } else {
+      to_logits_f32(s, r, whole, q0 + r0, k0 + 2 * q);
+      softmax_rows(s, m, l, alpha);
+    }
+    // P V over this warpgroup's columns of O, in a fresh accumulator: P's A
+    // fragment of step st is (r0, key 8 st + 2 q),
+    // (r0 + 8, 8 st + 2 q), (r0, 8 st + 2 q + 1), (r0 + 8, 8 st + 2 q + 1),
+    // positions q and q + 4 of the V^T panels' permuted key order
+    uint32_t pb[kNt][4], ps[kNt][4];
+#pragma unroll
+    for (int st = 0; st < kNt; ++st) {
+      tf32::split_tf32<true>(s[st][0], pb[st][0], ps[st][0]);
+      tf32::split_tf32<true>(s[st][2], pb[st][1], ps[st][1]);
+      tf32::split_tf32<true>(s[st][1], pb[st][2], ps[st][2]);
+      tf32::split_tf32<true>(s[st][3], pb[st][3], ps[st][3]);
+    }
+    mbar_wait(v_full, parity);
+    float pv[kOCols / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < kNt; ++st) {
+      const uint32_t off = ((st / 4) * D * 128 + (st % 4) * 32) >> 4;
+      wgmma_tf32(pv, ps[st], dvb + off, st > 0);
+      wgmma_tf32(pv, pb[st], dvs + off, 1);
+      wgmma_tf32(pv, pb[st], dvb + off, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pv);
+    // O = alpha O + P V in f32: pv[4 j + 2 hh + c] is row r0 + 8 hh
+#pragma unroll
+    for (int j = 0; j < kOCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] = fmaf(o[4 * j + e], alpha[e / 2], pv[4 * j + e]);
+    __syncthreads();  // every wgmma on V^T's panels done; the partial scores read
+    if (tid == 0 && i + 1 < t_hi) load_v(i + 1);
+  }
+
+  float* out = static_cast<float*>(r.out) + h * r.tq * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv = 1.f / (lt == 0.f ? 1.f : lt);
+    const int64_t qi = q0 + r0 + 8 * hh;
+    if (qi < r.tq) {
+#pragma unroll
+      for (int j = 0; j < kOCols / 8; ++j)
+        *reinterpret_cast<float2*>(out + qi * D + o_col + 8 * j + 2 * q) =
+            make_float2(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    }
+  }
+}
+
 template <int D, typename T>
 int launch_fma(const AttnArgs& r) {
   constexpr int bytes = smem_bytes<D>();
@@ -1159,54 +1589,123 @@ int launch_wg(const AttnArgs& r) {
   return static_cast<int>(cudaGetLastError());
 }
 
-enum class Variant { kNone, kFma, kMma, kWgmma };
+// An f32 (heads, rows, cols) array as a 3-D TMA map whose boxes are 32
+// columns (128 bytes, swizzled) x box_rows rows x 1 head; rows past `rows`
+// read as 0.
+bool make_map_f32(CUtensorMap* map, const void* ptr, int64_t heads, int64_t rows, int64_t cols,
+                  int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 4,
+                                 static_cast<cuuint64_t>(rows) * cols * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
-// The variant for (dtype code, D), the one rule: f32 -> fma; bf16 and f16 ->
-// wgmma at D >= 64 (its 64-column panels), mma at D 16 and 32. A build with
-// -DFLASH_ATTENTION_FORCE_VARIANT=1 (fma) or 2 (mma) runs that variant for
-// bf16 and f16 at every D instead: scripts/k8_variants.py compiles such
-// libraries under other names to time the variants against each other; the
-// port never builds or loads them.
+// The pre-pass's arrays, in 4-byte words: K's big and small parts (hkv * tk *
+// d each), then V^T's (hkv * d * tkp each).
+int64_t tf32_scratch_words(int64_t hkv, int64_t tk, int d) {
+  const int64_t tkp = (tk + 31) / 32 * 32;
+  return 2 * hkv * tk * d + 2 * hkv * d * tkp;
+}
+
+template <int D>
+int launch_tf32(const AttnArgs& r, void* scratch) {
+  using Tile = TfTile<D>;
+  const int64_t n_qt = (r.tq + Tile::kBQ - 1) / Tile::kBQ;
+  const int64_t tkp = (r.tk + 31) / 32 * 32;
+  if (n_qt > 65535 || r.hq > INT_MAX || r.hkv > 65535 || tkp > INT_MAX || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(r.q) | reinterpret_cast<uintptr_t>(r.k) |
+       reinterpret_cast<uintptr_t>(r.v) | reinterpret_cast<uintptr_t>(r.out) |
+       reinterpret_cast<uintptr_t>(scratch)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  uint32_t* kbg = static_cast<uint32_t*>(scratch);
+  uint32_t* ksg = kbg + r.hkv * r.tk * D;
+  uint32_t* vtb = ksg + r.hkv * r.tk * D;
+  uint32_t* vts = vtb + r.hkv * D * tkp;
+  split_kv_tf32<D><<<dim3(static_cast<unsigned>(tkp / 32), static_cast<unsigned>(r.hkv)), 256, 0,
+                     r.stream>>>(static_cast<const float*>(r.k), static_cast<const float*>(r.v),
+                                 r.tk, tkp, kbg, ksg, vtb, vts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap kb_map, ks_map, vb_map, vs_map;
+  if (!make_map_f32(&kb_map, kbg, r.hkv, r.tk, D, Tile::kBK) ||
+      !make_map_f32(&ks_map, ksg, r.hkv, r.tk, D, Tile::kBK) ||
+      !make_map_f32(&vb_map, vtb, r.hkv, D, tkp, D) ||
+      !make_map_f32(&vs_map, vts, r.hkv, D, tkp, D))
+    return static_cast<int>(cudaErrorNotSupported);
+  err = cudaFuncSetAttribute(flash_attention_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tile::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(r.hq), static_cast<unsigned>(n_qt));
+  flash_attention_tf32<D><<<grid, Tile::kThreads, Tile::kSmem, r.stream>>>(r, kb_map, ks_map,
+                                                                          vb_map, vs_map);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum class Variant { kNone, kFma, kMma, kWgmma, kTf32 };
+
+// The variant for (dtype code, D), the one rule: f32 -> tf32 at D >= 64 (its
+// 32-column panels split between two warpgroups), fma at D 16 and 32; bf16
+// and f16 -> wgmma at D >= 64 (its 64-column panels), mma at D 16 and 32. A
+// build with -DFLASH_ATTENTION_FORCE_VARIANT=1 runs every dtype on fma at
+// every D (PR 13's design), one with =2 runs bf16 and f16 on mma at every D:
+// scripts/k8_variants.py compiles such libraries under other names to time
+// the variants against each other; the port never builds or loads them.
 constexpr Variant variant_of(int code, int d) {
   if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256) return Variant::kNone;
-  if (code == replay::kF32) return Variant::kFma;
-  if (code != replay::kF16 && code != replay::kBF16) return Variant::kNone;
+  if (code != replay::kF32 && code != replay::kF16 && code != replay::kBF16) return Variant::kNone;
+#if defined(FLASH_ATTENTION_FORCE_VARIANT) && FLASH_ATTENTION_FORCE_VARIANT == 1
+  return Variant::kFma;
+#else
+  if (code == replay::kF32) return d >= 64 ? Variant::kTf32 : Variant::kFma;
 #ifdef FLASH_ATTENTION_FORCE_VARIANT
-  return FLASH_ATTENTION_FORCE_VARIANT == 1 ? Variant::kFma : Variant::kMma;
+  return Variant::kMma;
 #else
   return d >= 64 ? Variant::kWgmma : Variant::kMma;
+#endif
 #endif
 }
 
 template <int D, typename T, int kCode>
-int launch_t(const AttnArgs& r) {
+int launch_t(const AttnArgs& r, void* scratch) {
   constexpr Variant v = variant_of(kCode, D);
   if constexpr (v == Variant::kFma) return launch_fma<D, T>(r);
   else if constexpr (v == Variant::kMma) return launch_mma<D, T>(r);
   else if constexpr (v == Variant::kWgmma) return launch_wg<D, T>(r);
+  else if constexpr (v == Variant::kTf32) return launch_tf32<D>(r, scratch);
   else return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
-int launch_d(const AttnArgs& r, int code) {
+int launch_d(const AttnArgs& r, int code, void* scratch) {
   switch (code) {
-    case replay::kF32: return launch_t<D, float, replay::kF32>(r);
-    case replay::kF16: return launch_t<D, __half, replay::kF16>(r);
-    case replay::kBF16: return launch_t<D, __nv_bfloat16, replay::kBF16>(r);
+    case replay::kF32: return launch_t<D, float, replay::kF32>(r, scratch);
+    case replay::kF16: return launch_t<D, __half, replay::kF16>(r, scratch);
+    case replay::kBF16: return launch_t<D, __nv_bfloat16, replay::kBF16>(r, scratch);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// int flash_attention_launch(q, k, v, out, code, hq, hkv, tq, tk, d, scale,
-//                            causal, has_window, window, softcap, stream)
+// int flash_attention_launch(q, k, v, out, scratch, code, hq, hkv, tq, tk, d,
+//                            scale, causal, has_window, window, softcap, stream)
 //   -> cudaGetLastError(); cudaErrorInvalidValue for a head_dim other than
-//   16, 32, 64, 128 or 256, an unknown dtype code, or hq % hkv != 0;
-//   cudaErrorMisalignedAddress for a bf16/f16 pointer that is not 16-byte
-//   aligned (the wrapper realigns).
+//   16, 32, 64, 128 or 256, an unknown dtype code, hq % hkv != 0, or no
+//   scratch where the variant needs it; cudaErrorMisalignedAddress for a
+//   pointer that is not 16-byte aligned on the tf32, wgmma and mma variants
+//   (the wrapper realigns). scratch: flash_attention_scratch_bytes(code, hkv,
+//   tk, d) bytes of device memory (none: a null pointer), overwritten.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int code, int64_t hq, int64_t hkv,
+                                      void* out, void* scratch, int code, int64_t hq, int64_t hkv,
                                       int64_t tq, int64_t tk, int d, float scale,
                                       int causal, int has_window, int64_t window,
                                       float softcap, void* stream) {
@@ -1216,22 +1715,29 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                    tq,    tk,     scale,      causal, has_window, window,
                    softcap, static_cast<cudaStream_t>(stream)};
   switch (d) {
-    case 16: return launch_d<16>(r, code);
-    case 32: return launch_d<32>(r, code);
-    case 64: return launch_d<64>(r, code);
-    case 128: return launch_d<128>(r, code);
-    case 256: return launch_d<256>(r, code);
+    case 16: return launch_d<16>(r, code, scratch);
+    case 32: return launch_d<32>(r, code, scratch);
+    case 64: return launch_d<64>(r, code, scratch);
+    case 128: return launch_d<128>(r, code, scratch);
+    case 256: return launch_d<256>(r, code, scratch);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The variant that flash_attention_launch runs for (dtype code, d): "wgmma",
-// "mma", "fma", or "none" for what it refuses (variant_of).
+// The scratch bytes that flash_attention_launch needs for (dtype code, hkv,
+// tk, d): the "tf32" pre-pass's arrays, 0 for the other variants.
+extern "C" int64_t flash_attention_scratch_bytes(int code, int64_t hkv, int64_t tk, int d) {
+  return variant_of(code, d) == Variant::kTf32 ? 4 * tf32_scratch_words(hkv, tk, d) : 0;
+}
+
+// The variant that flash_attention_launch runs for (dtype code, d): "tf32",
+// "wgmma", "mma", "fma", or "none" for what it refuses (variant_of).
 extern "C" const char* flash_attention_variant(int code, int d) {
   switch (variant_of(code, d)) {
     case Variant::kFma: return "fma";
     case Variant::kMma: return "mma";
     case Variant::kWgmma: return "wgmma";
+    case Variant::kTf32: return "tf32";
     case Variant::kNone: break;
   }
   return "none";

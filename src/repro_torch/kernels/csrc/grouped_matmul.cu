@@ -46,7 +46,8 @@
 // order, bf16 x f16 in either order) on tensor cores in split TF32. TF32
 // keeps 11 significant bits, a relative error of about 5e-4 where the f32
 // contract asks for about 1e-6, so each f32 operand v is split into
-// big = cvt.rna.tf32(v) and small = cvt.rna.tf32(v - big), and
+// big = cvt.rna.tf32(v) and small = cvt.rna.tf32(v - big) (tf32_split.cuh,
+// shared with K8's "tf32" variant), and
 //   y = xs * wb + xb * ws + xb * wb
 // in f32, the small terms first (CUTLASS's 3xTF32; xs * ws is dropped,
 // about 2^-22 of |x * w| a term). A bf16 or f16 value is exact in TF32 and
@@ -83,6 +84,7 @@
 #include <type_traits>
 
 #include "replay_common.cuh"
+#include "tf32_split.cuh"
 
 namespace {
 
@@ -494,26 +496,7 @@ __device__ __forceinline__ float as_f32(float v) { return v; }
 __device__ __forceinline__ float as_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// v rounded to TF32, to nearest with ties away from zero, in f32's layout
-// (the 13 low bits of the mantissa cleared).
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t out;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(out) : "f"(v));
-  return out & 0xffffe000u;
-}
-
-// (big, small) of v: big = tf32(v), small = tf32(v - big); a 16-bit value is
-// its own big part (exact in TF32) and has no small one.
-template <bool kSplit>
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  if constexpr (kSplit) {
-    big = to_tf32(v);
-    small = to_tf32(v - __uint_as_float(big));
-  } else {
-    big = __float_as_uint(v);
-    small = 0u;
-  }
-}
+using tf32::split_tf32;  // tf32_split.cuh
 
 // D (16 x 8, f32) += A (16 x 8, row) * B (8 x 8, col), TF32 operands.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],

@@ -830,6 +830,69 @@ def test_split_tf32_keeps_the_f32_bound_where_one_pass_does_not(pair):
         assert rel(split) == 0.0
 
 
+def _split_tf32_attention(q, k, v, *, softcap, block_k, passes: str = "split"):
+    """K8's "tf32" arithmetic on the CPU, causal: per key stage of
+    ``block_k`` keys S = Q K^T as the split's three exact TF32 products (the
+    small terms first, qs @ ks dropped), the softcap and the masks, the
+    online softmax, P (rounded to f32, as the kernel holds it) @ V as three
+    exact TF32 products, folded as O = alpha O + P V. Everything but the
+    TF32 operands is f64, so that only the split's error shows;
+    ``passes="one"``: one TF32 product of the big parts instead."""
+    def product(a, b):
+        (ab, as_), (bb, bs) = _tf32_split(a), _tf32_split(b)
+        terms = [(ab, bb)] if passes == "one" else [(as_, bb), (ab, bs), (ab, bb)]
+        return sum(x.double() @ y.double() for x, y in terms)
+
+    hq, t, d = q.shape
+    group = hq // k.shape[0]
+    live = torch.arange(t)[:, None] >= torch.arange(t)[None, :]
+    out = []
+    for h in range(hq):
+        kh, vh = k[h // group], v[h // group]
+        m = torch.full((t, 1), -1e30, dtype=torch.float64)
+        l = torch.zeros(t, 1, dtype=torch.float64)
+        o = torch.zeros(t, d, dtype=torch.float64)
+        for k0 in range(0, t, block_k):
+            s = product(q[h], kh[k0:k0 + block_k].T) / math.sqrt(d)
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            s = torch.where(live[:, k0:k0 + block_k], s, -1e30)
+            m_new = torch.maximum(m, s.amax(1, keepdim=True))
+            alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+            l = l * alpha + p.sum(1, keepdim=True)
+            o = o * alpha + product(p.float(), vh[k0:k0 + block_k])
+            m = m_new
+        out.append(o / l)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("d,block_k", [(64, 64), (256, 32)], ids=["d64", "d256"])
+@pytest.mark.parametrize("softcap", [50.0, None], ids=["saturated_softcap", "no_cap"])
+def test_split_tf32_attention_keeps_the_f32_bound_where_one_pass_does_not(d, block_k, softcap):
+    """K8's "tf32" arithmetic emulated on the CPU (the kernel's key stages
+    at each D) with q and k scaled by 8: scores in the hundreds, so a
+    softcap saturates and, without one, the softmax is near one-hot. The
+    split stays within K8_FRO[f32] / 10 of an f64 attention of the same
+    operands; one pass of TF32 over them misses K8_FRO[f32]."""
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn(2, 256, d, generator=g) * 8
+    k = torch.randn(1, 256, d, generator=g) * 8
+    v = torch.randn(1, 256, d, generator=g)
+    scores = q.double() @ k[0].double().T / math.sqrt(d)
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = torch.where(torch.ones(256, 256, dtype=torch.bool).tril(), scores, -1e30)
+    exact = torch.softmax(scores, -1) @ v[0].double()
+
+    def rel(y):
+        return float((y - exact).norm() / exact.norm())
+
+    bound = _K8_FRO[torch.float32]
+    assert rel(_split_tf32_attention(q, k, v, softcap=softcap, block_k=block_k)) <= bound / 10
+    assert rel(_split_tf32_attention(q, k, v, softcap=softcap, block_k=block_k,
+                                     passes="one")) > bound
+
+
 def _synthetic_bsr_plan(nnzb_a, nnzb_b, nnzb_c, t_max, seed, device):
     """Random plan arrays whose live slots never name block 0 and whose
     padded slots all do (as plan_bsr_numeric pads them)."""
@@ -1064,8 +1127,10 @@ def test_flash_attention_kernel_matches_plain_on_the_card(cuda, dtype, shape):
     k = torch.randn(hkv, tk, d, generator=g, device=cuda).to(dtype)
     v = torch.randn(hkv, tk, d, generator=g, device=cuda).to(dtype)
     tol = 2e-3 if dtype == torch.float32 else 5e-2
-    assert k8.variant(dtype, d) == ("fma" if dtype == torch.float32 else
-                                    "wgmma" if d >= 64 else "mma")
+    if dtype == torch.float32:
+        assert k8.variant(dtype, d) == ("tf32" if d >= 64 else "fma")
+    else:
+        assert k8.variant(dtype, d) == ("wgmma" if d >= 64 else "mma")
     for kw in (dict(causal=True), dict(causal=True, window=64), dict(causal=False),
                dict(causal=True, softcap=30.0), dict(causal=True, window=0),
                dict(causal=False, window=3), dict(causal=True, softcap=50.0)):
@@ -1122,7 +1187,8 @@ def test_flash_attention_kernel_holds_a_saturated_softcap_on_the_card(cuda, dtyp
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 def test_flash_attention_kernel_takes_operands_off_16_byte_alignment(cuda, dtype):
     import importlib
 
@@ -1130,14 +1196,15 @@ def test_flash_attention_kernel_takes_operands_off_16_byte_alignment(cuda, dtype
 
     g = torch.Generator(device=cuda).manual_seed(3)
     base = torch.randn(1 + 2 * 128 * 64, generator=g, device=cuda).to(dtype)
-    q = base[1:].view(2, 128, 64)  # 2 bytes past an aligned address
+    q = base[1:].view(2, 128, 64)  # one element past an aligned address
     k = torch.randn(1, 128, 64, generator=g, device=cuda).to(dtype)
     v = torch.randn(1, 128, 64, generator=g, device=cuda).to(dtype)
     assert q.data_ptr() % 16 != 0
     got = k8.flash_attention(q, k, v, causal=True, block_q=128, block_k=128)
     torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got.float(), k8.flash_attention_plain(q, k, v).float(),
-                               rtol=5e-2, atol=5e-2)
+                               rtol=tol, atol=tol)
 
 
 # --------------------------------------------------------------------------
