@@ -248,7 +248,10 @@ Phases, in order:
      kernel:pallas window; dist_multigrid K1 once a live shard a replay;
      serve_lm and train_lm none); train_lm at its defaults (300 steps),
      then to 320, resuming from step 300;
- 22. one JSON line of the kernels (K1 and K2 with their batched launches'
+ 22. the port's contract linter, ``python -m repro_torch.analysis``, in a
+     child process where importing jax or repro raises: no new finding;
+     its counts of findings and of inline allows on a line of their own;
+ 23. one JSON line of the kernels (K1 and K2 with their batched launches'
      times, launches and shape, K1 with its sharded launches); the last
      line is the result.
 
@@ -5089,6 +5092,45 @@ def phase_examples(rt, km, root: Path) -> dict:
     return out
 
 
+def phase_analysis(root: Path) -> dict:
+    """Phase 22: ``python -m repro_torch.analysis`` over src/repro_torch in a
+    child process under the tests' import guard (``tests/torch_import_guard``:
+    importing jax, jaxlib, flax or repro raises), its report written as JSON
+    under build/ (removed after). Fails on a nonzero exit or any new finding;
+    prints the counts of findings by rule and of inline allows by code."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_import_guard", root / "tests" / "torch_import_guard.py")
+    guard = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(guard)
+
+    report_path = root / "build" / "chip_smoke_analysis.json"
+    report_path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        proc = guard.run_guarded("import runpy\nrunpy.run_module('repro_torch.analysis', "
+                                 "run_name='__main__', alter_sys=True)\n",
+                                 "--json", str(report_path))
+        wall_s = time.perf_counter() - t0
+        require(proc.returncode == 0, "repro_torch.analysis failed (exit "
+                f"{proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        report = json.loads(report_path.read_text())
+    finally:
+        report_path.unlink(missing_ok=True)
+    require(report["ok"] and report["counts"]["new"] == 0,
+            f"repro_torch.analysis: new findings {report['new']}")
+    require(report["stats"]["modules"] > 80 and report["stats"]["parse_errors"] == 0,
+            f"repro_torch.analysis read too little: {report['stats']}")
+    allows: dict = {}
+    for finding in report["suppressed"]:
+        allows[finding["code"]] = allows.get(finding["code"], 0) + 1
+    out = {"modules": report["stats"]["modules"], "counts": report["counts"],
+           "findings_by_rule": report["stats"]["findings_by_rule"], "allows": allows,
+           "wall_s": wall_s}
+    log(f"   {proc.stdout.strip().splitlines()[-1]} ({wall_s:.2f} s, jax and repro refused)")
+    print(json.dumps({"phase22": out}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5272,6 +5314,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with Phase("phase 21: the seven examples (examples/torch_*.py) on the card"):
         phase_examples(rt, km, Path(__file__).resolve().parent)
+    with Phase("phase 22: the port's contract linter (python -m repro_torch.analysis) "
+               "without jax or repro"):
+        phase_analysis(Path(__file__).resolve().parent)
 
     k1, k2 = times["multigrid AP"], times["power-law A*A"]
     serve_worst = max(serve[k]["worst"]

@@ -121,8 +121,11 @@ def class_bounds(l1_size: int | None) -> tuple:
     """The largest c_nnz whose tables fit each of ``CLASS_SLOTS`` (0 where
     no row fits); a row's slots never shrink as c_nnz grows, so a row of
     c_nnz in (bounds[c - 1], bounds[c]] belongs to class c."""
-    def slots(cn: int) -> int:
-        return int(lp_table_slots(torch.tensor([cn]), 2**31 - 1, l1_size)[0])
+    def slots(cn: int) -> int:  # lp_table_slots of one row, in Python ints
+        s2 = _next_pow2(max(2 * cn, 8))
+        if l1_size is not None and cn > l1_cutoff(l1_size):
+            s2 += l1_size
+        return s2 if cn > 0 else 0
 
     bounds, lo = [], 0
     for cap in CLASS_SLOTS:
@@ -173,6 +176,7 @@ def device_allotment(counts: torch.Tensor, l1_size: int | None):
         allot += torch.where(counts > l1_cutoff(l1_size), l1_size, 0)
     g_off = torch.zeros(counts.shape[0] + 1, dtype=torch.int64, device=counts.device)
     torch.cumsum(allot, 0, out=g_off[1:])
+    # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its device-memory allotment, only where a row's table lives there
     return g_off, int(g_off[-1])
 
 
@@ -187,6 +191,7 @@ def lp_bins(c_nnz: torch.Tensor, r_c: int, l1_size: int | None):
     r_c; None and 0 where there is no such row)."""
     bucket, order = torch.sort(_bucket(c_nnz, l1_size), stable=True)
     # where each class starts (bincount would wait for its max): the one wait
+    # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its class starts, which size the launch's grid
     starts = torch.searchsorted(bucket, _consts(c_nnz.device, l1_size)[1]).tolist()
     starts.append(c_nnz.shape[0])
     class_rows = [b - a for a, b in zip(starts, starts[1:])]
@@ -221,7 +226,8 @@ def spgemm_lp_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, *,
 def _column_bound(b_idx, c_idx) -> int:
     """One past the largest column id of B's and C's ELL arrays (at least 1):
     the reference's LP kernel takes no k, and keys need no bound there."""
-    top = max(int(b_idx.max()) if b_idx.numel() else 0,
+    # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): two waits, only where the caller gives no k (kernels/ops always gives one)
+    top = max(int(b_idx.max()) if b_idx.numel() else 0,  # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c), as above
               int(c_idx.max()) if c_idx.numel() else 0)
     return max(top + 1, 1)
 
@@ -267,6 +273,7 @@ def spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, *,
                    class_rows=class_rows, g_off=g_off, g_tab=_table(g_slots, a_idx.device),
                    lost_count=lost, lost_rows=lost_rows)
         NUMERIC_LAUNCHES += 1
+        # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its count of lost rows, which decides the rerun
         n_lost = int(lost)  # the wait for the kernel's count of lost rows
         if n_lost:
             _redo_lost_rows(ell, lost_rows[:n_lost], l1_size)
