@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.utils import bit_of, popcount, segment_ends, segmented_scan
+from repro_torch.obs.trace import span
 from repro_torch.sparse.formats import CSR, csr_row_ids
 
 COMPRESSION_CF_CUTOFF = 0.85  # paper §3.2: apply compression iff CF <= 0.85
@@ -91,10 +92,14 @@ def compression_decision(a: CSR, b: CSR, bc: CompressedMatrix):
     """Host-facing: (CF, CMRF, use_compression). Mirrors the 15% rule."""
     fm, _, maxrf = flops_stats(a, b.row_nnz())
     fm_c, _, maxrf_c = flops_stats(a, bc.row_nnz())
-    fm = max(int(fm), 1)
-    maxrf = max(int(maxrf), 1)
-    cf = float(int(fm_c)) / fm
-    cmrf = float(int(maxrf_c)) / maxrf
+    with span("host.read", site="compression_decision.fm"):
+        fm = max(int(fm), 1)
+    with span("host.read", site="compression_decision.maxrf"):
+        maxrf = max(int(maxrf), 1)
+    with span("host.read", site="compression_decision.fm_c"):
+        cf = float(int(fm_c)) / fm
+    with span("host.read", site="compression_decision.maxrf_c"):
+        cmrf = float(int(maxrf_c)) / maxrf
     return cf, cmrf, cf <= COMPRESSION_CF_CUTOFF
 
 

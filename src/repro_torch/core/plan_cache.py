@@ -16,6 +16,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.obs.trace import span
+
 # Hash telemetry: ``structure_key`` bumps this on every call, so callers can
 # assert the executor's "one structure hash, ever" contract.
 HASH_COUNTS: Counter = Counter()
@@ -143,17 +145,28 @@ class PlanCache:
 
 
 def structure_key(a, b, fm_cap: int, pad_policy: str) -> str:
-    """Hash the structural identity of a multiply (values excluded)."""
+    """Hash the structural identity of a multiply (values excluded).
+
+    The whole digest, host copies included, runs inside a ``plan.hash`` span
+    (attribute ``bytes``: the bytes hashed), each copy a ``host.read`` span."""
     HASH_COUNTS["structure_key"] += 1
-    h = hashlib.blake2b(digest_size=16)
-    for mat in (a, b):
-        indptr = mat.indptr.to(torch.int32).cpu().numpy()
-        nnz = int(indptr[-1])
-        h.update(indptr.tobytes())
-        h.update(mat.indices[:nnz].to(torch.int32).cpu().numpy().tobytes())
-        h.update(repr((tuple(mat.shape), mat.nnz_cap)).encode())
-    h.update(repr((int(fm_cap), pad_policy)).encode())
-    return h.hexdigest()
+    with span("plan.hash") as sp:
+        h = hashlib.blake2b(digest_size=16)
+        nbytes = 0
+        for mat in (a, b):
+            with span("host.read", site="structure_key.indptr"):
+                indptr = mat.indptr.to(torch.int32).cpu().numpy()
+            nnz = int(indptr[-1])
+            with span("host.read", site="structure_key.indices"):
+                indices = mat.indices[:nnz].to(torch.int32).cpu().numpy()
+            shape = repr((tuple(mat.shape), mat.nnz_cap)).encode()
+            for part in (indptr.tobytes(), indices.tobytes(), shape):
+                h.update(part)
+                nbytes += len(part)
+        tail = repr((int(fm_cap), pad_policy)).encode()
+        h.update(tail)
+        sp.set("bytes", nbytes + len(tail))
+        return h.hexdigest()
 
 
 _DEFAULT_CACHE = PlanCache(name="default")

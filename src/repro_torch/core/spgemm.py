@@ -240,7 +240,8 @@ def plan_from_sorted(sx: SortedExpansion, k: int, nnz_cap: int) -> SpgemmPlan:
 def host_fm_cap(a: CSR, b: CSR, pad_to: int = 8, fm: int | None = None) -> int:
     """Host-side f_m (total products) rounded up to a multiple of ``pad_to``."""
     if fm is None:
-        fm = int(flops_stats(a, b.row_nnz())[0])
+        with span("host.read", site="host_fm_cap.fm"):
+            fm = int(flops_stats(a, b.row_nnz())[0])
     return max(-(-fm // pad_to) * pad_to, pad_to)
 
 
@@ -255,8 +256,11 @@ def _symbolic_sorted(rows, keys, payload, valid, m: int, fm_cap: int,
     set bits of each group per row (plain symbolic: payload 1 per product).
     ``key_bound`` None takes one past the largest key."""
     _note_stage("_symbolic_sorted")
-    if key_bound is None:
-        key_bound = int(keys.max()) + 1 if keys.numel() else 1
+    if key_bound is None and keys.numel():
+        with span("host.read", site="_symbolic_sorted.key_bound"):
+            key_bound = int(keys.max()) + 1
+    elif key_bound is None:
+        key_bound = 1
     order = _single_sort_order(rows, keys, m, max(key_bound, 1))
     rows_s, keys_s, valid_s = rows[order], keys[order], valid[order]
     pay_s = payload[order]
@@ -341,7 +345,8 @@ def symbolic(a: CSR, b: CSR, compress: str = "auto",
             use_c = True
     stats["cf"], stats["cmrf"], stats["compressed"] = cf, cmrf, use_c
     if use_c and bc is not None:
-        fm_c = max(int(_per_slot(a, bc.row_nnz(), bc.indptr.shape[0] - 1).sum()), 1)
+        with span("host.read", site="symbolic.fm_c"):
+            fm_c = max(int(_per_slot(a, bc.row_nnz(), bc.indptr.shape[0] - 1).sum()), 1)
         cap = round_capacity(fm_c, pad_policy)
         sizes = symbolic_compressed(a, bc, a.m, cap, key_bound=-(-b.k // 32))
     else:
@@ -505,7 +510,8 @@ def _repad_csr(a: CSR, nnz_cap: int) -> CSR:
     """
     if nnz_cap == a.nnz_cap:
         return a
-    nnz = int(a.indptr[-1])
+    with span("host.read", site="_repad_csr.nnz"):
+        nnz = int(a.indptr[-1])
     if nnz > nnz_cap:
         raise CapacityOverflowError(
             f"cannot repad CSR to nnz_cap={nnz_cap}: {nnz} live entries would "
@@ -520,7 +526,11 @@ def _repad_csr(a: CSR, nnz_cap: int) -> CSR:
 
 def _fm_scalars(a: CSR, b: CSR) -> tuple[int, int]:
     fm, _, maxrf = flops_stats(a, b.row_nnz())
-    return int(fm), int(maxrf)
+    with span("host.read", site="_fm_scalars.fm"):
+        fm = int(fm)
+    with span("host.read", site="_fm_scalars.maxrf"):
+        maxrf = int(maxrf)
+    return fm, maxrf
 
 
 def prepare_sparse_inputs(a: CSR, b: CSR, policy: str):
@@ -528,8 +538,12 @@ def prepare_sparse_inputs(a: CSR, b: CSR, policy: str):
     preamble of ``spgemm()`` and ``executor.spgemm_grouped``, so the inputs
     of ``structure_key`` cannot drift between them.
     Returns (a, b, fm, maxrf, fm_cap)."""
-    a = _repad_csr(a, round_capacity(max(int(a.indptr[-1]), 1), policy))
-    b = _repad_csr(b, round_capacity(max(int(b.indptr[-1]), 1), policy))
+    with span("host.read", site="prepare_sparse_inputs.nnz_a"):
+        nnz_a = int(a.indptr[-1])
+    a = _repad_csr(a, round_capacity(max(nnz_a, 1), policy))
+    with span("host.read", site="prepare_sparse_inputs.nnz_b"):
+        nnz_b = int(b.indptr[-1])
+    b = _repad_csr(b, round_capacity(max(nnz_b, 1), policy))
     fm, maxrf = _fm_scalars(a, b)
     _check_fm(fm)
     return a, b, fm, maxrf, round_capacity(fm, policy)
@@ -549,7 +563,9 @@ def resolve_plan(a: CSR, b: CSR, fm_cap: int, policy: str, cache, key=None):
             return plan, "hit", key
     with span("plan.build", structure_key=key, fm_cap=fm_cap) as sp:
         sx = expand_and_sort(a, b, fm_cap)
-        nnz_cap = round_capacity(int(sx.row_sizes.sum()), policy)
+        with span("host.read", site="resolve_plan.nnz"):
+            nnz = int(sx.row_sizes.sum())
+        nnz_cap = round_capacity(nnz, policy)
         sp.set("nnz_cap", nnz_cap)
         plan = plan_from_sorted(sx, b.k, nnz_cap)
         del sx
@@ -669,7 +685,8 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
         stats["kernel"] = choose_kernel(a, b, stats)  # advisory telemetry
         fm_cap = round_capacity(sym_stats["fm"], policy)
         stats["fm_cap"] = fm_cap
-        nnz = int(sizes.sum())
+        with span("host.read", site="spgemm.dense_nnz"):
+            nnz = int(sizes.sum())
         nnz_cap = round_capacity(nnz, policy)
         stats["nnz_c"] = nnz
         stats["nnz_cap"] = nnz_cap
@@ -715,6 +732,7 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", compress: str = "auto",
     c = CSR(indptr=plan.indptr, indices=plan.indices, values=values,
             shape=(a.m, b.k))
     stats["cache"] = cache_state
-    stats["nnz_c"] = int(plan.indptr[-1])
+    with span("host.read", site="spgemm.nnz_c"):
+        stats["nnz_c"] = int(plan.indptr[-1])
     stats["nnz_cap"] = plan.indices.shape[0]
     return SpgemmResult(c=c, plan=plan, stats=stats)

@@ -44,6 +44,7 @@ from repro_torch.kernels.spgemm_lp import spgemm_lp_bucketed
 from repro_torch.kernels.spgemm_numeric import (spgemm_numeric_bucketed,
                                                 spgemm_numeric_ref)
 from repro_torch.kernels.spgemm_symbolic import spgemm_symbolic_bucketed
+from repro_torch.obs.trace import span
 from repro_torch.runtime import faults, ladder
 from repro_torch.runtime.validate import SpgemmConfigError
 from repro_torch.sparse.formats import CSR, csr_to_ell
@@ -90,7 +91,8 @@ def resolve_numeric_kernel(a: CSR, b: CSR, kernel: str = "auto",
     if not f32_ok:
         return "xla"
     if fm is None:
-        fm = int(flops_stats(a, b.row_nnz())[0])
+        with span("host.read", site="resolve_numeric_kernel.fm"):
+            fm = int(flops_stats(a, b.row_nnz())[0])
     measured = autotune.lookup_measured(autotune.bucket_key(
         a.m, b.k, fm, a.values.dtype, b.values.dtype, table="numeric",
         device=a.device))
@@ -188,7 +190,8 @@ def numeric_values(a: CSR, b: CSR, c_idx: torch.Tensor, c_nnz: torch.Tensor, *,
     # the auto paths need fm anyway (selection rule, bucket key, the
     # ladder's static rung)
     if kernel == "auto" and fm is None:
-        fm = int(flops_stats(a, b.row_nnz())[0])
+        with span("host.read", site="numeric_values.fm"):
+            fm = int(flops_stats(a, b.row_nnz())[0])
     if tune == "measure":
         bkey = autotune.bucket_key(a.m, b.k, fm, a.values.dtype, b.values.dtype,
                                    table="numeric", device=a.device)
@@ -227,11 +230,16 @@ def pallas_spgemm(a: CSR, b: CSR, *,
     from repro_torch.core.spgemm import expand_and_sort, host_fm_cap, plan_from_sorted
 
     sizes = symbolic_rowsizes(a, b)
-    r_c = max(int(sizes.max()) if sizes.numel() else 0, 1)
+    r_c = 1
+    if sizes.numel():
+        with span("host.read", site="pallas_spgemm.r_c"):
+            r_c = max(int(sizes.max()), 1)
     # one flops_stats pass serves both the expansion cap and the selection
-    fm = int(flops_stats(a, b.row_nnz())[0])
+    with span("host.read", site="pallas_spgemm.fm"):
+        fm = int(flops_stats(a, b.row_nnz())[0])
     fm_cap = host_fm_cap(a, b, fm=fm)
-    nnz = int(sizes.sum())
+    with span("host.read", site="pallas_spgemm.nnz"):
+        nnz = int(sizes.sum())
     nnz_cap = max(-(-nnz // 8) * 8, 8)
     plan = plan_from_sorted(expand_and_sort(a, b, fm_cap), b.k, nnz_cap)
     structure = CSR(indptr=plan.indptr, indices=plan.indices,

@@ -53,6 +53,7 @@ from repro_torch.kernels.segsum_reuse import (check_replay_args, launch_replay,
                                               replay_plain, run_batched)
 from repro_torch.kernels.spgemm_numeric import (_pad_width, check_ell_args,
                                                 ell_numeric_plain, launch_ell)
+from repro_torch.obs.trace import span
 from repro_torch.runtime.validate import SpgemmConfigError, SpgemmInputError
 
 # kernel launches by ``lp_reuse_arrays`` (K2), ``lp_reuse_batched_arrays``
@@ -176,8 +177,10 @@ def device_allotment(counts: torch.Tensor, l1_size: int | None):
         allot += torch.where(counts > l1_cutoff(l1_size), l1_size, 0)
     g_off = torch.zeros(counts.shape[0] + 1, dtype=torch.int64, device=counts.device)
     torch.cumsum(allot, 0, out=g_off[1:])
-    # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its device-memory allotment, only where a row's table lives there
-    return g_off, int(g_off[-1])
+    with span("host.read", site="device_allotment.g_slots"):
+        # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its device-memory allotment, only where a row's table lives there
+        g_slots = int(g_off[-1])
+    return g_off, g_slots
 
 
 def lp_bins(c_nnz: torch.Tensor, r_c: int, l1_size: int | None):
@@ -191,8 +194,9 @@ def lp_bins(c_nnz: torch.Tensor, r_c: int, l1_size: int | None):
     r_c; None and 0 where there is no such row)."""
     bucket, order = torch.sort(_bucket(c_nnz, l1_size), stable=True)
     # where each class starts (bincount would wait for its max): the one wait
-    # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its class starts, which size the launch's grid
-    starts = torch.searchsorted(bucket, _consts(c_nnz.device, l1_size)[1]).tolist()
+    with span("host.read", site="lp_bins.starts"):
+        # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its class starts, which size the launch's grid
+        starts = torch.searchsorted(bucket, _consts(c_nnz.device, l1_size)[1]).tolist()
     starts.append(c_nnz.shape[0])
     class_rows = [b - a for a, b in zip(starts, starts[1:])]
     g_off, g_slots = None, 0
@@ -226,9 +230,15 @@ def spgemm_lp_plain(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, *,
 def _column_bound(b_idx, c_idx) -> int:
     """One past the largest column id of B's and C's ELL arrays (at least 1):
     the reference's LP kernel takes no k, and keys need no bound there."""
-    # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): two waits, only where the caller gives no k (kernels/ops always gives one)
-    top = max(int(b_idx.max()) if b_idx.numel() else 0,  # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c), as above
-              int(c_idx.max()) if c_idx.numel() else 0)
+    top = 0
+    if b_idx.numel():
+        with span("host.read", site="_column_bound.b_max"):
+            # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): two waits, only where the caller gives no k (kernels/ops always gives one)
+            top = int(b_idx.max())
+    if c_idx.numel():
+        with span("host.read", site="_column_bound.c_max"):
+            # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c), as above
+            top = max(top, int(c_idx.max()))
     return max(top + 1, 1)
 
 
@@ -273,8 +283,9 @@ def spgemm_lp(a_idx, a_val, a_nnz, b_idx, b_val, b_nnz, c_idx, c_nnz, *,
                    class_rows=class_rows, g_off=g_off, g_tab=_table(g_slots, a_idx.device),
                    lost_count=lost, lost_rows=lost_rows)
         NUMERIC_LAUNCHES += 1
-        # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its count of lost rows, which decides the rerun
-        n_lost = int(lost)  # the wait for the kernel's count of lost rows
+        with span("host.read", site="spgemm_lp.n_lost"):
+            # repro: allow[jit-boundary.host-sync] Queue 1 item 6 (c): K3's wait for its count of lost rows, which decides the rerun
+            n_lost = int(lost)  # the wait for the kernel's count of lost rows
         if n_lost:
             _redo_lost_rows(ell, lost_rows[:n_lost], l1_size)
     return out.to(torch.promote_types(a_val.dtype, b_val.dtype))

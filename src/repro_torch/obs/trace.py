@@ -1,10 +1,11 @@
 """Phase-level tracing: near-zero-overhead-when-off spans + Chrome export.
 
 Port of ``repro/obs/trace.py`` (stdlib only, plus ``torch.profiler`` in
-the "xprof" mode): the same span names, modes, event ring and Chrome
-export. "xprof" wraps every span in ``torch.profiler.record_function``, so
-the phases appear as user annotations in a ``torch.profiler`` trace beside
-the kernels they launched.
+the "xprof" mode): the same modes, event ring and Chrome export, and the
+reference's span names plus two of the port's own (``plan.hash``,
+``host.read``). "xprof" wraps every span in
+``torch.profiler.record_function``, so the phases appear as user
+annotations in a ``torch.profiler`` trace beside the kernels they launched.
 
 The repo's nine telemetry counters answer "how many times did X happen";
 nothing answered "where did the time go inside one call" — expand vs sort vs
@@ -30,7 +31,12 @@ per-phase timer hierarchy for the same reason). This module is that layer:
     from admission through grouping, ``resolve_plan``, executor dispatch and
     the retry/breaker path into the exported trace.
   * ``export_chrome_trace(path)`` writes Chrome trace-event JSON ("X"
-    complete events) loadable in chrome://tracing / Perfetto.
+    complete events) loadable in chrome://tracing / Perfetto. Its ``ts`` is
+    on the Unix-epoch clock in us, the clock of ``torch.profiler``'s
+    events, so an export of an "on" run lays over a profiler trace of it.
+  * ``span("host.read", site=...)`` wraps one device->host read on the
+    sparse path (``int()`` of a tensor, ``.tolist()``, ``.cpu()``, ...), so
+    that a profiler trace puts the device's idle time there down to it.
 
 Completed spans also feed ``obs.metrics`` latency histograms keyed by span
 name (plus a ``<name>[<kernel>]`` variant when the span carries a ``kernel``
@@ -68,7 +74,7 @@ MAX_EVENTS = 100_000
 # statically by ``python -m repro.analysis`` (rule ``span``); extend the
 # set (and the ROADMAP table) in the same commit that adds a new phase.
 SPAN_NAMES = frozenset({
-    "spgemm.prepare",     # operand normalization + structure hash
+    "spgemm.prepare",     # operand normalization: repad, flop count
     "spgemm.symbolic",    # symbolic phase: sizes + plan expansion
     "plan.build",         # plan assembly (sort, seg ids, slot maps)
     "numeric.dispatch",   # executor-level replay dispatch
@@ -76,6 +82,9 @@ SPAN_NAMES = frozenset({
     "dist.replay",        # sharded replay (the port's dist/ slice)
     "serve.admit",        # serving-tier admission decision
     "serve.dispatch",     # serving-tier batch dispatch
+    # the port's own, beyond the reference's taxonomy
+    "plan.hash",          # structure_key: host copies + digest, every caller
+    "host.read",          # one device->host read; site="<function>.<what>"
 })
 
 
@@ -113,8 +122,8 @@ def resolve_trace_mode(mode: str | bool | None) -> str:
 class _TraceState:
     """Module-global tracer state (single-threaded, reset per test)."""
 
-    __slots__ = ("mode", "events", "depth", "trace_id", "t0", "dropped",
-                 "next_id")
+    __slots__ = ("mode", "events", "depth", "trace_id", "t0", "t0_epoch_ns",
+                 "dropped", "next_id")
 
     def __init__(self):
         self.mode: str | None = None  # None = resolve $REPRO_TRACE lazily
@@ -122,6 +131,7 @@ class _TraceState:
         self.depth: int = 0
         self.trace_id: str | None = None
         self.t0: float = time.perf_counter()
+        self.t0_epoch_ns: int = time.time_ns()  # the Unix-epoch time of t0
         self.dropped: int = 0
         self.next_id: int = 0
 
@@ -322,6 +332,7 @@ def clear() -> None:
     """Drop buffered events and reset the clock origin (mode unchanged)."""
     _STATE.events.clear()
     _STATE.dropped = 0
+    _STATE.t0_epoch_ns = time.time_ns()
     _STATE.t0 = time.perf_counter()
 
 
@@ -331,14 +342,18 @@ def export_chrome_trace(path: str | None = None) -> dict:
     Returns the payload (``{"traceEvents": [...complete "X" events...]}``);
     when ``path`` is given, also writes it there. Load the file in
     chrome://tracing or https://ui.perfetto.dev. Span attrs (including the
-    propagated ``trace_id``) are in each event's ``args``.
+    propagated ``trace_id``) are in each event's ``args``. ``ts`` is in us
+    since the Unix epoch, as ``torch.profiler`` times its events: the
+    origin read at ``clear()`` with both clocks, the spans timed on
+    ``perf_counter``.
     """
+    epoch_us = _STATE.t0_epoch_ns / 1e3
     trace_events = [
         {
             "name": ev["name"],
             "cat": "repro",
             "ph": "X",
-            "ts": round(ev["ts"], 3),
+            "ts": round(epoch_us + ev["ts"], 3),
             "dur": round(ev["dur"], 3),
             "pid": 1,
             "tid": 1,

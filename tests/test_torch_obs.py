@@ -6,8 +6,11 @@ histogram quantiles and summaries on the same samples, Prometheus and JSONL
 text, recorder rings. Durations are host clock readings and are compared
 only for their sign.
 """
+import dataclasses
+import gc
 import json
 import math
+import time
 
 import numpy as np
 import pytest
@@ -38,6 +41,15 @@ def _reset_port_state():
     yield
     tfaults.reset_failpoints()
     tobs.reset_obs()
+
+
+# the spans the port adds to the reference's taxonomy
+PORT_SPANS = {"plan.hash", "host.read"}
+# a fresh sparse multiply of ``_operands`` (both repadded), in the order the
+# spans close: six reads inside spgemm.prepare, the hash's four copies, the
+# plan's size, then C's nnz for the stats
+FRESH_SPANS = (["host.read"] * 6 + ["spgemm.prepare"] + ["host.read"] * 4
+               + ["plan.hash", "host.read", "plan.build", "numeric.dispatch", "host.read"])
 
 
 def _shape_of(events):
@@ -77,7 +89,9 @@ def test_span_nesting_attributes_and_chrome_export_match_the_reference(tmp_path)
     assert strip == [{k: v for k, v in e.items() if k not in ("ts", "dur")}
                      for e in ref["traceEvents"]]
     assert payload["otherData"] == ref["otherData"] == {"dropped_events": 0}
-    assert {e["name"] for e in got} <= ttrace.SPAN_NAMES == jtrace.SPAN_NAMES
+    # the port's names are the reference's plus its own two
+    assert ttrace.SPAN_NAMES == jtrace.SPAN_NAMES | PORT_SPANS
+    assert {e["name"] for e in got} <= ttrace.SPAN_NAMES
     # the spans fed the per-phase and per-kernel histograms
     hists = tmetrics.default_registry().snapshot()["histograms"]
     assert {"plan.build", "numeric.dispatch[pallas]", "numeric.kernel[xla]"} <= set(hists)
@@ -173,10 +187,11 @@ def test_spgemm_trace_on_records_the_reference_spans_and_none_adds_none():
     spgemm(a, b, method="sparse", plan_cache=False, trace="on")
     assert ttelemetry.snapshot() == base  # tracing adds no dispatch, hash or stage
     names = [e["name"] for e in ttrace.events()]
-    assert names == ["spgemm.prepare", "plan.build", "numeric.dispatch"]
+    assert names == FRESH_SPANS
     assert not ttrace.enabled()  # the call's scope ended
     spgemm(a, b, method="dense", trace=True)
-    assert [e["name"] for e in ttrace.events()][3:] == ["spgemm.symbolic", "numeric.dispatch"]
+    assert [e["name"] for e in ttrace.events()][len(FRESH_SPANS):] == (
+        ["host.read"] * 7 + ["spgemm.symbolic", "host.read", "numeric.dispatch"])
     ex = texec.ReuseExecutor.from_matrices(a, b, plan_cache=False, backend="pallas")
     with ttrace.trace_scope("on"):
         ex.apply(a.values, b.values)
@@ -194,6 +209,123 @@ def test_xprof_mode_annotates_the_torch_profiler():
         spgemm(a, b, method="sparse", plan_cache=False, trace="xprof")
     seen = {e.key for e in prof.key_averages()}
     assert {"spgemm.prepare", "plan.build", "numeric.dispatch"} <= seen
-    assert [e["name"] for e in ttrace.events()] == ["spgemm.prepare", "plan.build",
-                                                    "numeric.dispatch"]
+    assert [e["name"] for e in ttrace.events()] == FRESH_SPANS
     assert torch.is_tensor(a.values)
+
+
+# --------------------------------------------------------------------------
+# The port's own spans: plan.hash, host.read
+# --------------------------------------------------------------------------
+
+HASH_ENTRIES = {
+    "spgemm": lambda a, b: spgemm(a, b, method="sparse", plan_cache=False),
+    "spgemm_grouped": lambda a, b: texec.spgemm_grouped(
+        [(a, b), (dataclasses.replace(a, values=a.values * 2), b)], plan_cache=False),
+    "from_matrices": lambda a, b: texec.ReuseExecutor.from_matrices(a, b, plan_cache=False),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(HASH_ENTRIES))
+def test_plan_hash_is_one_span_per_structure_key_call(entry):
+    a, b = _operands()
+    assert (a.shape, int(a.indptr[-1]), b.shape, int(b.indptr[-1])) == (
+        (40, 30), 111, (30, 35), 87)  # repadded to 128 each; 333 products, fm_cap 512
+    ttrace.set_tracing("on")
+    HASH_ENTRIES[entry](a, b)
+    hashes = [e for e in ttrace.events() if e["name"] == "plan.hash"]
+    assert len(hashes) == ttelemetry.HASH_COUNTS["structure_key"] == (
+        2 if entry == "spgemm_grouped" else 1)
+    # the span holds the whole digest: its four host copies nest inside it
+    reads = [e for e in ttrace.events()
+             if e["name"] == "host.read" and e["args"]["site"].startswith("structure_key.")]
+    assert len(reads) == 4 * len(hashes) and all(e["depth"] == 1 for e in reads)
+    assert all(e["depth"] == 0 for e in hashes)  # inside no other span
+    # the bytes hashed: each operand's indptr and live indices as int32, its
+    # shape and capacity, then (fm_cap, pad policy)
+    want = (4 * (41 + 111 + 31 + 87) + len(repr(((40, 30), 128))) + len(repr(((30, 35), 128)))
+            + len(repr((512, "pow2"))))
+    assert [e["args"]["bytes"] for e in hashes] == [want] * len(hashes)
+
+
+# every way a tensor's value reaches the host
+READS = ("item", "tolist", "cpu", "numpy", "__int__", "__float__", "__bool__", "__index__")
+
+
+def _record_reads(monkeypatch) -> list:
+    """Record each read of a tensor's values by the host: (method, time in
+    us on the tracer's clock), whatever marks it. An empty tensor carries no
+    value (``meta.f32_accumulation_ok`` reads a dtype off one)."""
+    seen = []
+    for name in READS:
+        def read(self, *args, _name=name, _orig=getattr(torch.Tensor, name), **kwargs):
+            if self.numel():
+                seen.append((_name, (time.perf_counter() - ttrace._STATE.t0) * 1e6))
+            return _orig(self, *args, **kwargs)
+        monkeypatch.setattr(torch.Tensor, name, read)
+    return seen
+
+
+# a fresh sparse multiply of ``_operands`` without a plan cache: its reads by
+# site (both operands are repadded, and the hash copies two arrays of each)
+FRESH_READS = {
+    "prepare_sparse_inputs.nnz_a": 1, "prepare_sparse_inputs.nnz_b": 1, "_repad_csr.nnz": 2,
+    "_fm_scalars.fm": 1, "_fm_scalars.maxrf": 1, "structure_key.indptr": 2,
+    "structure_key.indices": 2, "resolve_plan.nnz": 1, "spgemm.nnz_c": 1}
+
+
+@pytest.mark.parametrize("mode", ["off", "on", "xprof"])
+def test_fresh_multiply_spans_every_host_read(mode, monkeypatch):
+    a, b = _operands()
+    ttrace.clear()
+    seen = _record_reads(monkeypatch)
+    spgemm(a, b, method="sparse", plan_cache=False, trace=mode)
+    monkeypatch.undo()
+    assert len(seen) >= sum(FRESH_READS.values())
+    spans = [e for e in ttrace.events() if e["name"] == "host.read"]
+    if mode == "off":
+        assert ttrace.events() == []
+        return
+    sites = [e["args"]["site"] for e in spans]
+    assert {s: sites.count(s) for s in sites} == FRESH_READS
+    # each read of a tensor by the host lies inside a host.read span
+    for name, t in seen:
+        assert any(e["ts"] <= t <= e["ts"] + e["dur"] for e in spans), name
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas", "pallas_lp"])
+def test_replay_makes_no_host_read_and_no_event_with_tracing_off(backend, monkeypatch):
+    a, b = _operands()
+    ex = texec.ReuseExecutor.from_matrices(a, b, plan_cache=False, backend=backend)
+    ttrace.set_tracing("off")
+    ttrace.clear()
+    seen = _record_reads(monkeypatch)
+    ex.apply(a.values, b.values)
+    ex.apply_batched(torch.stack([a.values, a.values * 2]), b.values)
+    monkeypatch.undo()
+    assert seen == []
+    assert ttrace.events() == []
+
+
+def test_chrome_export_lays_over_the_profiler_clock():
+    from torch.profiler import ProfilerActivity, profile
+
+    # a collection between two clock reads would shift one against the other
+    gc.collect()
+    gc.disable()
+    try:
+        ttrace.clear()
+        ttrace.set_tracing("xprof")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with ttrace.span("plan.hash"):
+                time.sleep(0.01)
+        ttrace.set_tracing("off")
+    finally:
+        gc.enable()
+    ann = [e for e in prof.profiler.kineto_results.events()
+           if e.name() == "plan.hash" and e.is_user_annotation()]
+    exported = ttrace.export_chrome_trace()["traceEvents"]
+    assert len(ann) == 1 and [e["name"] for e in exported] == ["plan.hash"]
+    ts_us, dur_us = ann[0].start_ns() / 1e3, (ann[0].end_ns() - ann[0].start_ns()) / 1e3
+    assert dur_us >= 1e4
+    assert abs(exported[0]["ts"] - ts_us) < 2e3
+    assert abs(exported[0]["dur"] - dur_us) < 2e3

@@ -806,7 +806,11 @@ def test_service_chaos_traced_end_to_end(tmp_path):
     jobs.set_tracing("off")
     port = _chaos_traced(Side("port"), tmp_path, armed_throughout=True)
     assert_same(ref[0], port[0])
-    assert port[1] == ref[1]
+    # the port's spans are the reference's plus its own: a plan.hash at each
+    # structure_key, a host.read at each device->host read
+    own = {"plan.hash", "host.read"}
+    assert [sp for sp in port[1] if sp[0] not in own] == ref[1]
+    assert {sp[0] for sp in port[1]} >= own
     assert port[2] == ref[2]
     tobs.reset_obs()
     ttelemetry.reset_all()
