@@ -2,7 +2,7 @@
 """Run the PyTorch port's main path on one CUDA card and check it end to end.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --kernels-only   # phases 1-2: build + kernels vs plain
+    python3 chip_smoke.py --kernels-only   # phases 1-2b: build + kernels vs plain
     python3 chip_smoke.py --profile        # adds a device-time breakdown per path
 
 Phases, in order:
@@ -32,13 +32,22 @@ Phases, in order:
      per class; K3 on rows whose structure lists fewer columns than their
      products reach (the tables fill: those rows run again), and with
      l1_size=65,536 on multigrid 512^2 A*P (no row in device memory);
+ 2b. plan_columns (C's column indices of a fresh plan) bit for bit against
+     its plain version, the scatter-max, on the fresh path's sorted
+     expansions of RMAT graph 0's A*A (rmat_csr(15, 16, seed 0)) and the
+     multigrid A*P of phase 3, each at nnz_cap = nnz, at the pow2 bucket
+     above it (a zero tail) and at nnz // 2 (ids dropped), and as views at
+     offsets 1-3 (misaligned: the scalar build); and on A times an all-zero
+     B (fm 0); its time at RMAT graph 0 beside the plain version's, a plain
+     search-and-gather's (no atomics) and the bound;
   3. multigrid Reuse, the paper's R*A*P: galerkin_triple(2048, 2048, 4).
      Fresh AP = A*P and RAP = R*AP through spgemm(method="sparse"), whose
      numeric phase is kernel K1, held against scipy (structure exactly,
      values in float64), then five time steps replayed through
      ReuseExecutor(backend="pallas") — K1 again — each held against the
      plain version: 16 K1 launches (the four fresh multiplies, the two
-     executors' pins, which run spgemm, and the ten replays); then two fresh
+     executors' pins, which run spgemm, and the ten replays) and one
+     plan_columns launch for each plan built (the plan-cache misses); then two fresh
      A*P multiplies without a plan cache, bitwise equal (K1 adds in a fixed
      order) and within F32_TOL of the plain numeric_reuse; then the default
      backend ("auto"): ReuseExecutor(plan) replays twice through K1,
@@ -766,6 +775,72 @@ def phase_batched_vs_plain(seg_mod, lp_mod, ex_mod, seed: int) -> dict:
     return worst
 
 
+def plan_columns_bound(fm_cap: int, nnz: int, nnz_cap: int) -> float:
+    """ms the card needs at least for ``plan_columns``: every head flag read
+    once, the ids and columns of the nnz heads, each of the nnz_cap slots
+    written once, at 3.35 TB/s."""
+    return (fm_cap + 8 * nnz + 4 * nnz_cap) / HBM_BYTES_PER_S * 1e3
+
+
+def columns_by_search(seg_ids, cols_s, nnz: int, nnz_cap: int) -> torch.Tensor:
+    """C's columns in plain torch with no atomics, the formulation the
+    kernel is timed against: slot s's head is the first product whose
+    ``seg_ids`` reaches s (a binary search over the sorted ids), its column
+    gathered; the slots past nnz stay 0."""
+    out = torch.zeros(nnz_cap, dtype=torch.int32, device=seg_ids.device)
+    n = min(nnz, nnz_cap)
+    slots = torch.arange(n, dtype=torch.int32, device=seg_ids.device)
+    out[:n] = cols_s[torch.searchsorted(seg_ids, slots)].clamp_(min=0)
+    return out
+
+
+def phase_plan_columns(pc, root: Path, dev="cuda") -> dict:
+    """Phase 2b: ``plan_columns`` bit for bit against its plain version on
+    every case of ``tests/plan_columns_cases``, each launch counted; at RMAT
+    graph 0 the wrapper's time (its fill and the launch) beside the plain
+    version's, the plain search-and-gather's (``columns_by_search``, also
+    held bitwise) and the bound. Returns the times and the largest
+    |kernel - plain| over every case."""
+    spec = importlib.util.spec_from_file_location(
+        "plan_columns_cases", root / "tests" / "plan_columns_cases.py")
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    out, err = {}, 0
+    for case, heads, seg_ids, cols_s, nnz_cap, timed in cases.plan_columns_cases(dev, log=log):
+        want = pc.plan_columns_plain(heads, seg_ids, cols_s, nnz_cap)
+        launches = pc.LAUNCHES
+        got = pc.plan_columns(heads, seg_ids, cols_s, nnz_cap)
+        torch.cuda.synchronize()
+        require(pc.LAUNCHES == launches + (heads.shape[0] > 0 and nnz_cap > 0),
+                f"plan_columns {case}: {pc.LAUNCHES - launches} launches")
+        require(got.dtype == torch.int32 and tuple(got.shape) == (nnz_cap,),
+                f"plan_columns {case}: {got.dtype} {tuple(got.shape)}")
+        if nnz_cap:
+            err = max(err, int((got.long() - want.long()).abs().max()))
+        diff = int((got != want).sum())
+        require(diff == 0, f"plan_columns {case}: {diff} slots differ from the plain version")
+        log(f"   plan_columns {case}: bitwise the plain version's")
+        if timed:
+            nnz = int(heads.sum())
+            searched = columns_by_search(seg_ids, cols_s, nnz, nnz_cap)
+            require(torch.equal(searched, want),
+                    f"columns_by_search {case}: differs from the plain version")
+            out = {"ms": time_ms(lambda: pc.plan_columns(heads, seg_ids, cols_s, nnz_cap)),
+                   "plain_ms": time_ms(lambda: pc.plan_columns_plain(heads, seg_ids, cols_s,
+                                                                     nnz_cap), reps=3),
+                   "search_ms": time_ms(lambda: columns_by_search(seg_ids, cols_s, nnz,
+                                                                  nnz_cap)),
+                   "bound_ms": plan_columns_bound(heads.shape[0], nnz, nnz_cap),
+                   "bound_by": "bytes", "shape": case}
+            log(f"   plan_columns {case}: {out['ms']:.3f} ms (fill and launch), plain "
+                f"{out['plain_ms']:.3f} ms, search and gather {out['search_ms']:.3f} ms "
+                f"(bitwise the plain version's), bound {out['bound_ms']:.3f} ms (bytes)")
+    require(out, "plan_columns: no timed case")
+    log(f"   plan_columns: max |kernel - plain| {err} over every case")
+    out["max_abs_err"] = float(err)
+    return out
+
+
 def with_values(csr, values):
     from repro_torch.sparse import CSR
 
@@ -816,8 +891,11 @@ def phase_multigrid(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
     a_nrm = with_values(a, torch.randn(a.nnz_cap, generator=g, device="cuda"))
     log(f"   values: {int((a_nrm.values == 0).sum())} exact zeros among A's normal values")
 
+    pc = importlib.import_module("repro_torch.kernels.plan_columns")
     seg_mod.LAUNCHES = 0
     lp_mod.LAUNCHES = 0
+    pc.LAUNCHES = 0
+    builds0 = rt.stage_counts.get("plan_from_sorted", 0)
     rt.telemetry.FALLBACK_COUNTS.clear()
     # the main path: fresh products, plan-cache hits, pinned K1 replays
     ap_pos = rt.spgemm(a_pos, p, method="sparse")
@@ -855,6 +933,12 @@ def phase_multigrid(rt, seg_mod, lp_mod, seed: int, out: dict) -> None:
             f"segsum_reuse launched {launches['segsum_reuse']} times for {fresh} fresh "
             f"multiplies and {replays} replays")
     require(launches["lp_reuse"] == 0, "lp_reuse launched on the multigrid path")
+    # every plan the main path built wrote C's columns through the kernel
+    builds = rt.stage_counts.get("plan_from_sorted", 0) - builds0
+    require(builds > 0 and pc.LAUNCHES == builds,
+            f"plan_columns launched {pc.LAUNCHES} times for {builds} fresh plan builds")
+    log(f"   plan_columns: {pc.LAUNCHES} launches for {builds} fresh plan builds")
+    launches["plan_columns"] = pc.LAUNCHES
     require(all(x.stats["replay_backend"] == "pallas" for x in (ap_pos, rap_pos, ap, rap)),
             "a fresh multiply's numeric phase was not K1")
     check_fallbacks(rt, "multigrid path")
@@ -1128,7 +1212,7 @@ def ell_tol(dtype):
 
 
 def reset_launches(km) -> None:
-    km.seg.LAUNCHES = km.lp.LAUNCHES = km.lp.NUMERIC_LAUNCHES = 0
+    km.seg.LAUNCHES = km.lp.LAUNCHES = km.lp.NUMERIC_LAUNCHES = km.pc.LAUNCHES = 0
     km.sym.LAUNCHES = km.num.LAUNCHES = 0
     km.ops.reset_kernel_counts()
     km.telemetry.FALLBACK_COUNTS.clear()
@@ -5135,7 +5219,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 2 (build + kernel vs plain)")
+                    help="stop after phase 2b (build + kernels vs plain)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of each path after phase 5")
     args = ap.parse_args(argv)
@@ -5156,7 +5240,7 @@ def main(argv=None) -> int:
     from repro_torch.serve import SparseService
     import repro_torch.compat as rt_compat
     import repro_torch.dist as rt_dist
-    from repro_torch.kernels import _build, ops, segsum_reuse, spgemm_lp
+    from repro_torch.kernels import _build, ops, plan_columns, segsum_reuse, spgemm_lp
     from repro_torch.kernels import spgemm_numeric, spgemm_symbolic
     from repro_torch.obs import recorder, trace
     from repro_torch.runtime import faults
@@ -5223,6 +5307,7 @@ def main(argv=None) -> int:
         seg, lp, sym, num = segsum_reuse, spgemm_lp, spgemm_symbolic, spgemm_numeric
 
     km.ops = ops
+    km.pc = plan_columns
     km.telemetry = telemetry
     km.bsr_api = kernels_api  # plan_bsr_numeric, bsr_spgemm_numeric
     # the modules (the package exports functions of the same names)
@@ -5242,8 +5327,10 @@ def main(argv=None) -> int:
         synth_worst.update(phase_batched_vs_plain(seg_mod, lp_mod, executor, args.seed))
         synth_worst.update(phase_ell_kernels_vs_plain(rt, km, args.seed))
         synth_worst.update(phase_new_kernels_vs_plain(km, args.seed))
+    with Phase("phase 2b: plan_columns vs plain on the fresh path's sorted expansions"):
+        pc_times = phase_plan_columns(km.pc, Path(__file__).resolve().parent)
     if args.kernels_only:
-        log("kernels-only run: phases 1-2 passed; no result line")
+        log("kernels-only run: phases 1-2b passed; no result line")
         return 0
     mg, pw = {}, {}
     with Phase("phase 3: multigrid Reuse R*A*P through K1"):
@@ -5385,6 +5472,13 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": new_shape[name]})
+    kernels.append({
+        "name": "plan_columns", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/plan_columns.cu", "replaces": None,
+        "launches": mg_launches["plan_columns"], "max_abs_err": pc_times["max_abs_err"],
+        "ms": pc_times["ms"],
+        "plain_ms": pc_times["plain_ms"], "bound_ms": pc_times["bound_ms"],
+        "bound_by": pc_times["bound_by"], "library_ms": None, "shape": pc_times["shape"]})
     for k in kernels:
         k["max_err"] = k["max_abs_err"]
     print(json.dumps({"kernels": kernels}), flush=True)

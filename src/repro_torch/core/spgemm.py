@@ -20,8 +20,16 @@ relies on JAX semantics the port spells them out:
   int32 only while ``(m+1)*k < 2^31`` and otherwise runs a fused two-key sort;
 * JAX gathers clamp out-of-range indices where torch raises, so every clamp
   of the expansion is explicit;
-* JAX scatters drop the index ``nnz_cap`` (``mode="drop"``); the port adds
-  into ``nnz_cap + 1`` slots and slices the last one off;
+* JAX scatters drop the index ``nnz_cap`` (``mode="drop"``); ``numeric_reuse``
+  adds into ``nnz_cap + 1`` slots and slices the last one off;
+* C's structure comes from the boundaries of the sorted expansion, with no
+  scatter, on both devices: a row's products are one run of the sorted rows
+  (``searchsorted`` finds the runs), so its size is the heads counted across
+  it on the prefix sum that also numbers the C slots (``seg_ids``), where the
+  reference scatter-adds each head into its row; C's columns come from
+  ``kernels.plan_columns``, on the card a CUDA kernel that stores each head's
+  column once at its ``seg_ids`` slot, on the CPU the reference's
+  scatter-max (``plan_columns_plain``), bit for bit the same;
 * the product prefix sum runs in int64 and more than 2^31 - 1 products raise
   ``CapacityOverflowError``, where the reference's int32 sum would wrap.
 
@@ -67,6 +75,7 @@ from repro_torch.core.meta import (DEFAULT_PAD_POLICY, choose_kernel,
                                    round_capacity)
 from repro_torch.core.plan_cache import default_plan_cache, structure_key
 from repro_torch.core.utils import popcount, segment_ends, segmented_scan
+from repro_torch.kernels.plan_columns import plan_columns
 from repro_torch.kernels.segsum_reuse import segsum_reuse
 from repro_torch.kernels.spgemm_lp import lp_reuse
 from repro_torch.obs.trace import span, trace_scope
@@ -194,6 +203,20 @@ def expand_products(a: CSR, b: CSR, fm_cap: int) -> ProductExpansion:
     )
 
 
+def _row_sizes_from_bounds(rows_s: torch.Tensor, seen: torch.Tensor, m: int) -> torch.Tensor:
+    """(m,) int32 distinct columns per row of a sorted expansion, with no
+    atomics: row r's products are the run ``[starts[r], starts[r+1])`` of
+    ``rows_s`` (padding carries row m and sorts last, so ``starts[m]`` is the
+    live count), and its size is the heads counted across the run, read off
+    ``seen``, the heads' inclusive prefix sum."""
+    if seen.numel() == 0:
+        return torch.zeros(m, dtype=torch.int32, device=rows_s.device)
+    bounds = torch.arange(m + 1, dtype=rows_s.dtype, device=rows_s.device)
+    starts = torch.searchsorted(rows_s, bounds)
+    before = torch.where(starts > 0, seen[(starts - 1).clamp_(min=0)], 0)
+    return before[1:] - before[:-1]
+
+
 def expand_and_sort(a: CSR, b: CSR, fm_cap: int) -> SortedExpansion:
     """The fused front half of a fresh multiply: ONE expansion, ONE sort.
     Returns sorted products plus per-row distinct-column counts."""
@@ -206,9 +229,9 @@ def expand_and_sort(a: CSR, b: CSR, fm_cap: int) -> SortedExpansion:
     heads = torch.ones_like(valid_s)
     heads[1:] = (rows_s[1:] != rows_s[:-1]) | (cols_s[1:] != cols_s[:-1])
     heads &= valid_s  # padding (row == m) groups don't mint slots
-    seg_ids = (torch.cumsum(heads, 0, dtype=torch.int32) - 1).clamp_(min=0)
-    row_sizes = torch.zeros(a.m, dtype=torch.int32, device=a.device)
-    row_sizes.index_add_(0, rows_s.clamp(max=a.m - 1), heads.to(torch.int32))
+    seen = torch.cumsum(heads, 0, dtype=torch.int32)  # heads up to and at i
+    row_sizes = _row_sizes_from_bounds(rows_s, seen, a.m)
+    seg_ids = seen.sub_(1).clamp_(min=0)
     return SortedExpansion(order=order, rows_s=rows_s, cols_s=cols_s,
                            valid_s=valid_s, heads=heads, seg_ids=seg_ids,
                            a_slot=ex.a_slot, b_slot=ex.b_slot, valid=ex.valid,
@@ -220,16 +243,11 @@ def plan_from_sorted(sx: SortedExpansion, k: int, nnz_cap: int) -> SpgemmPlan:
     Precomposes the sort permutation into the slot maps."""
     _note_stage("plan_from_sorted")
     m = sx.row_sizes.shape[0]
-    dev = sx.seg_ids.device
-    c_indices = torch.zeros(nnz_cap + 1, dtype=torch.int32, device=dev)
-    c_indices.scatter_reduce_(0, sx.seg_ids.clamp(max=nnz_cap).long(),
-                              torch.where(sx.heads, sx.cols_s, 0), "amax",
-                              include_self=True)
-    indptr = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    indptr = torch.zeros(m + 1, dtype=torch.int32, device=sx.seg_ids.device)
     indptr[1:] = torch.cumsum(sx.row_sizes, 0, dtype=torch.int32)
     return SpgemmPlan(
         indptr=indptr,
-        indices=c_indices[:nnz_cap],
+        indices=plan_columns(sx.heads, sx.seg_ids, sx.cols_s, nnz_cap),
         seg_ids=torch.where(sx.valid_s, sx.seg_ids, nnz_cap).to(torch.int32),
         a_slot_s=sx.a_slot[sx.order],
         b_slot_s=sx.b_slot[sx.order],

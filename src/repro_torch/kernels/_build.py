@@ -50,7 +50,7 @@ class KernelLaunchError(RuntimeError):
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("segsum_reuse", "lp_reuse", "spgemm_symbolic", "spgemm_numeric", "spgemm_lp",
-           "bsr_spgemm", "grouped_matmul", "flash_attention")
+           "bsr_spgemm", "grouped_matmul", "flash_attention", "plan_columns")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -59,7 +59,8 @@ LAUNCH_SITES = {("kernels/segsum_reuse.py", "launch_replay"),
                 ("kernels/grouped_matmul.py", "grouped_matmul"),
                 ("kernels/spgemm_symbolic.py", "_launch"),
                 ("kernels/flash_attention.py", "flash_attention"),
-                ("kernels/bsr_spgemm.py", "bsr_spgemm_numeric")}
+                ("kernels/bsr_spgemm.py", "bsr_spgemm_numeric"),
+                ("kernels/plan_columns.py", "plan_columns")}
 # the K1/K2 replay path, which must stay free of host waits (CUDA-graph
 # capture, ROADMAP Queue 1 item 6 (d))
 REPLAY_PATH = {("kernels/segsum_reuse.py", name)

@@ -725,7 +725,8 @@ def _c_launch_argtypes(name):
             for p in params.split(",")]
 
 
-@pytest.mark.parametrize("name", ["bsr_spgemm", "grouped_matmul", "flash_attention"])
+@pytest.mark.parametrize("name", ["bsr_spgemm", "grouped_matmul", "flash_attention",
+                                  "plan_columns"])
 def test_new_c_interfaces_match_their_ctypes_signatures(name):
     import importlib
 

@@ -75,6 +75,28 @@ def _empty_rows():
     return JCSR.from_dense(dense, nnz_cap=20)
 
 
+def _dense_rows(m, k, rows, seed):
+    """An m x k operand whose nonzeros sit in ``rows`` alone, three a row."""
+    dense = np.zeros((m, k), np.float32)
+    rng = np.random.default_rng(seed)
+    for r in rows:
+        dense[r, rng.choice(k, 3, replace=False)] = rng.standard_normal(3)
+    return JCSR.from_dense(dense)
+
+
+def _no_padding():
+    """fm == fm_cap: four A entries, each meeting a B row of four, 16
+    products (two of A's rows share columns of C)."""
+    a = np.zeros((6, 5), np.float32)
+    for r, c in ((0, 0), (0, 2), (3, 1), (5, 4)):
+        a[r, c] = r + c + 1.0
+    b = np.zeros((5, 7), np.float32)
+    rng = np.random.default_rng(7)
+    for r in range(5):
+        b[r, rng.choice(7, 4, replace=False)] = rng.standard_normal(4)
+    return JCSR.from_dense(a), JCSR.from_dense(b)
+
+
 def _galerkin_ap():
     r, a, p = jgen.galerkin_triple(12, 12, 4)
     return a, p
@@ -95,6 +117,14 @@ CASES = {
     "empty_rows": lambda: (_empty_rows(), jgen.random_csr(9, 14, 2.0, 4)),
     "zero_operand": lambda: (jgen.random_csr(10, 8, 2.0, 5),
                              JCSR.from_dense(np.zeros((8, 6), np.float32))),
+    "zero_a": lambda: (JCSR.from_dense(np.zeros((9, 8), np.float32)),
+                       jgen.random_csr(8, 6, 3.0, 8)),
+    "first_row_only": lambda: (_dense_rows(10, 8, (0,), 12), _dense_rows(8, 9, range(8), 13)),
+    "last_row_only": lambda: (_dense_rows(10, 8, (9,), 14), _dense_rows(8, 9, range(8), 15)),
+    # rows 0-1, 3-4, 7-8 and 10-11 of A empty: at the start, middle and end
+    "empty_edges": lambda: (_dense_rows(12, 8, (2, 5, 6, 9), 16),
+                            _dense_rows(8, 9, range(8), 17)),
+    "no_padding": _no_padding,
     # (m+1)*k > 2^31: the reference's fused two-key sort, the port's int64 key
     "wide_key": lambda: (jgen.random_csr(70_000, 70_000, 0.02, 5),
                          jgen.random_csr(70_000, 70_000, 0.02, 6)),
@@ -131,8 +161,15 @@ def test_sparse_spgemm_matches_reference(case, policy):
         assert jr.stats[key] == tr.stats[key], key
 
 
-@pytest.mark.parametrize("case", ["random", "galerkin_ap", "rmat8", "empty_rows", "wide_key"])
+@pytest.mark.parametrize("case", ["random", "galerkin_ap", "rmat8", "empty_rows", "wide_key",
+                                  "zero_operand", "zero_a", "first_row_only", "last_row_only",
+                                  "empty_edges", "no_padding"])
 def test_expansion_and_row_sizes_match_reference(case):
+    """The expansion, the sort and the row sizes from the sorted rows'
+    boundaries, then the plan at nnz_cap = nnz and above it (a zero tail),
+    bitwise the reference's: with no product at all (either operand empty),
+    products in the first or the last row alone, empty rows at the start,
+    middle and end, and no padding."""
     ja, jb = CASES[case]()
     (ja, ta), (jb, tb) = _pair(ja), _pair(jb)
     fm_cap = jsp.host_fm_cap(ja, jb)
@@ -141,10 +178,16 @@ def test_expansion_and_row_sizes_match_reference(case):
     for f in ("row", "col", "a_slot", "b_slot", "valid"):
         np.testing.assert_array_equal(np.asarray(getattr(jx, f)),
                                       getattr(tx, f).numpy(), err_msg=f)
+    live = int(tx.valid.sum())
+    assert live == {"zero_operand": 0, "zero_a": 0, "no_padding": fm_cap}.get(case, live)
     js, ts = jsp.expand_and_sort(ja, jb, fm_cap), tsp.expand_and_sort(ta, tb, fm_cap)
     for f in ("order", "seg_ids", "heads", "row_sizes"):
         np.testing.assert_array_equal(np.asarray(getattr(js, f)),
                                       getattr(ts, f).numpy(), err_msg=f)
+    nnz = int(ts.row_sizes.sum())
+    for nnz_cap in (nnz, nnz + 5):
+        _assert_plan_equal(jsp.plan_from_sorted(js, jb.k, nnz_cap),
+                           tsp.plan_from_sorted(ts, tb.k, nnz_cap))
 
 
 @pytest.mark.parametrize("case", ["random", "banded", "rmat8", "empty_rows", "zero_operand"])
